@@ -1,0 +1,152 @@
+"""Build, load and launch-check the port's CUDA kernels.
+
+One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into a shared
+library with a plain C interface, which is loaded with ``ctypes``. The build
+runs at first use, into ``kernels/build/`` (git-ignored), under a file name
+that carries a hash of the sources and flags, so an edited source rebuilds
+and a finished build is reused.
+
+Numerics: ``--fmad=false`` (no a*b+c contraction, like eager torch) and no
+fast-math, so division and sqrt are IEEE-rounded. The kernels are held
+bit-equal (K1, K2) or within a stated tolerance (K3) to their plain torch
+versions.
+
+Each wrapper counts its launches in ``launches``; a run resets the counts
+with ``reset_launches`` and reads them afterwards to show which kernels it
+went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+SOURCES = ("hit.cu", "camera.cu", "pixel.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+# launches of each kernel since the last reset_launches()
+launches = {"hit": 0, "camera_rays": 0, "pixel_finish": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+@dataclass
+class BuildInfo:
+    path: Path
+    seconds: float    # 0.0 when an earlier build was reused
+    log: str          # nvcc's output (ptxas register/spill lines)
+
+
+_build_info: BuildInfo | None = None
+_lib = None
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        path = os.path.join(cand, "bin", "nvcc") if cand else ""
+        if path and os.path.exists(path):
+            return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put it on PATH)")
+    return found
+
+
+def build() -> BuildInfo:
+    """Compile the kernels (once per process and per source hash)."""
+    global _build_info
+    if _build_info is not None:
+        return _build_info
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update((CSRC / name).read_bytes())
+    so = BUILD_DIR / f"libyrt_kernels_{h.hexdigest()[:16]}.so"
+    if so.exists():
+        _build_info = BuildInfo(so, 0.0, "reused " + so.name)
+        return _build_info
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)
+    _build_info = BuildInfo(so, seconds, proc.stdout + proc.stderr)
+    return _build_info
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build().path))
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.yrt_error_string.restype = ctypes.c_char_p
+    lib.yrt_error_string.argtypes = [i32]
+    lib.yrt_hit.restype = i32
+    lib.yrt_hit.argtypes = [vp] * 15 + [vp] * 4 + [i32, i32] + [vp] * 4 + [vp]
+    lib.yrt_camera_rays.restype = i32
+    lib.yrt_camera_rays.argtypes = ([vp, i32, i32, i32, i32, vp, vp, f32, f32,
+                                     f32, vp, vp, vp, vp])
+    lib.yrt_pixel_finish.restype = i32
+    lib.yrt_pixel_finish.argtypes = [vp, i32, i32, i32, vp, vp, vp]
+    _lib = lib
+    return lib
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def current_stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise when a kernel launch returned a CUDA error."""
+    if err != 0:
+        msg = library().yrt_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({err})")
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape: tuple, device: torch.device) -> None:
+    """Validate a kernel argument: device, dtype, shape (-1 = any), and
+    contiguity."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != len(shape) or any(
+            s != -1 and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def device_kind(t: torch.Tensor) -> str:
+    """'cpu' or 'cuda'; any other device raises (no kernel, no plain path)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type

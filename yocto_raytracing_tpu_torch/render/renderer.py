@@ -1,0 +1,199 @@
+"""Frame renderer: camera rays, depth loop, per-pixel finish.
+
+Port of ``yocto_raytracing_tpu/render/renderer.py`` (forward, deterministic
+path). The reference's per-pixel recursion (src/raytrace.cpp:213-254)
+becomes, per chunk of pixels:
+
+* flat ray ids -> stratified camera rays (``camera.camera_rays``, K2);
+* a host loop over depth: nearest hit (``traverse.intersect_scene``, K1),
+  shading with stacked shadow rays (K1 any-hit), mirror rays with ``kr``
+  throughput; it stops at ``max_depth`` or when no ray is active;
+* per-pixel spp sums, or the tonemap to u8 (``pixel_finish``, K3).
+
+Pixels go in scanline order. Each wrapper runs its plain torch version on
+CPU tensors and its kernel on CUDA tensors; ``trace_rays(plain=True)`` runs
+every stage through its plain version on any device, the reference that the
+kernel path is compared with.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .. import scene as scene_lib
+from ..kernels import _build
+from ..ops import intersect as isect
+from ..ops import traverse
+from . import camera as camera_mod
+from . import shade as shade_mod
+
+RAY_EPS = 1e-4
+FLT_MAX = isect.FLT_MAX
+INV_GAMMA = 1 / 2.2
+
+
+def image_width(aspect: float, resolution: int) -> int:
+    """round(aspect * resolution), half away from zero (raytrace.cpp:216)."""
+    return int(math.floor(aspect * resolution + 0.5))
+
+
+# --------------------------------------------------------------------------
+# K3: per-pixel finish
+# --------------------------------------------------------------------------
+
+
+def pixel_finish_plain(rgb, spp: int, ldr: bool):
+    """(npix*spp, 3) f32 per-ray radiance -> (npix, 3) per-pixel sums (f32),
+    or with ``ldr`` the tonemapped u8: sum/spp, pow(max(x, 0), 1/2.2), clip
+    to [0, 1], * 255, truncate (image.tonemap, exposure 0)."""
+    per = rgb.reshape(-1, spp, 3)
+    acc = per[:, 0]
+    for k in range(1, spp):      # sample order, as the reference accumulates
+        acc = acc + per[:, k]
+    if not ldr:
+        return acc
+    x = acc / isect.device_scalar(spp, rgb.device)
+    x = torch.pow(torch.clamp(x, min=0.0), INV_GAMMA)
+    return (torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def pixel_finish_cuda(rgb, spp: int, ldr: bool):
+    """K3 launch: same contract as ``pixel_finish_plain``, CUDA only."""
+    dev = rgb.device
+    _build.check_tensor("rgb", rgb, torch.float32, (-1, 3), dev)
+    if spp < 1 or rgb.shape[0] % spp:
+        raise ValueError(f"{rgb.shape[0]} rays are not whole pixels of "
+                         f"{spp} samples")
+    npix = rgb.shape[0] // spp
+    out_sum = torch.empty((0 if ldr else npix, 3), dtype=torch.float32,
+                          device=dev)
+    out_u8 = torch.empty((npix if ldr else 0, 3), dtype=torch.uint8,
+                         device=dev)
+    err = _build.library().yrt_pixel_finish(
+        _build.ptr(rgb), npix, spp, int(ldr), _build.ptr(out_sum),
+        _build.ptr(out_u8), _build.current_stream())
+    _build.check_launch(err, "yrt_pixel_finish")
+    _build.launches["pixel_finish"] += 1
+    return out_u8 if ldr else out_sum
+
+
+def pixel_finish(rgb, spp: int, ldr: bool):
+    """Per-pixel spp sum (and tonemap with ``ldr``). CPU tensors take the
+    plain version; CUDA tensors launch K3 (or raise)."""
+    if _build.device_kind(rgb) == "cpu":
+        return pixel_finish_plain(rgb, spp, ldr)
+    return pixel_finish_cuda(rgb, spp, ldr)
+
+
+# --------------------------------------------------------------------------
+# depth loop
+# --------------------------------------------------------------------------
+
+
+def trace_rays(scene, ray_ids, ambient, width: int, height: int,
+               samples: int, max_depth: int, has_kd_textures: bool = True,
+               has_ks_textures: bool = True, plain: bool = False):
+    """Radiance (N, 3) f32 for a batch of flat ray ids (N,) i32."""
+    if plain:
+        _, ro, rd = camera_mod.camera_rays_plain(scene, ray_ids, width,
+                                                 height, samples)
+        isect_fn = traverse.intersect_scene_plain
+    else:
+        _, ro, rd = camera_mod.camera_rays(scene, ray_ids, width, height,
+                                           samples)
+        isect_fn = traverse.intersect_scene
+    n = ro.shape[0]
+    dev = ro.device
+
+    def occluder(p, d, tmin, tmax, mask):
+        # stacked (L, N) shadow rays -> one flat any-hit query
+        shape = p.shape[:-1]
+        res = isect_fn(scene, p.reshape(-1, 3).contiguous(),
+                       d.reshape(-1, 3).contiguous(), tmin.reshape(-1),
+                       torch.where(mask, tmax, -FLT_MAX).reshape(-1),
+                       any_hit=True)
+        return res["hit"].reshape(shape)
+
+    tmin = torch.full((n,), RAY_EPS, dtype=torch.float32, device=dev)
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    thr = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    for _ in range(max_depth):
+        if not bool(active.any()):
+            break
+        hits = isect_fn(scene, ro, rd, tmin,
+                        torch.where(active, FLT_MAX, -FLT_MAX))
+        color, kr, p, refl_dir, mask = shade_mod.shade_step(
+            scene, ro, rd, hits, ambient, active, occluder,
+            has_kd_textures=has_kd_textures, has_ks_textures=has_ks_textures)
+        acc = acc + thr * color
+        cont = mask & (kr > 0).any(dim=-1)
+        thr = torch.where(cont[:, None], thr * kr, thr)
+        # dead lanes get a constant ray; their shading is masked out
+        ro = torch.where(cont[:, None], p, 0.0).contiguous()
+        rd = torch.where(cont[:, None], refl_dir, 1.0).contiguous()
+        active = cont
+    return acc
+
+
+# --------------------------------------------------------------------------
+# frame
+# --------------------------------------------------------------------------
+
+
+def render_image(scene, meta, width: int, height: int, samples: int,
+                 ambient: float = 0.1, max_depth: int = 8,
+                 chunk_pixels: int = 1 << 15,
+                 ldr: bool = False) -> np.ndarray:
+    """Full frame -> (height, width, 4) f32 linear with alpha 1, or with
+    ``ldr`` the device-tonemapped (height, width, 4) u8 with alpha 255.
+
+    Pixels are rendered in scanline order, ``chunk_pixels`` at a time, on
+    the scene's device; the tail chunk's extra lanes repeat the last ray
+    and are dropped.
+    """
+    spp = samples * samples
+    npix = width * height
+    dev = scene.device
+    amb = torch.full((3,), ambient, dtype=torch.float32, device=dev)
+    chunk_pixels = min(chunk_pixels, npix)
+    parts = []
+    for start in range(0, npix, chunk_pixels):
+        ids = torch.arange(start * spp, (start + chunk_pixels) * spp,
+                           dtype=torch.int32, device=dev)
+        ids = torch.clamp(ids, max=npix * spp - 1)
+        rgb = trace_rays(scene, ids, amb, width, height, samples, max_depth,
+                         has_kd_textures=meta.has_kd_textures,
+                         has_ks_textures=meta.has_ks_textures)
+        parts.append(pixel_finish(rgb.contiguous(), spp, ldr))
+    out = torch.cat(parts)[:npix].cpu().numpy()
+    if ldr:
+        img = np.full((npix, 4), 255, np.uint8)
+        img[:, :3] = out
+        return img.reshape(height, width, 4)
+    img = np.ones((npix, 4), np.float32)
+    img[:, :3] = out / np.float32(spp)
+    return img.reshape(height, width, 4)
+
+
+def render_scene_file(path: str, resolution: int = 720, samples: int = 1,
+                      ambient: float = 0.1, camera: int = 0,
+                      max_depth: int = 8, chunk_pixels: int = 1 << 15,
+                      *, device, ldr: bool = False):
+    """Load + render, mirroring the reference main() (raytrace.cpp:256-287).
+
+    ``device`` is where the scene lives and the frame is rendered ("cpu" or
+    "cuda"); "cuda" raises when no card is present. Returns (image, host
+    scene, TorchScene, meta); the image is f32 HDR, or u8 with ``ldr``.
+    """
+    host = scene_lib.load_scene(path)
+    leaves, meta = scene_lib.build_device_scene(host, camera=camera)
+    tscene = scene_lib.to_torch(leaves, device)
+    width = image_width(host.cameras[camera].aspect, resolution)
+    img = render_image(tscene, meta, width, resolution, samples,
+                       ambient=ambient, max_depth=max_depth,
+                       chunk_pixels=chunk_pixels, ldr=ldr)
+    return img, host, tscene, meta
