@@ -2,14 +2,26 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from this checkout, holds each against its
-plain torch version on the card, then renders the port's main path twice
-through the user entry point ``render_scene_file(..., device="cuda")``:
+Builds the port's CUDA kernels from this checkout and holds each against its
+plain torch version on the card: K1 hit, K2 camera rays, K3 pixel finish,
+K4 shading (bit-equal), K5 shading backward and K6 camera backward (relative
+L2 error <= 1e-4 per gradient leaf). Then it drives the port's two paths
+through their user entry points:
 
-* the hair scene (lines + triangles + two point lights; the stand-in for
-  the reference's lines/refl scenes) at 910x512 with 4x4 samples, depth 4;
-* the mirror scene (``make_grad_scene``, a kr=0.5 mirror) at 512x512, 4x4
-  samples, depth 4.
+* rendering, ``render_scene_file(..., device="cuda")``: the hair scene
+  (lines + triangles + two point lights; the stand-in for the reference's
+  lines/refl scenes) at 910x512 with 4x4 samples, depth 4, and the mirror
+  scene (``make_grad_scene``, a kr=0.5 mirror) at 512x512, 4x4 samples,
+  depth 4;
+* training, ``parallel.mesh.train_step`` on 2**20 rays per step (the JAX
+  bench's training batch) of the same two frames, towards a target rendered
+  with perturbed ``mat_kd`` and ``light_ke``: step 1 with every float leaf
+  trainable, its loss against the plain path and its gradient against an
+  f64 reference, then 5 steps on the materials and lights with a strictly
+  falling loss.
+
+Each path runs with the launch counts set to 0 just before it and read just
+after, and fails if a kernel of the path never launched.
 
 Every phase raises on failure, so the exit code is non-zero unless all of
 them pass. Without a CUDA device it exits non-zero before printing any
@@ -33,6 +45,19 @@ import torch
 FLT_MAX = np.float32(3.4028235e38)
 CHUNK_PIXELS = 1 << 15
 COMPARE_PIXELS = 1 << 18
+GRAD_RAYS = 1 << 16          # K5/K6 comparisons per scene
+TRAIN_RAYS = 1 << 20         # rays per training step (bench.py:242)
+GRAD_RTOL = 1e-4             # K5/K6 relative L2 error per leaf
+# gradient of render_loss on the kernel path against its f64 reference (the
+# plain path in f64 on the kernel path's hits), relative L2 per leaf: 1e-4,
+# the K5 bound; where f32 arithmetic alone misses it (the plain f32 path is
+# as far from the reference: hair cam_fovy 6.4e-4, cam_aspect 2.5e-4, norm
+# 1.4e-4 at 2**20 rays on an H100), 1.25x the plain path's own error
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_PLAIN_FACTOR = 1.25
+TRAIN_LR = 1.0
+TRAIN_SUBSET = ("mat_kd", "mat_ks", "light_ke")
+SAMPLES, DEPTH, RES = 4, 4, 512
 
 
 def log(*args):
@@ -64,6 +89,37 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def profile_summary(fn, label: str) -> dict:
+    """One call of ``fn`` under torch.profiler: wall ms (host clock, ends in
+    a synchronize), device busy ms (sum of the trace's device events), the
+    idle share of the wall, the number of device ops and the top ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        raise AssertionError(f"profile {label}: the trace holds no device "
+                             f"event")
+    busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+    by_name = {}
+    for e in evs:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out = dict(wall_ms=wall, busy_ms=busy, idle=1.0 - busy / wall,
+               ops=len(evs))
+    log(f"profile {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
+        f"idle share {out['idle']:.3f}, device ops {len(evs)}; top: "
+        + "; ".join(f"{n[:48]} {t / 1e3:.2f} ms" for n, t in top))
+    return out
 
 
 def ordered(x: np.ndarray) -> np.ndarray:
@@ -147,7 +203,7 @@ def phase_hit_kernel(device):
     cases.append(("hair 256", lambda: testscenes.make_hair_scene(256),
                   1 << 16, 200))
     cases.append(("random 10004 instances", lambda: testscenes.
-                  make_random_scene(n_instances=10004), 1 << 18, 300))
+                  make_random_scene(n_instances=10004), 1 << 16, 300))
     for name, make, n, seed in cases:
         scene, _ = scene_on(make(), device)
         rays = random_rays(seed, n, device)
@@ -242,6 +298,10 @@ def phase_frame_kernels(scene, width, height, samples, device) -> dict:
     return rec
 
 
+FRAME_KERNELS = ("hit", "camera_rays", "pixel_finish", "shade")
+TRAIN_KERNELS = ("hit", "camera_rays", "shade", "shade_bwd", "camera_bwd")
+
+
 def phase_frame(path, resolution, samples, max_depth, device, dev_info,
                 name) -> dict:
     """One frame through render_scene_file on the card, its launch counts,
@@ -269,9 +329,13 @@ def phase_frame(path, resolution, samples, max_depth, device, dev_info,
                              f"{img.dtype}")
     if not (img[..., 3] == 255).all() or img[..., :3].max() == 0:
         raise AssertionError(f"frame {name}: alpha or black frame")
-    for k, v in counts.items():
-        if v <= 0:
+    for k in FRAME_KERNELS:
+        if counts[k] <= 0:
             raise AssertionError(f"frame {name}: kernel {k} never launched")
+    prof = profile_summary(lambda: renderer.render_scene_file(
+        path, resolution, samples, max_depth=max_depth,
+        chunk_pixels=CHUNK_PIXELS, device=device, ldr=True),
+        f"warm frame {name}")
 
     # all-plain path on the card, first COMPARE_PIXELS pixels
     npix = min(COMPARE_PIXELS, width * height)
@@ -294,7 +358,7 @@ def phase_frame(path, resolution, samples, max_depth, device, dev_info,
         f"differ ({time.perf_counter() - t0:.1f} s)")
     if d.max() > 1:
         raise AssertionError(f"frame {name}: {d.max()} u8 steps off plain")
-    return dict(counts=counts, wall=wall, rays=rays, image=img)
+    return dict(counts=counts, wall=wall, rays=rays, image=img, prof=prof)
 
 
 def phase_small_reference(path, device):
@@ -318,6 +382,245 @@ def phase_small_reference(path, device):
             raise AssertionError(f"small reference: {d} > {limit}")
 
 
+def middle_ids(width, height, samples, n, device, last=False):
+    """``n`` consecutive ray ids (scanline order) from the middle of the
+    frame, or its end with ``last``."""
+    total = width * height * samples * samples
+    first = total - n if last else (total // 2 - n // 2)
+    return torch.arange(first, first + n, dtype=torch.int32, device=device)
+
+
+def phase_shade_kernel(cases, device) -> dict:
+    """K4 against the plain shading on the same K1 hits and the same K1
+    shadow query: bit-equal outputs (ULP gap 0) and equal masks. The first
+    case is timed (CUDA events, both with the K1 shadow query)."""
+    from yocto_raytracing_tpu_torch.kernels import parity
+    from yocto_raytracing_tpu_torch.render import shade
+
+    amb = torch.full((3,), 0.1, device=device)
+    rec = None
+    for name, scene, meta, w, h, bounce, last in cases:
+        ids = middle_ids(w, h, SAMPLES, CHUNK_PIXELS * SAMPLES * SAMPLES,
+                         device, last)
+        inputs = parity.shade_inputs(scene, ids, w, h, SAMPLES, bounce, amb)
+        rep = parity.compare_shade(scene, inputs, amb, meta.has_kd_textures,
+                                   meta.has_ks_textures)
+        gaps = {k: rep[k] for k in parity.SHADE_OUTPUTS}
+        log(f"K4 shade {name}: {ids.shape[0]} rays, bounce {bounce}, "
+            f"{rep['hits']} hits; ULP gap kernel vs plain {gaps}, mask equal "
+            f"{rep['mask_equal']} (tolerance: bit-equal)")
+        if not rep["mask_equal"] or any(gaps.values()):
+            raise AssertionError(f"K4 {name}: {rep}")
+        if rec is None:
+            occ = parity.occluder(scene)
+            ro, rd, hits, active = inputs
+
+            def run(fn):
+                with torch.no_grad():
+                    fn(scene, ro, rd, hits, amb, active, occ,
+                       meta.has_kd_textures, meta.has_ks_textures)
+
+            rec = dict(max_abs_err=rep["max_abs_err"],
+                       ms=cuda_ms(lambda: run(shade.shade_step_cuda), 10),
+                       plain_ms=cuda_ms(lambda: run(shade.shade_step_plain),
+                                        3))
+            log(f"K4 shade {name}: kernel {rec['ms']:.3f} ms, plain "
+                f"{rec['plain_ms']:.3f} ms per bounce (both with the K1 "
+                f"shadow query)")
+    return rec
+
+
+def _backward_ms(outs, wrt, cots, reps):
+    return cuda_ms(lambda: torch.autograd.grad(outs, wrt, cots,
+                                               retain_graph=True), reps)
+
+
+def phase_grad_kernels(cases, device) -> dict:
+    """K5 and K6 against torch autograd of the plain versions for seeded
+    cotangents: GRAD_RAYS rays per scene, then the training batch
+    (TRAIN_RAYS) of the first case, which is also timed."""
+    from yocto_raytracing_tpu_torch.kernels import parity
+    from yocto_raytracing_tpu_torch.render import camera, shade
+
+    amb = torch.full((3,), 0.1, device=device)
+    gen = torch.Generator(device=device)
+    rec = {}
+    for k, (name, scene, meta, w, h, bounce, last) in enumerate(cases):
+        for n in ((GRAD_RAYS, TRAIN_RAYS) if k == 0 else (GRAD_RAYS,)):
+            ids = middle_ids(w, h, SAMPLES, n, device, last)
+            inputs = parity.shade_inputs(scene, ids, w, h, SAMPLES, bounce,
+                                         amb)
+            gen.manual_seed(100 + k)
+            rep = parity.compare_shade_grads(
+                scene, inputs, amb, gen, meta.has_kd_textures,
+                meta.has_ks_textures)
+            worst = parity.check_grads(rep, GRAD_RTOL, f"K5 {name}")
+            nonzero = sorted(x for x, r in rep.items() if r["norm"] > 0)
+            log(f"K5 shade_bwd {name}: {n} rays, bounce {bounce}: largest "
+                f"relative L2 error {worst:.3e} over ro, rd and "
+                f"{len(rep) - 2} scene leaves (tolerance {GRAD_RTOL}); "
+                f"plain zeros kept; non-zero: {', '.join(nonzero)}")
+            gen.manual_seed(200 + k)
+            crep = parity.compare_camera_grads(scene, ids, w, h, SAMPLES,
+                                               gen)
+            focus = crep.pop("cam_focus")
+            cworst = parity.check_grads(crep, GRAD_RTOL, f"K6 {name}")
+            if focus["max_abs"] > 1e-5 * crep["cam_axes"]["norm"]:
+                raise AssertionError(f"K6 {name} cam_focus: {focus}")
+            log(f"K6 camera_bwd {name}: {n} rays: largest relative L2 "
+                f"error {cworst:.3e} (tolerance {GRAD_RTOL}); d_focus "
+                f"{focus['norm']:.3e} kernel-plain {focus['max_abs']:.3e} "
+                f"(zero up to rounding)")
+            if n != TRAIN_RAYS:
+                continue
+            # time both backwards at the training batch
+            ro, _, hits, active = inputs
+            cots = [torch.randn(ro.shape, device=device, generator=gen)
+                    * (active & hits["hit"])[:, None] for _ in range(4)]
+            times = {}
+            for which, fn, reps in (("ms", shade.shade_step_cuda, 10),
+                                    ("plain_ms", shade.shade_step_plain, 3)):
+                outs, wrt = parity.shade_graph(fn, scene, inputs, amb,
+                                               meta.has_kd_textures,
+                                               meta.has_ks_textures)
+                times[which] = _backward_ms(outs, list(wrt.values()), cots,
+                                            reps)
+                del outs
+            rec["shade_bwd"] = dict(
+                max_abs_err=max(r["max_abs"] for r in rep.values()), **times)
+            log(f"K5 shade_bwd {name}: backward of one bounce at {n} rays: "
+                f"kernel {times['ms']:.3f} ms, plain autograd "
+                f"{times['plain_ms']:.3f} ms")
+            cam_cots = [torch.randn((n, 3), device=device, generator=gen)
+                        for _ in range(2)]
+            times = {}
+            for which, fn, reps in (("ms", camera.camera_rays_cuda, 20),
+                                    ("plain_ms", camera.camera_rays_plain,
+                                     5)):
+                outs, leaves = parity.camera_graph(fn, scene, ids, w, h,
+                                                   SAMPLES)
+                times[which] = _backward_ms(outs, list(leaves.values()),
+                                            cam_cots, reps)
+            rec["camera_bwd"] = dict(
+                max_abs_err=max(r["max_abs"] for r in crep.values()),
+                **times)
+            log(f"K6 camera_bwd {name}: backward at {n} rays: kernel "
+                f"{times['ms']:.3f} ms, plain autograd "
+                f"{times['plain_ms']:.3f} ms (the kernel's include the "
+                f"fovy/aspect chain in torch)")
+    return rec
+
+
+def perturbed(scene, seed):
+    """The scene with mat_kd and light_ke scaled by 1 + 0.2 N(0, 1)
+    (seeded numpy): what the training target is rendered from."""
+    import dataclasses
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name in ("mat_kd", "light_ke"):
+        x = getattr(scene, name)
+        f = 1 + 0.2 * rng.standard_normal(tuple(x.shape))
+        out[name] = x * torch.from_numpy(f.astype(np.float32)).to(x.device)
+    return dataclasses.replace(scene, **out)
+
+
+def phase_train(name, scene, w, h, last, device, dev_info) -> dict:
+    """``train_step`` on TRAIN_RAYS rays. Step 1 with every float leaf
+    trainable: its loss equal to the plain path's, the kernel path's
+    gradient within TRAIN_GRAD_RTOL of the f64 reference
+    (``parity.compare_loss_grads``, the plain path's own error printed
+    beside it), and the step's update ``d - lr * g`` of that gradient.
+    Then 5 steps on TRAIN_SUBSET with a strictly falling loss; wall times,
+    memory and one profiled warm step."""
+    from yocto_raytracing_tpu_torch import kernels
+    from yocto_raytracing_tpu_torch.kernels import parity
+    from yocto_raytracing_tpu_torch.parallel import mesh
+    from yocto_raytracing_tpu_torch.render import renderer
+
+    amb = torch.full((3,), 0.1, device=device)
+    ids = middle_ids(w, h, SAMPLES, TRAIN_RAYS, device, last)
+    kw = dict(width=w, height=h, samples=SAMPLES, max_depth=DEPTH)
+    target = renderer.trace_rays(perturbed(scene, 7), ids, amb, w, h,
+                                 SAMPLES, DEPTH)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    new_k, loss_k = mesh.train_step(scene, ids, target, amb, TRAIN_LR, **kw)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    for k in TRAIN_KERNELS:
+        if counts[k] <= 0:
+            raise AssertionError(f"train {name}: kernel {k} never launched")
+
+    t0 = time.perf_counter()
+    rep = parity.compare_loss_grads(scene, ids, target, amb, **kw)
+    torch.cuda.synchronize()
+    compare_s = time.perf_counter() - t0
+    lk = float(loss_k)
+    for what in ("loss", "plain_loss"):
+        if not abs(rep[what] - lk) <= 1e-5 * abs(lk):
+            raise AssertionError(f"train {name}: step loss {lk} vs {what} "
+                                 f"{rep[what]}")
+    bounds = parity.loss_grad_bounds(rep, TRAIN_GRAD_RTOL,
+                                     TRAIN_PLAIN_FACTOR)
+    worst = parity.check_grads(rep["kernel"], bounds,
+                               f"train {name} gradient")
+    worst_leaf = max(rep["kernel"], key=lambda k: rep["kernel"][k]["rel"])
+    focus = float(rep["grads"]["cam_focus"].abs())
+    if focus > 1e-5 * rep["kernel"]["cam_axes"]["norm"]:
+        raise AssertionError(f"train {name}: d cam_focus {focus}")
+    parity.check_update(scene, new_k, rep["grads"], TRAIN_LR,
+                        f"train {name}")
+    moved = sorted(k for k, r in rep["kernel"].items() if r["norm"] > 0)
+    wide = sorted(k for k, b in bounds.items() if b > TRAIN_GRAD_RTOL)
+    log(f"train {name}: step 1, all float leaves trainable, {TRAIN_RAYS} "
+        f"rays: loss {lk!r} (kernel render_loss {rep['loss']!r}, plain "
+        f"path {rep['plain_loss']!r}, f64 reference {rep['ref_loss']!r}); "
+        f"gradient vs the f64 reference: largest relative L2 error "
+        f"{worst:.3e} ({worst_leaf}; tolerance {TRAIN_GRAD_RTOL} per leaf, "
+        f"{TRAIN_PLAIN_FACTOR}x the plain f32 path's own error on "
+        f"{', '.join(wide) or 'no leaf'}), the plain f32 path's largest "
+        f"{max(r['rel'] for r in rep['plain'].values()):.3e}"
+        f"; d cam_focus {focus:.3e} (zero up to rounding); update = d - lr "
+        f"* g on every float leaf; kernel step {wall1:.3f} s, the three "
+        f"gradients {compare_s:.1f} s; launches {counts}")
+    log(f"train {name}: per leaf, relative L2 error vs the f64 reference, "
+        f"kernel path / plain path: " + ", ".join(
+            f"{k} {rep['kernel'][k]['rel']:.2e}/{rep['plain'][k]['rel']:.2e}"
+            for k in moved))
+    if name == "mirror" and rep["kernel"]["mat_kr"]["norm"] == 0:
+        raise AssertionError("train mirror: no gradient through the bounce")
+
+    cur = scene
+    losses, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cur, loss = mesh.train_step(cur, ids, target, amb, TRAIN_LR,
+                                    trainable=TRAIN_SUBSET, **kw)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train {name}: 5 steps on {', '.join(TRAIN_SUBSET)}, lr "
+        f"{TRAIN_LR}: losses {[repr(x) for x in losses]}; step wall "
+        f"{', '.join(f'{x:.4f}' for x in walls)} s = "
+        f"{', '.join(f'{TRAIN_RAYS / x / 1e6:.2f}' for x in walls)} Mrays/s "
+        f"on {dev_info['smi']}; peak memory {peak / 2**30:.2f} GiB")
+    if not all(np.isfinite(losses)) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"train {name}: loss not strictly falling "
+                             f"{losses}")
+    prof = profile_summary(lambda: mesh.train_step(
+        cur, ids, target, amb, TRAIN_LR, trainable=TRAIN_SUBSET, **kw),
+        f"warm train step {name}")
+    return dict(counts=counts, walls=walls, peak=peak, prof=prof)
+
+
 def main() -> None:
     dev_info = phase_device()
     device = torch.device("cuda")
@@ -325,6 +628,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from yocto_raytracing_tpu_torch import scene as scene_lib, testscenes
+    from yocto_raytracing_tpu_torch.render import renderer
 
     phase_build()
     phase_hit_kernel(device)
@@ -336,29 +640,50 @@ def main() -> None:
         scene_lib.save_scene(testscenes.make_grad_scene(), grad_obj)
 
         hair = scene_lib.load_scene(hair_obj)
-        hscene, _ = scene_on(hair, device)
-        from yocto_raytracing_tpu_torch.render import renderer
+        hscene, hmeta = scene_on(hair, device)
+        mscene, mmeta = scene_on(scene_lib.load_scene(grad_obj), device)
+        tscene, tmeta = scene_on(testscenes.make_textured_hair_scene(256),
+                                 device)
+        width = renderer.image_width(hair.cameras[0].aspect, RES)
+        rec = phase_frame_kernels(hscene, width, RES, SAMPLES, device)
+        # (name, scene, meta, width, height, bounce, rays from the end)
+        cases = [("hair", hscene, hmeta, width, RES, 1, False),
+                 ("mirror", mscene, mmeta, RES, RES, 2, True),
+                 ("textured hair", tscene, tmeta, width, RES, 1, False)]
+        rec["shade"] = phase_shade_kernel(cases, device)
+        rec.update(phase_grad_kernels(cases, device))
 
-        width = renderer.image_width(hair.cameras[0].aspect, 512)
-        rec = phase_frame_kernels(hscene, width, 512, 4, device)
-
-        main_frame = phase_frame(hair_obj, 512, 4, 4, device, dev_info,
-                                 "hair")
-        phase_frame(grad_obj, 512, 4, 4, device, dev_info, "mirror")
+        main_frame = phase_frame(hair_obj, RES, SAMPLES, DEPTH, device,
+                                 dev_info, "hair")
+        phase_frame(grad_obj, RES, SAMPLES, DEPTH, device, dev_info,
+                    "mirror")
         phase_small_reference(hair_obj, device)
+        main_train = phase_train("hair", hscene, width, RES, False, device,
+                                 dev_info)
+        phase_train("mirror", mscene, RES, RES, True, device, dev_info)
 
     src = "yocto_raytracing_tpu_torch/kernels/csrc/"
-    replaces = {
-        "hit": "yocto_raytracing_tpu/ops/traverse.py:82",
-        "camera_rays": "yocto_raytracing_tpu/render/camera.py:124",
-        "pixel_finish": "yocto_raytracing_tpu/render/renderer.py:106",
+    table = {  # name: (source, replaces, path that runs it)
+        "hit": ("hit.cu", "yocto_raytracing_tpu/ops/traverse.py:82",
+                main_frame),
+        "camera_rays": ("camera.cu",
+                        "yocto_raytracing_tpu/render/camera.py:124",
+                        main_frame),
+        "pixel_finish": ("pixel.cu",
+                         "yocto_raytracing_tpu/render/renderer.py:106",
+                         main_frame),
+        "shade": ("shade.cu", "yocto_raytracing_tpu/render/shade.py:159",
+                  main_frame),
+        "shade_bwd": ("shade_bwd.cu",
+                      "yocto_raytracing_tpu/render/shade.py:159",
+                      main_train),
+        "camera_bwd": ("camera.cu",
+                       "yocto_raytracing_tpu/render/camera.py:27",
+                       main_train),
     }
-    files = {"hit": "hit.cu", "camera_rays": "camera.cu",
-             "pixel_finish": "pixel.cu"}
-    kernels_rec = [dict(name=k, route="cuda", source=src + files[k],
-                        replaces=replaces[k],
-                        launches=main_frame["counts"][k], **rec[k])
-                   for k in ("hit", "camera_rays", "pixel_finish")]
+    kernels_rec = [dict(name=k, route="cuda", source=src + f, replaces=r,
+                        launches=path["counts"][k], **rec[k])
+                   for k, (f, r, path) in table.items()]
     print(json.dumps({"kernels": kernels_rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_info["kind"],

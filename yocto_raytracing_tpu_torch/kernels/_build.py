@@ -8,8 +8,8 @@ and a finished build is reused.
 
 Numerics: ``--fmad=false`` (no a*b+c contraction, like eager torch) and no
 fast-math, so division and sqrt are IEEE-rounded. The kernels are held
-bit-equal (K1, K2) or within a stated tolerance (K3) to their plain torch
-versions.
+bit-equal (K1, K2, K4) or within a stated tolerance (K3, K5, K6) to their
+plain torch versions.
 
 Each wrapper counts its launches in ``launches``; a run resets the counts
 with ``reset_launches`` and reads them afterwards to show which kernels it
@@ -31,14 +31,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("hit.cu", "camera.cu", "pixel.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("hit.cu", "camera.cu", "pixel.cu", "shade.cu", "shade_bwd.cu")
+HEADERS = ("common.cuh", "shade.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 # launches of each kernel since the last reset_launches()
-launches = {"hit": 0, "camera_rays": 0, "pixel_finish": 0}
+launches = {"hit": 0, "camera_rays": 0, "pixel_finish": 0, "shade": 0,
+            "shade_bwd": 0, "camera_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -107,12 +108,48 @@ def library() -> ctypes.CDLL:
     lib.yrt_hit.restype = i32
     lib.yrt_hit.argtypes = [vp] * 15 + [vp] * 4 + [i32, i32] + [vp] * 4 + [vp]
     lib.yrt_camera_rays.restype = i32
-    lib.yrt_camera_rays.argtypes = ([vp, i32, i32, i32, i32, vp, vp, f32, f32,
-                                     f32, vp, vp, vp, vp])
+    lib.yrt_camera_rays.argtypes = [vp, i32, i32, i32, i32] + [vp] * 9
+    lib.yrt_camera_bwd_scratch.restype = i32
+    lib.yrt_camera_bwd_scratch.argtypes = [i32]
+    lib.yrt_camera_bwd.restype = i32
+    lib.yrt_camera_bwd.argtypes = [vp, vp, vp, i32] + [vp] * 8
+    shade_p = ctypes.POINTER(ShadeScene)
+    lib.yrt_shade_prep.restype = i32
+    lib.yrt_shade_prep.argtypes = [shade_p] + [vp] * 5 + [i32] + [vp] * 5
+    lib.yrt_shade_finish.restype = i32
+    lib.yrt_shade_finish.argtypes = [shade_p] + [vp] * 6 + [i32] + [vp] * 5
+    lib.yrt_shade_bwd.restype = i32
+    lib.yrt_shade_bwd.argtypes = ([shade_p, ctypes.POINTER(ShadeGrads)]
+                                  + [vp] * 6 + [i32] + [vp] * 7)
     lib.yrt_pixel_finish.restype = i32
     lib.yrt_pixel_finish.argtypes = [vp, i32, i32, i32, vp, vp, vp]
     _lib = lib
     return lib
+
+
+class ShadeScene(ctypes.Structure):
+    """Scene arrays and constants of a shading launch: the C struct
+    ``yrt::ShadeScene`` of ``csrc/shade.cuh``, field for field."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "pos", "norm", "texcoord", "prim_v", "prim_type", "inst_axes",
+        "inst_o", "inst_mat", "inst_is_lines", "mat_kd", "mat_ks", "mat_kr",
+        "mat_rs", "mat_kd_txt", "mat_ks_txt", "tex_quad", "tex_w", "tex_h",
+        "light_pos", "light_axes", "light_o", "light_ke", "amb")]
+        + [(name, ctypes.c_int) for name in (
+            "tex_th", "tex_tw", "num_lights", "has_kd_tex", "has_ks_tex")]
+        + [(name, ctypes.c_float) for name in (
+            "gamma", "rs_exp", "texel_scale")])
+
+
+class ShadeGrads(ctypes.Structure):
+    """f64 gradient buffers of a K5 launch: ``yrt::ShadeGrads`` of
+    ``csrc/shade_bwd.cu``."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "pos", "norm", "texcoord", "inst_axes", "inst_o", "mat_kd", "mat_ks",
+        "mat_kr", "mat_rs", "light_pos", "light_axes", "light_o",
+        "light_ke")]
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

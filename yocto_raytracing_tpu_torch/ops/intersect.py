@@ -49,12 +49,13 @@ def cross(a, b):
 
 
 def sqrt(x):
-    """Correctly rounded f32 sqrt, as IEEE sqrtf and CUDA's sqrtf give it.
+    """Correctly rounded sqrt in the dtype of ``x``: for f32 as IEEE sqrtf
+    and CUDA's sqrtf give it.
 
     The f64 root of an f32 rounds to the f32 root exactly; PyTorch's
     vectorized f32 CPU sqrt can be off by an ULP.
     """
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
 def safe_sqrt(x):

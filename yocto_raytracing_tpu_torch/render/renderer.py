@@ -1,13 +1,15 @@
 """Frame renderer: camera rays, depth loop, per-pixel finish.
 
-Port of ``yocto_raytracing_tpu/render/renderer.py`` (forward, deterministic
+Port of ``yocto_raytracing_tpu/render/renderer.py`` (deterministic
 path). The reference's per-pixel recursion (src/raytrace.cpp:213-254)
 becomes, per chunk of pixels:
 
 * flat ray ids -> stratified camera rays (``camera.camera_rays``, K2);
 * a host loop over depth: nearest hit (``traverse.intersect_scene``, K1),
-  shading with stacked shadow rays (K1 any-hit), mirror rays with ``kr``
-  throughput; it stops at ``max_depth`` or when no ray is active;
+  shading (``shade.shade_step``, K4) with stacked shadow rays (K1
+  any-hit), mirror rays with ``kr`` throughput; it stops at ``max_depth`` or
+  when no ray is active. With ``differentiable=True`` the loop keeps the
+  autograd graph (K5 and K6 in the backward);
 * per-pixel spp sums, or the tonemap to u8 (``pixel_finish``, K3).
 
 Pixels go in scanline order. Each wrapper runs its plain torch version on
@@ -93,50 +95,85 @@ def pixel_finish(rgb, spp: int, ldr: bool):
 # --------------------------------------------------------------------------
 
 
-def trace_rays(scene, ray_ids, ambient, width: int, height: int,
-               samples: int, max_depth: int, has_kd_textures: bool = True,
-               has_ks_textures: bool = True, plain: bool = False):
-    """Radiance (N, 3) f32 for a batch of flat ray ids (N,) i32."""
-    if plain:
-        _, ro, rd = camera_mod.camera_rays_plain(scene, ray_ids, width,
-                                                 height, samples)
-        isect_fn = traverse.intersect_scene_plain
-    else:
-        _, ro, rd = camera_mod.camera_rays(scene, ray_ids, width, height,
-                                           samples)
-        isect_fn = traverse.intersect_scene
-    n = ro.shape[0]
-    dev = ro.device
+def make_occluder(fixed, isect_fn):
+    """The shading's shadow query: stacked (L, N) shadow rays -> (L, N)
+    bool occlusion, as one flat any-hit query of ``isect_fn`` on the
+    detached scene ``fixed``. Inputs are detached: visibility carries no
+    gradient."""
 
     def occluder(p, d, tmin, tmax, mask):
-        # stacked (L, N) shadow rays -> one flat any-hit query
         shape = p.shape[:-1]
-        res = isect_fn(scene, p.reshape(-1, 3).contiguous(),
+        p, d, tmin, tmax = (x.detach() for x in (p, d, tmin, tmax))
+        res = isect_fn(fixed, p.reshape(-1, 3).contiguous(),
                        d.reshape(-1, 3).contiguous(), tmin.reshape(-1),
                        torch.where(mask, tmax, -FLT_MAX).reshape(-1),
                        any_hit=True)
         return res["hit"].reshape(shape)
 
-    tmin = torch.full((n,), RAY_EPS, dtype=torch.float32, device=dev)
-    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    thr = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    active = torch.ones(n, dtype=torch.bool, device=dev)
-    for _ in range(max_depth):
-        if not bool(active.any()):
-            break
-        hits = isect_fn(scene, ro, rd, tmin,
-                        torch.where(active, FLT_MAX, -FLT_MAX))
-        color, kr, p, refl_dir, mask = shade_mod.shade_step(
-            scene, ro, rd, hits, ambient, active, occluder,
-            has_kd_textures=has_kd_textures, has_ks_textures=has_ks_textures)
-        acc = acc + thr * color
-        cont = mask & (kr > 0).any(dim=-1)
-        thr = torch.where(cont[:, None], thr * kr, thr)
-        # dead lanes get a constant ray; their shading is masked out
-        ro = torch.where(cont[:, None], p, 0.0).contiguous()
-        rd = torch.where(cont[:, None], refl_dir, 1.0).contiguous()
-        active = cont
-    return acc
+    return occluder
+
+
+def trace_rays(scene, ray_ids, ambient, width: int, height: int,
+               samples: int, max_depth: int, has_kd_textures: bool = True,
+               has_ks_textures: bool = True, plain: bool = False,
+               differentiable: bool = False, intersect=None):
+    """Radiance (N, 3) for a batch of flat ray ids (N,) i32; f32, or the
+    scene's float dtype on the plain path.
+
+    Detached-traversal gradients, as in the JAX package: the hit queries
+    (nearest and shadow) see a detached scene and detached rays and return
+    topology without a graph; shading recomputes every differentiable
+    quantity from the scene leaves. With ``differentiable`` the depth loop
+    keeps the autograd graph through shading (K5 in the backward on CUDA,
+    torch autograd of the plain version on the CPU) and through the loop's
+    glue; without it the loop runs under ``torch.no_grad``. The radiance is
+    the same bits either way. A step whose batch has no active ray is an
+    identity, so the loop stops there (the JAX scan's batch-dead skip).
+
+    ``intersect``, when given, replaces the path's hit query for both the
+    nearest and the shadow rays (the signature of
+    ``traverse.intersect_scene``): ``kernels.parity`` replays recorded hits
+    through it, so that an f64 reference shades the same topology.
+    """
+    # under no_grad unless differentiable (and grad mode is on)
+    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+        if plain:
+            _, ro, rd = camera_mod.camera_rays_plain(scene, ray_ids, width,
+                                                     height, samples)
+            isect_fn = traverse.intersect_scene_plain
+            shade_fn = shade_mod.shade_step_plain
+        else:
+            _, ro, rd = camera_mod.camera_rays(scene, ray_ids, width, height,
+                                               samples)
+            isect_fn = traverse.intersect_scene
+            shade_fn = shade_mod.shade_step
+        if intersect is not None:
+            isect_fn = intersect
+        fixed = scene_lib.detached(scene)
+        occluder = make_occluder(fixed, isect_fn)
+        n = ro.shape[0]
+        dev = ro.device
+        tmin = torch.full((n,), RAY_EPS, dtype=torch.float32, device=dev)
+        acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        thr = torch.ones((n, 3), dtype=torch.float32, device=dev)
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+        for _ in range(max_depth):
+            if not bool(active.any()):
+                break
+            hits = isect_fn(fixed, ro.detach(), rd.detach(), tmin,
+                            torch.where(active, FLT_MAX, -FLT_MAX))
+            color, kr, p, refl_dir, mask = shade_fn(
+                scene, ro, rd, hits, ambient, active, occluder,
+                has_kd_textures=has_kd_textures,
+                has_ks_textures=has_ks_textures)
+            acc = acc + thr * color
+            cont = mask & (kr > 0).any(dim=-1)
+            thr = torch.where(cont[:, None], thr * kr, thr)
+            # dead lanes get a constant ray; their shading is masked out
+            ro = torch.where(cont[:, None], p, 0.0).contiguous()
+            rd = torch.where(cont[:, None], refl_dir, 1.0).contiguous()
+            active = cont
+        return acc
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Hit attributes and Blinn-Phong/hair shading, plain torch.
+"""Hit attributes and Blinn-Phong/hair shading: plain torch and K4/K5.
 
 Port of ``yocto_raytracing_tpu/render/shade.py`` (packed-gather path), the
 reference's shade() body (src/raytrace.cpp:88-211) as one batched bounce:
@@ -15,12 +15,22 @@ reference's shade() body (src/raytrace.cpp:88-211) as one batched bounce:
 * ambient ``amb * kd * kd_txt`` is added once per shade, shadowed or not.
 
 Frame transforms are explicit multiply-adds (ops/intersect.py).
+
+``shade_step`` runs ``shade_step_plain`` for CPU tensors (differentiable by
+torch autograd) and ``ShadeStepFn`` for CUDA tensors: the fused forward
+kernel K4 (``kernels/csrc/shade.cu``, around K1's any-hit) and, in the
+backward, the hand-written adjoint K5 (``kernels/csrc/shade_bwd.cu``). Like
+the JAX package's remat policy, the forward saves only the rays, the hit
+topology, the mask and the shadow visibility; K5 recomputes the bounce.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ..kernels import _build
 from ..ops import intersect as isect
 from ..scene import PRIM_LINE, PRIM_TRIANGLE
 from . import texture as texture_mod
@@ -104,9 +114,9 @@ def eval_hit(scene, ro, rd, inst, prim):
                 mat=ipk[:, 12].to(torch.int32), is_lines=ipk[:, 13] == 1.0)
 
 
-def shade_step(scene, ro, rd, hits, amb, active, occluder,
-               has_kd_textures=True, has_ks_textures=True):
-    """One bounce of the reference shade() body.
+def shade_step_plain(scene, ro, rd, hits, amb, active, occluder,
+                     has_kd_textures=True, has_ks_textures=True):
+    """One bounce of the reference shade() body, plain torch (any device).
 
     ``occluder(p, d, tmin, tmax, mask)`` takes (L, N, ...) stacked shadow
     rays and returns (L, N) bool occlusion (the any-hit query).
@@ -208,3 +218,175 @@ def shade_step(scene, ro, rd, hits, amb, active, occluder,
     refl_dir = n * (2.0 * isect.dot(n, vvec))[:, None] - vvec
     kr = torch.where(mask[:, None], kr, 0.0)
     return color, kr, p, refl_dir, mask
+
+
+# --------------------------------------------------------------------------
+# K4 (forward) and K5 (backward)
+# --------------------------------------------------------------------------
+
+# scene leaves K5 returns gradients for, in ShadeStepFn's argument order
+GRAD_LEAVES = ("pos", "norm", "texcoord", "inst_axes", "inst_o", "mat_kd",
+               "mat_ks", "mat_kr", "mat_rs", "light_pos", "light_axes",
+               "light_o", "light_ke")
+_INT_LEAVES = ("prim_v", "prim_type", "inst_mat", "inst_is_lines",
+               "mat_kd_txt", "mat_ks_txt", "tex_quad", "tex_w", "tex_h")
+
+
+def _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures):
+    """The ``ShadeScene`` struct of a launch, after checking every array.
+
+    ``leaves`` maps the GRAD_LEAVES names to the tensors to shade with (the
+    autograd inputs); the integer leaves come from ``scene``.
+    """
+    dev = amb.device
+    f32, i32 = torch.float32, torch.int32
+    check = _build.check_tensor
+    shapes = dict(pos=(-1, 3), norm=(-1, 3), texcoord=(-1, 2),
+                  inst_axes=(-1, 3, 3), inst_o=(-1, 3), mat_kd=(-1, 3),
+                  mat_ks=(-1, 3), mat_kr=(-1, 3), mat_rs=(-1,),
+                  light_pos=(-1, 3), light_axes=(-1, 3, 3), light_o=(-1, 3),
+                  light_ke=(-1, 3), prim_v=(-1, 3), prim_type=(-1,),
+                  inst_mat=(-1,), inst_is_lines=(-1,), mat_kd_txt=(-1,),
+                  mat_ks_txt=(-1,), tex_quad=(-1, -1, -1, 4), tex_w=(-1,),
+                  tex_h=(-1,))
+    arrays = dict(leaves)
+    arrays.update((k, getattr(scene, k)) for k in _INT_LEAVES)
+    for name, t in arrays.items():
+        check(name, t, f32 if name in GRAD_LEAVES else i32, shapes[name],
+              dev)
+    check("amb", amb, f32, (3,), dev)
+    args = _build.ShadeScene(
+        **{k: t.data_ptr() for k, t in arrays.items()}, amb=amb.data_ptr(),
+        tex_th=scene.tex_quad.shape[1], tex_tw=scene.tex_quad.shape[2],
+        num_lights=leaves["light_ke"].shape[0],
+        has_kd_tex=int(has_kd_textures), has_ks_tex=int(has_ks_textures),
+        gamma=2.2, rs_exp=4.0, texel_scale=255.0)
+    return args
+
+
+class ShadeStepFn(torch.autograd.Function):
+    """One bounce on the card: K4 forward, K5 backward.
+
+    ``forward(ctx, scene, occluder, has_kd_textures, has_ks_textures, ro,
+    rd, inst, prim, mask, amb, *leaves)`` with ``leaves`` the GRAD_LEAVES
+    tensors; returns (color, kr, p, refl_dir). Saved for the backward: ro,
+    rd, inst, prim, mask and the (L, N) occlusion. Masked lanes get exactly
+    zero gradient. ``amb`` takes no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, scene, occluder, has_kd_textures, has_ks_textures, ro,
+                rd, inst, prim, mask, amb, *leaves):
+        n = ro.shape[0]
+        dev = ro.device
+        f32 = torch.float32
+        check = _build.check_tensor
+        check("ro", ro, f32, (n, 3), dev)
+        check("rd", rd, f32, (n, 3), dev)
+        check("inst", inst, torch.int32, (n,), dev)
+        check("prim", prim, torch.int32, (n,), dev)
+        check("mask", mask, torch.bool, (n,), dev)
+        named = dict(zip(GRAD_LEAVES, leaves))
+        args = _shade_args(scene, named, amb, has_kd_textures,
+                           has_ks_textures)
+        lib = _build.library()
+        ptr = _build.ptr
+        stream = _build.current_stream()
+        nl = args.num_lights
+        if not (nl and n):
+            occ = torch.zeros((nl, n), dtype=torch.bool, device=dev)
+        else:
+            sh_o = torch.empty((nl, n, 3), dtype=f32, device=dev)
+            sh_d = torch.empty((nl, n, 3), dtype=f32, device=dev)
+            sh_tmin = torch.empty((nl, n), dtype=f32, device=dev)
+            sh_tmax = torch.empty((nl, n), dtype=f32, device=dev)
+            err = lib.yrt_shade_prep(
+                ctypes.byref(args), ptr(ro), ptr(rd), ptr(inst), ptr(prim),
+                ptr(mask), n, ptr(sh_o), ptr(sh_d), ptr(sh_tmin),
+                ptr(sh_tmax), stream)
+            _build.check_launch(err, "yrt_shade_prep")
+            occ = occluder(sh_o, sh_d, sh_tmin, sh_tmax,
+                           mask[None].expand(nl, n)).contiguous()
+            check("occluder result", occ, torch.bool, (nl, n), dev)
+        outs = [torch.empty((n, 3), dtype=f32, device=dev) for _ in range(4)]
+        err = lib.yrt_shade_finish(
+            ctypes.byref(args), ptr(ro), ptr(rd), ptr(inst), ptr(prim),
+            ptr(mask), ptr(occ), n, *(ptr(o) for o in outs), stream)
+        _build.check_launch(err, "yrt_shade_finish")
+        _build.launches["shade"] += 1
+        ctx.scene = scene
+        ctx.tex = (has_kd_textures, has_ks_textures)
+        ctx.save_for_backward(ro, rd, inst, prim, mask, occ, amb, *leaves)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, g_color, g_kr, g_p, g_refl):
+        ro, rd, inst, prim, mask, occ, amb, *leaves = ctx.saved_tensors
+        if ctx.needs_input_grad[9]:
+            raise NotImplementedError("the ambient term takes no gradient "
+                                      "on the CUDA path")
+        d_ro, d_rd, grads = shade_step_bwd(
+            ctx.scene, dict(zip(GRAD_LEAVES, leaves)), amb, ro, rd, inst,
+            prim, mask, occ, (g_color, g_kr, g_p, g_refl), *ctx.tex)
+        return (None, None, None, None, d_ro, d_rd, None, None, None, None,
+                *(grads[k] for k in GRAD_LEAVES))
+
+
+def shade_step_bwd(scene, leaves, amb, ro, rd, inst, prim, mask, occ,
+                   cotangents, has_kd_textures=True, has_ks_textures=True):
+    """K5 launch: (d_ro, d_rd, {leaf name: gradient}) of one bounce for the
+    cotangents of (color, kr, p, refl_dir). CUDA only.
+
+    The leaf gradients are f64 atomic sums rounded to f32: the order of
+    the sums varies from run to run, and with it, rarely, the last bit
+    (see ``kernels/csrc/shade_bwd.cu``).
+    """
+    n = ro.shape[0]
+    dev = ro.device
+    f32 = torch.float32
+    args = _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures)
+    cots = []
+    for name, g in zip(("g_color", "g_kr", "g_p", "g_refl"), cotangents):
+        g = g.contiguous()
+        _build.check_tensor(name, g, f32, (n, 3), dev)
+        cots.append(g)
+    grads = {k: torch.zeros_like(leaves[k], dtype=torch.float64)
+             for k in GRAD_LEAVES}
+    gstruct = _build.ShadeGrads(**{k: v.data_ptr() for k, v in grads.items()})
+    d_ro = torch.empty((n, 3), dtype=f32, device=dev)
+    d_rd = torch.empty((n, 3), dtype=f32, device=dev)
+    ptr = _build.ptr
+    err = _build.library().yrt_shade_bwd(
+        ctypes.byref(args), ctypes.byref(gstruct), ptr(ro), ptr(rd),
+        ptr(inst), ptr(prim), ptr(mask), ptr(occ), n, *(ptr(g) for g in cots),
+        ptr(d_ro), ptr(d_rd), _build.current_stream())
+    _build.check_launch(err, "yrt_shade_bwd")
+    _build.launches["shade_bwd"] += 1
+    return d_ro, d_rd, {k: v.to(f32) for k, v in grads.items()}
+
+
+def shade_step_cuda(scene, ro, rd, hits, amb, active, occluder,
+                    has_kd_textures=True, has_ks_textures=True):
+    """K4 launch (K5 in the backward): same contract as
+    ``shade_step_plain``, CUDA only."""
+    mask = active & hits["hit"]
+    color, kr, p, refl_dir = ShadeStepFn.apply(
+        scene, occluder, has_kd_textures, has_ks_textures, ro, rd,
+        hits["inst"], hits["prim"], mask, amb,
+        *(getattr(scene, k) for k in GRAD_LEAVES))
+    return color, kr, p, refl_dir, mask
+
+
+def shade_step(scene, ro, rd, hits, amb, active, occluder,
+               has_kd_textures=True, has_ks_textures=True):
+    """One bounce of the reference shade() body: (color, kr, p, refl_dir,
+    hit_mask).
+
+    CPU tensors take the plain version; CUDA tensors launch K4 (or raise),
+    and K5 in the backward.
+    """
+    if _build.device_kind(ro) == "cpu":
+        return shade_step_plain(scene, ro, rd, hits, amb, active, occluder,
+                                has_kd_textures, has_ks_textures)
+    return shade_step_cuda(scene, ro, rd, hits, amb, active, occluder,
+                           has_kd_textures, has_ks_textures)

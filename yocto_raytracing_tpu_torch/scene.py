@@ -13,7 +13,7 @@ Port of ``yocto_raytracing_tpu/scene.py`` without its JAX pytree:
 * ``TorchScene``: the same leaves as tensors on one device, made by
   ``to_torch`` (from this package's arrays) or ``from_jax_arrays`` (from the
   leaves of a JAX ``DeviceScene``, so both packages compute on identical
-  inputs).
+  inputs); ``detached`` gives the view the hit queries take.
 
 Frames are ``axes`` (3, 3) with rows = x/y/z axis vectors plus origin ``o``.
 """
@@ -614,10 +614,18 @@ class TorchScene:
 LEAF_NAMES = tuple(f.name for f in fields(TorchScene))
 
 
+def detached(scene: TorchScene) -> TorchScene:
+    """The same leaves, detached from any autograd graph (no copy): what the
+    hit queries see, so the traversal records no graph (detached-traversal
+    gradients)."""
+    return TorchScene(*(getattr(scene, n).detach() for n in LEAF_NAMES))
+
+
 def to_torch(np_scene: Mapping[str, np.ndarray], device) -> TorchScene:
     """{leaf name: numpy array} -> TorchScene on ``device``.
 
-    Float leaves become f32 and integer leaves i32, values unchanged.
+    Float leaves become f32 and integer leaves i32, values and shapes
+    unchanged (the camera scalars are 0-dim).
     Raises if a leaf is missing or unknown, or if ``device`` is a CUDA
     device and no card is present.
     """
@@ -634,8 +642,9 @@ def to_torch(np_scene: Mapping[str, np.ndarray], device) -> TorchScene:
     for name in LEAF_NAMES:
         a = np.asarray(np_scene[name])
         dtype = np.float32 if np.issubdtype(a.dtype, np.floating) else np.int32
+        # np.array keeps 0-dim leaves 0-dim (ascontiguousarray would not)
         out[name] = torch.from_numpy(
-            np.ascontiguousarray(a, dtype)).to(device)
+            np.array(a, dtype, order="C")).to(device)
     return TorchScene(**out)
 
 

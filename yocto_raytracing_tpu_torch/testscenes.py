@@ -6,6 +6,8 @@ the same float arithmetic, so every scene equals the JAX package's.
 
 * ``make_hair_scene``: the lines_pointlight stand-in (line strands over a
   sphere, a floor, two point lights);
+* ``make_textured_hair_scene``: the hair scene with kd and ks checker
+  textures (floor and sphere), for the texture branch of shading and d_uv;
 * ``make_grad_scene``: one triangle over a ``kr=0.5`` mirror, one light;
 * ``make_random_scene``: random mixed-primitive multi-instance scenes.
 """
@@ -20,6 +22,7 @@ from .scene import (
     HostMaterial,
     HostScene,
     HostShape,
+    HostTexture,
     compute_smooth_normals,
     DEFAULT_POINTLINE_RADIUS,
 )
@@ -179,6 +182,32 @@ def make_hair_scene(n_strands=256) -> HostScene:
     shape_mat = [0, 1, 2, 3, 3]
     cam = lookat_camera("cam", eye=(0.0, 1.8, 3.2), target=(0, 0.9, 0))
     return assemble(shapes, materials, shape_mat, [cam])
+
+
+def checker_image(width, height, tile, c0, c1) -> np.ndarray:
+    """(height, width, 4) u8 checkerboard, ``c0`` where
+    ``(i // tile + j // tile)`` is even (the JAX package's
+    ``procedural.make_checker_image``)."""
+    j, i = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    even = (i // tile + j // tile) % 2 == 0
+    return np.where(even[..., None], np.asarray(c0, np.uint8),
+                    np.asarray(c1, np.uint8)).astype(np.uint8)
+
+
+def make_textured_hair_scene(n_strands=64) -> HostScene:
+    """``make_hair_scene`` with a kd checker on the floor and a ks checker
+    (ks 0.5) on the sphere."""
+    host = make_hair_scene(n_strands)
+    host.textures = [
+        HostTexture("checker_kd.png", ldr=checker_image(
+            64, 48, 8, (200, 60, 30, 255), (40, 120, 220, 255))),
+        HostTexture("checker_ks.png", ldr=checker_image(
+            32, 32, 4, (250, 250, 250, 255), (10, 80, 10, 255))),
+    ]
+    host.materials[0].kd_txt = 0      # floor
+    host.materials[1].ks_txt = 1      # interior sphere
+    host.materials[1].ks = np.full(3, 0.5, np.float32)
+    return host
 
 
 def make_grad_scene() -> HostScene:
