@@ -4,9 +4,10 @@
 
 Builds the port's CUDA kernels from this checkout and holds each against its
 plain torch version on the card: K1 hit, K2 camera rays, K3 pixel finish,
-K4 shading (bit-equal), K5 shading backward and K6 camera backward (relative
-L2 error <= 1e-4 per gradient leaf). Then it drives the port's two paths
-through their user entry points:
+K4 shading (bit-equal, also with per-ray light positions), K5 shading
+backward and K6 camera backward (relative L2 error <= 1e-4 per gradient
+leaf), K7 stochastic camera rays and K8 area-light points (bit-equal). Then
+it drives the port's three paths through their user entry points:
 
 * rendering, ``render_scene_file(..., device="cuda")``: the hair scene
   (lines + triangles + two point lights; the stand-in for the reference's
@@ -18,7 +19,15 @@ through their user entry points:
   with perturbed ``mat_kd`` and ``light_ke``: step 1 with every float leaf
   trainable, its loss against the plain path and its gradient against an
   f64 reference, then 5 steps on the materials and lights with a strictly
-  falling loss.
+  falling loss;
+* the stochastic modes, ``render_scene_file(..., stochastic=True, seed=7,
+  area_lights=True, device="cuda")``: the hair scene with an emissive quad
+  and an emissive polyline for its two lights and a 0.1 aperture, at
+  910x512, and the mirror scene with an emissive quad light, at 512x512,
+  both 4x4 samples, depth 4. Each frame is held within 1 u8 step of the
+  all-plain path, bit-identical on a rerun and at another chunk size, and
+  different under another seed; the point-light hair frame in area mode is
+  the deterministic frame bit for bit.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails if a kernel of the path never launched.
@@ -26,8 +35,13 @@ after, and fails if a kernel of the path never launched.
 Every phase raises on failure, so the exit code is non-zero unless all of
 them pass. Without a CUDA device it exits non-zero before printing any
 result. The line before the last is the per-kernel JSON record
-(``{"kernels": [...]}``); the last line is
+(``{"kernels": [...]}``: launches on the path that runs the kernel, largest
+difference from the plain version, kernel / plain / library-call ms, and
+the least time the card could take, ``bound_ms``, from the bytes each input
+and output needs once and the operations counted from the kernel source);
+the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+The script imports nothing of JAX or of the JAX package, and checks it.
 """
 
 from __future__ import annotations
@@ -58,6 +72,16 @@ TRAIN_PLAIN_FACTOR = 1.25
 TRAIN_LR = 1.0
 TRAIN_SUBSET = ("mat_kd", "mat_ks", "light_ke")
 SAMPLES, DEPTH, RES = 4, 4, 512
+SEED = 7
+# NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# operations per ray (per light and ray for light_points), counted from the
+# kernel sources, integer and float alike; K1's are a floor (one slab test
+# per ray: its traversal depends on the data and is not counted)
+OPS_PER_RAY = {"hit": 30, "camera_rays": 45, "pixel_finish": 6,
+               "shade": 360, "shade_bwd": 1100, "camera_bwd": 110,
+               "camera_rays_stochastic": 150, "light_points": 60}
 
 
 def log(*args):
@@ -94,7 +118,8 @@ def cuda_ms(fn, reps: int) -> float:
 def profile_summary(fn, label: str) -> dict:
     """One call of ``fn`` under torch.profiler: wall ms (host clock, ends in
     a synchronize), device busy ms (sum of the trace's device events), the
-    idle share of the wall, the number of device ops and the top ops."""
+    idle share of the wall, the number of device ops, the top ops and the
+    device microseconds of every op name (``by_name``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -115,11 +140,64 @@ def profile_summary(fn, label: str) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out = dict(wall_ms=wall, busy_ms=busy, idle=1.0 - busy / wall,
-               ops=len(evs))
+               ops=len(evs), by_name=by_name)
     log(f"profile {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
         f"idle share {out['idle']:.3f}, device ops {len(evs)}; top: "
         + "; ".join(f"{n[:48]} {t / 1e3:.2f} ms" for n, t in top))
     return out
+
+
+# the device functions of each kernel wrapper, as the profiler names them
+DEVICE_FUNCTIONS = {
+    "hit": ("hit_kernel",), "camera_rays": ("camera_rays_kernel",),
+    "pixel_finish": ("pixel_finish_kernel",),
+    "shade": ("shade_prep_kernel", "shade_finish_kernel"),
+    "shade_bwd": ("shade_bwd_kernel",),
+    "camera_bwd": ("camera_bwd_partial_kernel", "camera_bwd_sum_kernel"),
+    "camera_rays_stochastic": ("camera_rays_stochastic_kernel",),
+    "light_points": ("light_points_kernel",)}
+
+
+def device_ms(prof: dict, kernel: str, launches: int) -> float:
+    """Device milliseconds per launch of ``kernel`` in a profiled path run
+    (its device functions' summed time over the wrapper's launches): the
+    kernel alone, without the host work around its launch."""
+    us = sum(t for name, t in prof["by_name"].items()
+             if any(name.startswith(f"yrt::{fn}(")
+                    for fn in DEVICE_FUNCTIONS[kernel]))
+    if us == 0:
+        raise AssertionError(f"the profile of {kernel}'s path holds none "
+                             f"of its device functions")
+    return us / 1e3 / launches
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(name: str, nbytes_: int, rays: int) -> dict:
+    """``bound_ms``, the least time the card could take: the larger of the
+    bytes over the memory rate and the operations (OPS_PER_RAY[name] *
+    rays) over the f32 rate; ``bound_by`` says which."""
+    t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = OPS_PER_RAY[name] * rays / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def leaves_bytes(scene, names) -> int:
+    return nbytes(*(getattr(scene, k) for k in names))
+
+
+HIT_LEAVES = ("node_bbox_min", "node_bbox_max", "node_start", "node_count",
+              "node_isleaf", "node_kind", "node_skip", "leaf_items",
+              "inst_axes", "inst_o", "inst_shape_root", "prim_v",
+              "prim_type", "pos", "radius")
+SHADE_LEAVES = ("pos", "norm", "texcoord", "prim_v", "prim_type",
+                "inst_axes", "inst_o", "inst_mat", "inst_is_lines", "mat_kd",
+                "mat_ks", "mat_kr", "mat_rs", "mat_kd_txt", "mat_ks_txt",
+                "tex_quad", "tex_w", "tex_h", "light_pos", "light_axes",
+                "light_o", "light_ke")
 
 
 def ordered(x: np.ndarray) -> np.ndarray:
@@ -249,7 +327,8 @@ def phase_frame_kernels(scene, width, height, samples, device) -> dict:
         ms=cuda_ms(lambda: camera.camera_rays(scene, ids, width, height,
                                               samples), 20),
         plain_ms=cuda_ms(lambda: camera.camera_rays_plain(
-            scene, ids, width, height, samples), 5))
+            scene, ids, width, height, samples), 5),
+        library_ms=None, **bound("camera_rays", nbytes(ids, *b), n))
     log(f"K2 camera rays: {n} rays, max |kernel - plain| {err} "
         f"(tolerance 1 ULP)")
 
@@ -267,7 +346,10 @@ def phase_frame_kernels(scene, width, height, samples, device) -> dict:
         ms=cuda_ms(lambda: traverse.intersect_scene(scene, ro, rd, tmin,
                                                      tmax), 10),
         plain_ms=cuda_ms(lambda: traverse.intersect_scene_plain(
-            scene, ro, rd, tmin, tmax), 1))
+            scene, ro, rd, tmin, tmax), 1),
+        library_ms=None,
+        **bound("hit", nbytes(ro, rd, tmin, tmax, *kern.values())
+                + leaves_bytes(scene, HIT_LEAVES), n))
     log(f"K1 hair primary rays: {n} rays, {int(kern['hit'].sum())} hits, "
         f"t bit-equal {exact}/{n} (tolerance: hit equal, t within 1 ULP)")
 
@@ -291,10 +373,16 @@ def phase_frame_kernels(scene, width, height, samples, device) -> dict:
         max_abs_err=max(errs),
         ms=cuda_ms(lambda: renderer.pixel_finish(rgb, spp, True), 20),
         plain_ms=cuda_ms(lambda: renderer.pixel_finish_plain(rgb, spp, True),
-                         5))
+                         5),
+        # one PyTorch call for the spp sum (without the tonemap to u8)
+        library_ms=cuda_ms(lambda: rgb.view(-1, spp, 3).sum(1), 20),
+        **bound("pixel_finish", nbytes(rgb) + CHUNK_PIXELS * 3, n))
+    sum_ms = cuda_ms(lambda: renderer.pixel_finish(rgb, spp, False), 20)
     log(f"K3 pixel finish: {CHUNK_PIXELS} pixels x {spp} spp, "
         f"max |kernel - plain| sums {errs[0]}, u8 {errs[1]} (tolerance: "
-        f"sums 1e-6 relative, u8 1 step)")
+        f"sums 1e-6 relative, u8 1 step); kernel u8 "
+        f"{rec['pixel_finish']['ms']:.4f} ms, kernel f32 sums {sum_ms:.4f} "
+        f"ms, torch sum(1) {rec['pixel_finish']['library_ms']:.4f} ms")
     return rec
 
 
@@ -361,6 +449,250 @@ def phase_frame(path, resolution, samples, max_depth, device, dev_info,
     return dict(counts=counts, wall=wall, rays=rays, image=img, prof=prof)
 
 
+STOCHASTIC_KERNELS = ("hit", "camera_rays_stochastic", "light_points",
+                      "shade", "pixel_finish")
+
+
+def set_geometry(shp, pos, lines=(), triangles=()):
+    """Give a host shape new vertices and elements (no points); normals,
+    texcoords and radii as a loader would leave them."""
+    shp.pos = np.asarray(pos, np.float32)
+    shp.points = np.zeros(0, np.int32)
+    shp.lines = np.asarray(lines, np.int32).reshape(-1, 2)
+    shp.triangles = np.asarray(triangles, np.int32).reshape(-1, 3)
+    shp.norm = np.zeros((0, 3), np.float32)
+    shp.texcoord = np.zeros((len(shp.pos), 2), np.float32)
+    shp.radius = np.zeros(0, np.float32)
+
+
+def light_shape(host, name):
+    ist = next(i for i in host.instances if i.name == name)
+    return host.shapes[ist.shape]
+
+
+def quad(center):
+    """A 1 m square around ``center`` in its horizontal plane, two
+    triangles facing down."""
+    c = np.asarray(center, np.float32)
+    return ([c + d for d in ([-0.5, 0, -0.5], [0.5, 0, -0.5],
+                             [0.5, 0, 0.5], [-0.5, 0, 0.5])],
+            [[0, 1, 2], [0, 2, 3]])
+
+
+def area_hair_scene():
+    """``make_hair_scene(256)`` with light1 an emissive 1 m quad at (2, 4,
+    3) facing down, light2 an emissive 4-segment polyline around (-2.5,
+    3.5, -1) (ke stays 40) and the camera's aperture 0.1 at its focus, the
+    distance to the target."""
+    from yocto_raytracing_tpu_torch import scene as scene_lib, testscenes
+
+    host = testscenes.make_hair_scene(256)
+    pos, tris = quad((2.0, 4.0, 3.0))
+    set_geometry(light_shape(host, "light1"), pos, triangles=tris)
+    c = np.asarray([-2.5, 3.5, -1.0], np.float32)
+    set_geometry(light_shape(host, "light2"),
+                 [c + [dx, 0.1 * dx * dx, 0.3 * dx]
+                  for dx in (-0.8, -0.3, 0.0, 0.4, 0.9)],
+                 lines=[[0, 1], [1, 2], [2, 3], [3, 4]])
+    host.cameras[0].aperture = 0.1
+    return scene_lib.finalize_scene(host)
+
+
+def area_mirror_scene():
+    """``make_grad_scene()`` with its point light an emissive 1 m quad
+    around the same point, facing down."""
+    from yocto_raytracing_tpu_torch import scene as scene_lib, testscenes
+
+    host = testscenes.make_grad_scene()
+    shp = light_shape(host, "light")
+    pos, tris = quad(shp.pos[0])
+    set_geometry(shp, pos, triangles=tris)
+    return scene_lib.finalize_scene(host)
+
+
+def phase_stochastic(host, device) -> dict:
+    """K7, K8 and K4 with per-ray light positions against their plain
+    versions on the middle 524,288-ray chunk of the area hair frame
+    (bit-equal), and their CUDA-event times."""
+    from yocto_raytracing_tpu_torch import scene as scene_lib
+    from yocto_raytracing_tpu_torch.kernels import parity
+    from yocto_raytracing_tpu_torch.render import (camera, lights, renderer,
+                                                   shade)
+
+    leaves, meta = scene_lib.build_device_scene(host)
+    scene = scene_lib.to_torch(leaves, device)
+    sampler = lights.build_light_sampler(host, leaves, meta, device)
+    width = renderer.image_width(host.cameras[0].aspect, RES)
+    n = CHUNK_PIXELS * SAMPLES * SAMPLES
+    ids = middle_ids(width, RES, SAMPLES, n, device)
+    rec = {}
+
+    rep = parity.compare_camera_stochastic(scene, ids, width, RES, SAMPLES,
+                                           SEED)
+    log(f"K7 stochastic camera rays: {n} rays, aperture "
+        f"{float(scene.cam_aperture)}; ULP gap kernel vs plain uv "
+        f"{rep['uv']}, ro {rep['ro']}, rd {rep['rd']} (tolerance: "
+        f"bit-equal)")
+    if rep["uv"] or rep["ro"] or rep["rd"]:
+        raise AssertionError(f"K7: {rep}")
+    outs = camera.camera_rays_stochastic_cuda(scene, ids, width, RES,
+                                              SAMPLES, SEED)
+    rec["camera_rays_stochastic"] = dict(
+        max_abs_err=rep["max_abs_err"],
+        ms=cuda_ms(lambda: camera.camera_rays_stochastic_cuda(
+            scene, ids, width, RES, SAMPLES, SEED), 20),
+        plain_ms=cuda_ms(lambda: camera.camera_rays_stochastic_plain(
+            scene, ids, width, RES, SAMPLES, SEED), 5),
+        library_ms=None,
+        **bound("camera_rays_stochastic", nbytes(ids, *outs), n))
+
+    rep = parity.compare_light_points(scene, sampler, ids, SEED)
+    nl = int(sampler["cdf"].shape[0])
+    log(f"K8 light points: {nl} lights x {n} rays, elements "
+        f"{sampler['n'].tolist()}; ULP gap kernel vs plain {rep['points']}, "
+        f"bit-equal {rep['equal']} (tolerance: bit-equal)")
+    if not rep["equal"]:
+        raise AssertionError(f"K8: {rep}")
+    lpos = lights.sample_light_points_cuda(scene, sampler, ids, SEED)
+    rec["light_points"] = dict(
+        max_abs_err=rep["max_abs_err"],
+        ms=cuda_ms(lambda: lights.sample_light_points_cuda(
+            scene, sampler, ids, SEED), 20),
+        plain_ms=cuda_ms(lambda: lights.sample_light_points_plain(
+            scene, sampler, ids, SEED), 5),
+        library_ms=None,
+        **bound("light_points", nbytes(ids, lpos, *sampler.values(),
+                                       scene.prim_v, scene.prim_type,
+                                       scene.pos), nl * n))
+
+    amb = torch.full((3,), 0.1, device=device)
+    ro, rd, hits, active = inputs = parity.shade_inputs(
+        scene, ids, width, RES, SAMPLES, 1, amb)
+    rep = parity.compare_shade(scene, inputs, amb, meta.has_kd_textures,
+                               meta.has_ks_textures, light_pos=lpos)
+    gaps = {k: rep[k] for k in parity.SHADE_OUTPUTS}
+    log(f"K4 shade with per-ray lights: {n} rays, {rep['hits']} hits; ULP "
+        f"gap kernel vs plain {gaps}, mask equal {rep['mask_equal']} "
+        f"(tolerance: bit-equal)")
+    if not rep["mask_equal"] or any(gaps.values()):
+        raise AssertionError(f"K4 with per-ray lights: {rep}")
+    occ = parity.occluder(scene)
+
+    def run(fn, light_pos):
+        with torch.no_grad():
+            fn(scene, ro, rd, hits, amb, active, occ, meta.has_kd_textures,
+               meta.has_ks_textures, light_pos)
+
+    rec["shade_lights"] = dict(
+        ms=cuda_ms(lambda: run(shade.shade_step_cuda, lpos), 10),
+        plain_ms=cuda_ms(lambda: run(shade.shade_step_plain, lpos), 3),
+        fixed_ms=cuda_ms(lambda: run(shade.shade_step_cuda, None), 10),
+        **bound("shade", n * (24 + 8 + 1 + 48) + nbytes(lpos)
+                + leaves_bytes(scene, SHADE_LEAVES), n))
+    log(f"K4 shade with per-ray lights: kernel "
+        f"{rec['shade_lights']['ms']:.3f} ms (the same rays with the fixed "
+        f"lights {rec['shade_lights']['fixed_ms']:.3f} ms), plain "
+        f"{rec['shade_lights']['plain_ms']:.3f} ms per bounce (with the K1 "
+        f"shadow query), bound {rec['shade_lights']['bound_ms'] * 1e3:.1f} "
+        f"us")
+    for k in ("camera_rays_stochastic", "light_points"):
+        r = rec[k]
+        log(f"{k}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+    return rec
+
+
+def render_stochastic(path, resolution, device, **kw):
+    from yocto_raytracing_tpu_torch.render import renderer
+
+    kw = dict(dict(max_depth=DEPTH, chunk_pixels=CHUNK_PIXELS,
+                   stochastic=True, seed=SEED, area_lights=True), **kw)
+    return renderer.render_scene_file(path, resolution, SAMPLES,
+                                      device=device, ldr=True, **kw)
+
+
+def phase_area_frame(path, device, dev_info, name) -> dict:
+    """A stochastic area-light frame through render_scene_file on the card:
+    its launch counts, a warm profile, the first COMPARE_PIXELS pixels
+    against the all-plain path (1 u8 step), a bit-identical rerun and
+    chunking, and another frame under another seed."""
+    from yocto_raytracing_tpu_torch import kernels
+    from yocto_raytracing_tpu_torch.render import lights, renderer
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    img, host, scene, meta = render_stochastic(path, RES, device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    height, width = img.shape[:2]
+    spp = SAMPLES * SAMPLES
+    rays = width * height * spp
+    log(f"frame {name} (stochastic, seed {SEED}, area lights, aperture "
+        f"{host.cameras[0].aperture}): {width}x{height} x {spp} spp = "
+        f"{rays} primary rays, depth {DEPTH}: {wall:.3f} s wall, "
+        f"{rays / wall / 1e6:.3f} Mrays/s on {dev_info['smi']}; launches "
+        f"{counts}")
+    if img.shape != (RES, width, 4) or img.dtype != np.uint8:
+        raise AssertionError(f"frame {name}: bad image {img.shape}")
+    if not (img[..., 3] == 255).all() or img[..., :3].max() == 0:
+        raise AssertionError(f"frame {name}: alpha or black frame")
+    for k in STOCHASTIC_KERNELS:
+        if counts[k] <= 0:
+            raise AssertionError(f"frame {name}: kernel {k} never launched")
+    if counts["camera_rays"]:
+        raise AssertionError(f"frame {name}: the pinhole kernel K2 ran")
+    prof = profile_summary(lambda: render_stochastic(path, RES, device),
+                           f"warm stochastic frame {name}")
+
+    again = render_stochastic(path, RES, device)[0]
+    rechunked = render_stochastic(path, RES, device, chunk_pixels=1 << 13)[0]
+    other = render_stochastic(path, RES, device, seed=SEED + 1)[0]
+    same = np.array_equal(img, again) and np.array_equal(img, rechunked)
+    moved = int((other != img).any(axis=-1).sum())
+    log(f"frame {name}: rerun and chunk_pixels {1 << 13} bit-identical "
+        f"{same}; seed {SEED + 1} differs on {moved} pixels")
+    if not same or moved == 0:
+        raise AssertionError(f"frame {name}: seed/chunk determinism")
+
+    npix = min(COMPARE_PIXELS, width * height)
+    sampler = lights.build_light_sampler(host, None, meta, device)
+    amb = torch.full((3,), 0.1, dtype=torch.float32, device=device)
+    parts = []
+    t0 = time.perf_counter()
+    for start in range(0, npix, CHUNK_PIXELS):
+        stop = min(start + CHUNK_PIXELS, npix)
+        ids = torch.arange(start * spp, stop * spp, dtype=torch.int32,
+                           device=device)
+        rgb = renderer.trace_rays(scene, ids, amb, width, height, SAMPLES,
+                                  DEPTH, meta.has_kd_textures,
+                                  meta.has_ks_textures, plain=True,
+                                  stochastic=True, seed=SEED,
+                                  light_sampler=sampler)
+        parts.append(renderer.pixel_finish_plain(rgb, spp, True))
+    plain = torch.cat(parts).cpu().numpy()
+    d = np.abs(plain.astype(np.int32) - img.reshape(-1, 4)[:npix, :3])
+    log(f"frame {name}: kernel vs all-plain on {npix} pixels: max "
+        f"{d.max()} u8 steps, {int((d > 0).any(axis=1).sum())} pixels "
+        f"differ ({time.perf_counter() - t0:.1f} s)")
+    if d.max() > 1:
+        raise AssertionError(f"frame {name}: {d.max()} u8 steps off plain")
+    return dict(counts=counts, wall=wall, rays=rays, prof=prof)
+
+
+def phase_point_light_area(path, deterministic, device):
+    """The point-light hair frame in area mode (non-stochastic, any seed)
+    equals the deterministic frame bit for bit: a single-point light's
+    sample is its position."""
+    img = render_stochastic(path, RES, device, stochastic=False)[0]
+    log(f"frame hair (point lights) with area lights: bit-equal to the "
+        f"deterministic frame {np.array_equal(img, deterministic)}")
+    if not np.array_equal(img, deterministic):
+        raise AssertionError("point-light area frame differs from the "
+                             "deterministic frame")
+
+
 def phase_small_reference(path, device):
     """The port on the card against the port on the CPU (plain torch, held
     to the JAX package and the reference golden by the CPU tests): the hair
@@ -420,10 +752,15 @@ def phase_shade_kernel(cases, device) -> dict:
                     fn(scene, ro, rd, hits, amb, active, occ,
                        meta.has_kd_textures, meta.has_ks_textures)
 
+            n = ro.shape[0]
             rec = dict(max_abs_err=rep["max_abs_err"],
                        ms=cuda_ms(lambda: run(shade.shade_step_cuda), 10),
                        plain_ms=cuda_ms(lambda: run(shade.shade_step_plain),
-                                        3))
+                                        3),
+                       library_ms=None,
+                       # ro, rd, inst, prim, mask in; color, kr, p, refl out
+                       **bound("shade", n * (24 + 8 + 1 + 48)
+                               + leaves_bytes(scene, SHADE_LEAVES), n))
             log(f"K4 shade {name}: kernel {rec['ms']:.3f} ms, plain "
                 f"{rec['plain_ms']:.3f} ms per bounce (both with the K1 "
                 f"shadow query)")
@@ -486,8 +823,16 @@ def phase_grad_kernels(cases, device) -> dict:
                 times[which] = _backward_ms(outs, list(wrt.values()), cots,
                                             reps)
                 del outs
+            leaves = list(shade.GRAD_LEAVES)
             rec["shade_bwd"] = dict(
-                max_abs_err=max(r["max_abs"] for r in rep.values()), **times)
+                max_abs_err=max(r["max_abs"] for r in rep.values()),
+                library_ms=None, **times,
+                # ro, rd, inst, prim, mask, occlusion, 4 cotangents in;
+                # d_ro, d_rd and the leaf gradients out
+                **bound("shade_bwd", n * (24 + 8 + 1 + 48 + 24)
+                        + nbytes(*(getattr(scene, k) for k in leaves))
+                        + leaves_bytes(scene, SHADE_LEAVES)
+                        + n * scene.light_ke.shape[0], n))
             log(f"K5 shade_bwd {name}: backward of one bounce at {n} rays: "
                 f"kernel {times['ms']:.3f} ms, plain autograd "
                 f"{times['plain_ms']:.3f} ms")
@@ -503,7 +848,9 @@ def phase_grad_kernels(cases, device) -> dict:
                                             cam_cots, reps)
             rec["camera_bwd"] = dict(
                 max_abs_err=max(r["max_abs"] for r in crep.values()),
-                **times)
+                library_ms=None, **times,
+                # uv, g_ro, g_rd in, 15 sums out
+                **bound("camera_bwd", n * 32 + 15 * 4, n))
             log(f"K6 camera_bwd {name}: backward at {n} rays: kernel "
                 f"{times['ms']:.3f} ms, plain autograd "
                 f"{times['plain_ms']:.3f} ms (the kernel's include the "
@@ -615,13 +962,19 @@ def phase_train(name, scene, w, h, last, device, dev_info) -> dict:
             b < a for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"train {name}: loss not strictly falling "
                              f"{losses}")
-    prof = profile_summary(lambda: mesh.train_step(
+    profile_summary(lambda: mesh.train_step(
         cur, ids, target, amb, TRAIN_LR, trainable=TRAIN_SUBSET, **kw),
         f"warm train step {name}")
+    # the profile that matches `counts`: step 1's configuration (the camera
+    # reverse K6 runs only when a camera leaf is trainable)
+    prof = profile_summary(lambda: mesh.train_step(
+        cur, ids, target, amb, TRAIN_LR, **kw),
+        f"warm train step {name}, every float leaf trainable")
     return dict(counts=counts, walls=walls, peak=peak, prof=prof)
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     dev_info = phase_device()
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -662,6 +1015,18 @@ def main() -> None:
                                  dev_info)
         phase_train("mirror", mscene, RES, RES, True, device, dev_info)
 
+        area_hair = area_hair_scene()
+        area_hair_obj = os.path.join(tmp, "area_hair.obj")
+        scene_lib.save_scene(area_hair, area_hair_obj)
+        area_mirror_obj = os.path.join(tmp, "area_mirror.obj")
+        scene_lib.save_scene(area_mirror_scene(), area_mirror_obj)
+        rec.update(phase_stochastic(scene_lib.load_scene(area_hair_obj),
+                                    device))
+        stochastic_frame = phase_area_frame(area_hair_obj, device, dev_info,
+                                            "area hair")
+        phase_area_frame(area_mirror_obj, device, dev_info, "area mirror")
+        phase_point_light_area(hair_obj, main_frame["image"], device)
+
     src = "yocto_raytracing_tpu_torch/kernels/csrc/"
     table = {  # name: (source, replaces, path that runs it)
         "hit": ("hit.cu", "yocto_raytracing_tpu/ops/traverse.py:82",
@@ -680,10 +1045,30 @@ def main() -> None:
         "camera_bwd": ("camera.cu",
                        "yocto_raytracing_tpu/render/camera.py:27",
                        main_train),
+        "camera_rays_stochastic": (
+            "stochastic.cu", "yocto_raytracing_tpu/render/camera.py:100",
+            stochastic_frame),
+        "light_points": ("lights.cu",
+                         "yocto_raytracing_tpu/render/lights.py:82",
+                         stochastic_frame),
     }
     kernels_rec = [dict(name=k, route="cuda", source=src + f, replaces=r,
-                        launches=path["counts"][k], **rec[k])
+                        launches=path["counts"][k], **rec[k],
+                        device_ms=device_ms(path["prof"], k,
+                                            path["counts"][k]))
                    for k, (f, r, path) in table.items()]
+    for r in kernels_rec:
+        log(f"{r['name']}: {r['launches']} launches on its path; per "
+            f"launch there, device {r['device_ms'] * 1e3:.1f} us (profiler) "
+            f"against a bound of {r['bound_ms'] * 1e3:.2f} us at the "
+            f"timed shape; timed call {r['ms']:.4f} ms (CUDA events around "
+            f"the wrapper), plain {r['plain_ms']:.4f} ms")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "yocto_raytracing_tpu"))
+    if loaded:
+        raise AssertionError(f"the JAX package or jax was imported: {loaded}")
+    log(f"no module of jax or of the JAX package was imported; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels_rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_info["kind"],

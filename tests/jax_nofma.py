@@ -26,7 +26,11 @@ Usage from a test:
   max_depth=)``: ``jax.grad`` of ``sum(trace_rays(..., differentiable=True)
   * weights)`` with respect to every float leaf, ``{name: array}``;
 * ``train_step(leaves, ids, target, amb, lr, width=, ..., trainable=)``: the
-  JAX ``mesh.train_step``: ``{name: new leaf}`` plus ``"loss"``.
+  JAX ``mesh.train_step``: ``{name: new leaf}`` plus ``"loss"``;
+* ``radiance(leaves, ids, amb, width=, ..., stochastic=, seed=,
+  sampler=)``: ``renderer.trace_rays`` (forward) with the stochastic modes,
+  ``sampler`` the light tables of ``lights.build_light_sampler`` as numpy
+  arrays; ``{"rgb": (N, 3)}``.
 
 ``leaves`` is ``{field name: numpy array}`` of a ``DeviceScene`` (equal to
 the port's ``build_device_scene`` output).
@@ -99,6 +103,20 @@ def train_step(leaves: dict, ids, target, amb, lr: float, *, width: int,
                      else sorted(trainable)), timeout)
 
 
+def radiance(leaves: dict, ids, amb, *, width: int, height: int,
+             samples: int, max_depth: int, stochastic: bool, seed: int,
+             sampler: dict | None = None, timeout: float = 600.0) -> dict:
+    """Forward ``trace_rays`` radiance (N, 3) of the JAX package."""
+    arrays = dict(_scene_arrays(leaves), ids=ids, amb=amb)
+    if sampler is not None:
+        arrays.update({"sampler_" + k: np.asarray(v)
+                       for k, v in sampler.items()})
+    return _run("radiance", arrays,
+                dict(width=width, height=height, samples=samples,
+                     max_depth=max_depth, stochastic=stochastic, seed=seed),
+                timeout)
+
+
 def _main(job: str, spec: str, tmp: str) -> None:
     import dataclasses
 
@@ -131,7 +149,14 @@ def _main(job: str, spec: str, tmp: str) -> None:
                   max_stack=64)
         ids = jnp.asarray(inp["ids"])
         amb = jnp.asarray(inp["amb"])
-        if job == "grads":
+        if job == "radiance":
+            sampler = {k[8:]: jnp.asarray(v) for k, v in inp.items()
+                       if k.startswith("sampler_")} or None
+            rgb = renderer.trace_rays(
+                dev, ids, amb, stochastic=cfg["stochastic"],
+                rng_key=jnp.uint32(cfg["seed"]), light_sampler=sampler, **kw)
+            out = {"rgb": np.asarray(rgb)}
+        elif job == "grads":
             diff, static, treedef = mesh.partition_scene(dev)
 
             def f(d):

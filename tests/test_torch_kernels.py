@@ -7,7 +7,10 @@ autograd of the plain versions (the leaf gradients are atomic or
 reordered sums); a training step through the kernels: loss equal to the
 plain path's (rtol 1e-5), gradient within 1e-4 of the f64 reference (the
 plain path in f64 on the same hits; 1.25x the plain f32 path's own error
-where that is larger), update ``d - lr * g``.
+where that is larger), update ``d - lr * g``; K7 (stochastic camera
+rays), K8 (area-light points) and K4 with per-ray light positions bit-equal
+to their plain versions, and a stochastic area-light frame through them
+within 1 u8 step of the all-plain path.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed:
@@ -17,6 +20,8 @@ file imports no JAX, so it also runs where JAX is not installed:
 
 (``--noconftest``: tests/conftest.py configures JAX for the other tests.)
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -28,7 +33,7 @@ from yocto_raytracing_tpu_torch import scene as scene_lib, testscenes
 from yocto_raytracing_tpu_torch.kernels import parity
 from yocto_raytracing_tpu_torch.ops import traverse
 from yocto_raytracing_tpu_torch.parallel import mesh
-from yocto_raytracing_tpu_torch.render import camera, renderer, shade
+from yocto_raytracing_tpu_torch.render import camera, lights, renderer, shade
 
 FLT_MAX = np.float32(3.4028235e38)
 GRAD_RTOL = 1e-4
@@ -207,3 +212,117 @@ def test_train_step_matches_plain(cuda_device):
                        "train step gradient")
     assert rep["kernel"]["mat_kr"]["norm"] > 0
     parity.check_update(ts, new_k, rep["grads"], 0.1, "train step")
+
+
+def _area_grad_scene(aperture=0.0):
+    """The mirror scene with its point light an emissive 1 m quad (two
+    triangles) facing down, and the camera's aperture set."""
+    host = testscenes.make_grad_scene()
+    ist = next(i for i in host.instances if i.name == "light")
+    shp = host.shapes[ist.shape]
+    c = shp.pos[0]
+    shp.pos = np.asarray([c + [-0.5, 0, -0.5], c + [0.5, 0, -0.5],
+                          c + [0.5, 0, 0.5], c + [-0.5, 0, 0.5]], np.float32)
+    shp.points = np.zeros(0, np.int32)
+    shp.triangles = np.asarray([[0, 2, 1], [0, 3, 2]], np.int32)
+    shp.norm = np.zeros((0, 3), np.float32)
+    shp.texcoord = np.zeros((4, 2), np.float32)
+    shp.radius = np.zeros(0, np.float32)
+    host.cameras[0].aperture = aperture
+    scene_lib.finalize_scene(host)
+    return host
+
+
+def _area_case(device, aperture=0.0):
+    host = _area_grad_scene(aperture)
+    leaves, meta = scene_lib.build_device_scene(host)
+    ts = scene_lib.to_torch(leaves, device)
+    return ts, meta, lights.build_light_sampler(host, leaves, meta, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 7, 2**32 - 1])
+def test_stochastic_camera_kernel_matches_plain(cuda_device, seed):
+    ts, _, _ = _area_case(cuda_device, aperture=0.3)
+    ids = torch.arange(171 * 96 * 9, dtype=torch.int32, device=cuda_device)
+    before = kernels.launches["camera_rays_stochastic"]
+    rep = parity.compare_camera_stochastic(ts, ids, 171, 96, 3, seed)
+    assert kernels.launches["camera_rays_stochastic"] == before + 1
+    assert rep["uv"] == rep["ro"] == rep["rd"] == 0, rep
+
+
+@pytest.mark.cuda
+def test_stochastic_camera_zero_aperture_is_pinhole(cuda_device):
+    ts, _, _ = _area_case(cuda_device, aperture=0.0)
+    ids = torch.arange(64 * 64 * 4, dtype=torch.int32, device=cuda_device)
+    uv, ro, rd = camera.camera_rays_stochastic(ts, ids, 64, 64, 2, 5)
+    ro0, rd0 = camera.eval_camera(ts, uv)
+    np.testing.assert_array_equal(ro.cpu().numpy(), ro0.cpu().numpy())
+    np.testing.assert_array_equal(rd.cpu().numpy(), rd0.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg", [False, True], ids=["sampled", "deg"])
+def test_light_points_kernel_matches_plain(cuda_device, deg):
+    ts, _, sampler = _area_case(cuda_device)
+    if deg:
+        sampler = dict(sampler, deg=torch.ones_like(sampler["deg"]))
+    ids = torch.arange(1 << 16, dtype=torch.int32, device=cuda_device)
+    before = kernels.launches["light_points"]
+    rep = parity.compare_light_points(ts, sampler, ids, 11)
+    assert kernels.launches["light_points"] == before + 1
+    assert rep["equal"], rep
+
+
+@pytest.mark.cuda
+def test_shade_kernel_per_ray_lights_matches_plain(cuda_device):
+    ts, meta, sampler = _area_case(cuda_device)
+    ids = torch.arange(64 * 64 * 4, dtype=torch.int32, device=cuda_device)
+    amb = torch.full((3,), 0.1, device=cuda_device)
+    inputs = parity.shade_inputs(ts, ids, 64, 64, 2, 1, amb)
+    lpos = lights.sample_light_points(ts, sampler, ids, 3)
+    rep = parity.compare_shade(ts, inputs, amb, meta.has_kd_textures,
+                               meta.has_ks_textures, light_pos=lpos)
+    assert rep["mask_equal"] and rep["hits"] > 100
+    for out in parity.SHADE_OUTPUTS:
+        assert rep[out] == 0, (out, rep)
+
+
+@pytest.mark.cuda
+def test_stochastic_area_frame_matches_plain(cuda_device):
+    ts, meta, sampler = _area_case(cuda_device, aperture=0.2)
+    w = h = 48
+    kw = dict(max_depth=3, stochastic=True, seed=7, light_sampler=sampler)
+    kernels.reset_launches()
+    img = renderer.render_image(ts, meta, w, h, 2, ldr=True, **kw)
+    assert kernels.launches["camera_rays_stochastic"] > 0
+    assert kernels.launches["light_points"] > 0
+    assert kernels.launches["camera_rays"] == 0
+    ids = torch.arange(w * h * 4, dtype=torch.int32, device=cuda_device)
+    amb = torch.full((3,), 0.1, device=cuda_device)
+    rgb = renderer.trace_rays(ts, ids, amb, w, h, 2, plain=True,
+                              has_kd_textures=meta.has_kd_textures,
+                              has_ks_textures=meta.has_ks_textures, **kw)
+    plain = renderer.pixel_finish_plain(rgb, 4, True).cpu().numpy()
+    d = np.abs(plain.astype(np.int32) - img.reshape(-1, 4)[:, :3])
+    assert d.max() <= 1
+    again = renderer.render_image(ts, meta, w, h, 2, ldr=True,
+                                  chunk_pixels=100, **kw)
+    np.testing.assert_array_equal(img, again)
+
+
+@pytest.mark.cuda
+def test_stochastic_modes_are_forward_only_on_cuda(cuda_device):
+    ts, _, sampler = _area_case(cuda_device, aperture=0.2)
+    ids = torch.arange(256, dtype=torch.int32, device=cuda_device)
+    amb = torch.full((3,), 0.1, device=cuda_device)
+    before = dict(kernels.launches)
+    for kw in (dict(stochastic=True), dict(light_sampler=sampler)):
+        with pytest.raises(NotImplementedError):
+            renderer.trace_rays(ts, ids, amb, 16, 16, 1, 2,
+                                differentiable=True, **kw)
+    assert kernels.launches == before     # raised before any launch
+    leaf = ts.cam_o.detach().requires_grad_(True)
+    with pytest.raises(NotImplementedError):
+        camera.camera_rays_stochastic(dataclasses.replace(ts, cam_o=leaf),
+                                      ids, 16, 16, 1, 0)

@@ -1,17 +1,24 @@
 """yocto_raytracing_tpu_torch: the PyTorch + CUDA port of yocto_raytracing_tpu.
 
 The JAX package beside it is the reference; this package renders the same
-deterministic Whitted frames with the same numerics, on the CPU (plain torch)
-or on an NVIDIA Hopper card (hand-written CUDA kernels for the hot loops,
-plain torch for the rest).
+Whitted frames (deterministic, or with jittered AA, thin-lens DOF and area
+lights) and trains the same scene parameters with the same numerics, on the
+CPU (plain torch) or on an NVIDIA Hopper card (hand-written CUDA kernels for
+the hot loops, plain torch for the rest). It imports nothing of the JAX
+package.
 
 Layout (module names follow the JAX package):
 
 * ``scene``      host scene model, OBJ loading, flat SoA arrays, ``TorchScene``
+* ``bvh``, ``native``, ``image``, ``io``
+                 copies of the JAX package's numpy host modules (BVH builder
+                 with its g++ fast path, tonemap and image files, OBJ/HDR)
 * ``testscenes`` procedural scenes (hair, gradient/mirror, random)
-* ``ops``        ray-primitive math and the two-level BVH hit query (kernel K1)
-* ``render``     camera rays (K2), texture, shading, the depth loop and the
-                 per-pixel finish (K3)
+* ``ops``        ray-primitive math, the two-level BVH hit query (kernel K1)
+                 and the Monte-Carlo samplers
+* ``render``     camera rays (K2, stochastic K7), area lights (K8), texture,
+                 shading (K4/K5), the depth loop and the per-pixel finish (K3)
+* ``parallel``   the training step (one device)
 * ``kernels``    CUDA sources and their nvcc/ctypes build
 
 Every kernel wrapper runs its plain torch version for CPU tensors and

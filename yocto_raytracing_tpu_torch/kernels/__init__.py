@@ -6,8 +6,13 @@
 * K4 ``shade.cu``   one shading bounce, forward    (render/shade.py)
 * K5 ``shade_bwd.cu``  its reverse                 (render/shade.py)
 * K6 ``camera.cu``  reverse of the camera rays     (render/camera.py)
+* K7 ``stochastic.cu``  ray id -> jittered uv -> thin-lens ray
+                                                   (render/camera.py)
+* K8 ``lights.cu``  area-light sample points       (render/lights.py)
 
-Nothing is compiled at import: ``build()`` runs nvcc on first use.
+``host/yrt_native.cpp`` is the host-side OBJ parser and BVH builder (g++,
+``native.py``). Nothing is compiled at import: ``build()`` runs nvcc on
+first use.
 """
 
 from ._build import BuildInfo, build, launches, reset_launches

@@ -1,6 +1,7 @@
 """Build, load and launch-check the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into a shared
+One ``nvcc -c`` per ``csrc/*.cu``, all started together, compiles each
+source for ``sm_90a``; one more ``nvcc`` links the objects into a shared
 library with a plain C interface, which is loaded with ``ctypes``. The build
 runs at first use, into ``kernels/build/`` (git-ignored), under a file name
 that carries a hash of the sources and flags, so an edited source rebuilds
@@ -8,8 +9,8 @@ and a finished build is reused.
 
 Numerics: ``--fmad=false`` (no a*b+c contraction, like eager torch) and no
 fast-math, so division and sqrt are IEEE-rounded. The kernels are held
-bit-equal (K1, K2, K4) or within a stated tolerance (K3, K5, K6) to their
-plain torch versions.
+bit-equal (K1, K2, K4, K7, K8) or within a stated tolerance (K3, K5, K6) to
+their plain torch versions.
 
 Each wrapper counts its launches in ``launches``; a run resets the counts
 with ``reset_launches`` and reads them afterwards to show which kernels it
@@ -31,15 +32,17 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("hit.cu", "camera.cu", "pixel.cu", "shade.cu", "shade_bwd.cu")
+SOURCES = ("hit.cu", "camera.cu", "pixel.cu", "shade.cu", "shade_bwd.cu",
+           "stochastic.cu", "lights.cu")
 HEADERS = ("common.cuh", "shade.cuh")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 
 # launches of each kernel since the last reset_launches()
 launches = {"hit": 0, "camera_rays": 0, "pixel_finish": 0, "shade": 0,
-            "shade_bwd": 0, "camera_bwd": 0}
+            "shade_bwd": 0, "camera_bwd": 0, "camera_rays_stochastic": 0,
+            "light_points": 0}
 
 
 def reset_launches() -> None:
@@ -81,18 +84,39 @@ def build() -> BuildInfo:
     if so.exists():
         _build_info = BuildInfo(so, 0.0, "reused " + so.name)
         return _build_info
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objdir = BUILD_DIR / f"obj_{so.stem}.{os.getpid()}"
+    objdir.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
+    objs = [objdir / (s + ".o") for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                          str(CSRC / s)] for s, o in zip(SOURCES, objs))]
+    log = []
+    try:
+        for cmd, proc in procs:
+            out, _ = proc.communicate(timeout=900)
+            log.append(out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+    finally:
+        for _, proc in procs:   # stop every compiler on the way out
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, so)
-    _build_info = BuildInfo(so, seconds, proc.stdout + proc.stderr)
+    shutil.rmtree(objdir, ignore_errors=True)
+    _build_info = BuildInfo(so, seconds, "".join(log) + proc.stdout
+                            + proc.stderr)
     return _build_info
 
 
@@ -123,6 +147,13 @@ def library() -> ctypes.CDLL:
                                   + [vp] * 6 + [i32] + [vp] * 7)
     lib.yrt_pixel_finish.restype = i32
     lib.yrt_pixel_finish.argtypes = [vp, i32, i32, i32, vp, vp, vp]
+    u32 = ctypes.c_uint32
+    lib.yrt_camera_rays_stochastic.restype = i32
+    lib.yrt_camera_rays_stochastic.argtypes = ([vp, i32, i32, i32, i32, u32]
+                                               + [vp] * 10)
+    lib.yrt_light_points.restype = i32
+    lib.yrt_light_points.argtypes = ([vp, i32, u32, vp, i32, i32] + [vp] * 5
+                                     + [i32] + [vp] * 4)
     _lib = lib
     return lib
 
@@ -135,7 +166,8 @@ class ShadeScene(ctypes.Structure):
         "pos", "norm", "texcoord", "prim_v", "prim_type", "inst_axes",
         "inst_o", "inst_mat", "inst_is_lines", "mat_kd", "mat_ks", "mat_kr",
         "mat_rs", "mat_kd_txt", "mat_ks_txt", "tex_quad", "tex_w", "tex_h",
-        "light_pos", "light_axes", "light_o", "light_ke", "amb")]
+        "light_pos", "light_axes", "light_o", "light_ke", "amb",
+        "light_pos_ray")]
         + [(name, ctypes.c_int) for name in (
             "tex_th", "tex_tw", "num_lights", "has_kd_tex", "has_ks_tex")]
         + [(name, ctypes.c_float) for name in (

@@ -145,6 +145,24 @@ __device__ __forceinline__ bool hit_line(const Ray& r, float tmin, float tmax,
   return det != 0.0f && t >= tmin && t <= tmax && dot(p01, p01) <= rad * rad;
 }
 
+// PCG output permutation (Jarzynski & Olano, "Hash Functions for GPU
+// Rendering", JCGT 2020), as render/camera.py::pcg_hash computes it: u32
+// arithmetic that wraps.
+__device__ __forceinline__ unsigned int pcg_hash(unsigned int x) {
+  x = x * 747796405u + 2891336453u;
+  const unsigned int w = ((x >> ((x >> 28u) + 4u)) ^ x) * 277803737u;
+  return (w >> 22u) ^ w;
+}
+
+// Variate k of ray id `id` under `seed` (render/camera.py::per_ray_uniform):
+// the top 24 bits of pcg(id ^ pcg(seed + k)), times 2^-24 (both exact).
+__device__ __forceinline__ float per_ray_uniform(unsigned int seed, int id,
+                                                 unsigned int k) {
+  const unsigned int h =
+      pcg_hash(static_cast<unsigned int>(id) ^ pcg_hash(seed + k));
+  return static_cast<float>(h >> 8u) * 5.9604644775390625e-08f;
+}
+
 __host__ __device__ inline unsigned int blocks_for(long long n, int threads) {
   return static_cast<unsigned int>((n + threads - 1) / threads);
 }

@@ -17,6 +17,10 @@
 //   quads, per-light hair or Blinn-Phong weights accumulated in light order,
 //   ambient, kr and the mirror ray.
 //
+// With area lights (ShadeScene::light_pos_ray, JAX render/shade.py:242-243)
+// every ray reads its own (L, 3) light positions, 12 bytes per light in each
+// launch, instead of the per-light light_pos; nothing else changes.
+//
 // Recomputing the hit in the second launch costs a few hundred flops per ray
 // and saves writing and re-reading ~20 floats per ray of intermediates.
 //
@@ -52,7 +56,7 @@ __global__ void shade_prep_kernel(ShadeScene s, const float* __restrict__ ro_p,
            mask ? prim_p[i] : 0, g);
   for (int l = 0; l < s.num_lights; ++l) {
     LightGeom lg;
-    light_geom(s, l, g.p, lg);
+    light_geom(s, l, light_position(s, l, i, n), g.p, lg);
     const long long k = static_cast<long long>(l) * n + i;
     sh_o[3 * k] = g.p.x;
     sh_o[3 * k + 1] = g.p.y;
@@ -91,7 +95,7 @@ __global__ void shade_finish_kernel(ShadeScene s,
     V3 acc = zero3();
     for (int l = 0; l < s.num_lights; ++l) {
       LightGeom lg;
-      light_geom(s, l, g.p, lg);
+      light_geom(s, l, light_position(s, l, i, n), g.p, lg);
       const bool lit = occ[static_cast<long long>(l) * n + i] == 0;
       // unlit lanes add +0, as torch.where(lit, contrib, 0) does
       acc = add(acc, lit ? light_contrib(s, l, lg, g.n, vvec, m, g.is_lines)

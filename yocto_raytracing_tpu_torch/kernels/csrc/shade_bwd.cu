@@ -194,7 +194,7 @@ __global__ void __launch_bounds__(128)
     V3 gl_a0 = zero3(), gl_a1 = zero3(), gl_a2 = zero3();
     if (lit) {
       LightGeom lg;
-      light_geom(s, l, g.p, lg);
+      light_geom(s, l, load3(s.light_pos, l), g.p, lg);
       const V3 ke = load3(s.light_ke, l);
       const float r2 = lg.rdist * lg.rdist;
       const float den2 = r2 < kMinR2 ? kMinR2 : r2;
@@ -442,6 +442,9 @@ extern "C" int yrt_shade_bwd(const yrt::ShadeScene* s,
                              const float* g_kr, const float* g_p,
                              const float* g_refl, float* d_ro, float* d_rd,
                              void* stream) {
+  // the gradient of per-ray light positions is not written: refuse them
+  if (s->light_pos_ray != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     constexpr int kThreads = 128;  // a multiple of the warp size
     yrt::shade_bwd_kernel<<<yrt::blocks_for(n, kThreads), kThreads, 0,

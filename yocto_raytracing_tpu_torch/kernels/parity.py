@@ -1,4 +1,4 @@
-"""K4, K5 and K6 against their plain torch versions, on a card.
+"""K4-K8 against their plain torch versions, on a card.
 
 The comparisons that ``chip_smoke.py`` and the card tests
 (``tests/test_torch_kernels.py``) make, kept in one place:
@@ -6,7 +6,11 @@ The comparisons that ``chip_smoke.py`` and the card tests
 * ``shade_inputs``: the rays, hits and active mask of a given bounce of a
   batch of camera rays, from the kernel path (K2, K1, K4);
 * ``compare_shade``: K4 and the plain ``shade_step`` on the same inputs and
-  the same K1 shadow query; per output the largest ULP gap;
+  the same K1 shadow query, optionally with per-ray light positions; per
+  output the largest ULP gap;
+* ``compare_camera_stochastic``: K7 and the plain stochastic ray chain;
+  ``compare_light_points``: K8 and the plain light sampling; per output
+  the largest ULP gap;
 * ``compare_shade_grads``: K5 and torch autograd of the plain version, for
   the same seeded cotangents (zero on masked lanes, whose gradient K5
   defines as zero); per leaf the relative L2 error;
@@ -32,6 +36,7 @@ import torch
 from ..ops import traverse
 from ..parallel import mesh as mesh_mod
 from ..render import camera as camera_mod
+from ..render import lights as lights_mod
 from ..render import renderer as renderer_mod
 from ..render import shade as shade_mod
 from .. import scene as scene_lib
@@ -85,26 +90,56 @@ def shade_inputs(scene, ids, width, height, samples, bounce, amb):
     raise ValueError(f"bounce {bounce} < 1")
 
 
+def _gaps(names, kern, plain) -> dict:
+    """{name: ULP gap} and 'max_abs_err' over pairs of float outputs."""
+    out = {name: ulp_gap(k, p) for name, k, p in zip(names, kern, plain)}
+    out["max_abs_err"] = max(
+        float(torch.nan_to_num((k - p).abs()).max()) if k.numel() else 0.0
+        for k, p in zip(kern, plain))
+    return out
+
+
 def compare_shade(scene, inputs, amb, has_kd_textures=True,
-                  has_ks_textures=True) -> dict:
-    """K4 and plain shading on the same inputs: {output: ULP gap}, plus
-    'mask_equal' and 'max_abs_err' (over the four float outputs)."""
+                  has_ks_textures=True, light_pos=None) -> dict:
+    """K4 and plain shading on the same inputs (and the same per-ray light
+    positions, if given): {output: ULP gap}, plus 'mask_equal',
+    'max_abs_err' (over the four float outputs) and 'hits'."""
     ro, rd, hits, active = inputs
     occ = occluder(scene)
     with torch.no_grad():
         kern = shade_mod.shade_step_cuda(scene, ro, rd, hits, amb, active,
                                          occ, has_kd_textures,
-                                         has_ks_textures)
+                                         has_ks_textures, light_pos)
         plain = shade_mod.shade_step_plain(scene, ro, rd, hits, amb, active,
                                            occ, has_kd_textures,
-                                           has_ks_textures)
-    out = {name: ulp_gap(k, p)
-           for name, k, p in zip(SHADE_OUTPUTS, kern[:4], plain[:4])}
+                                           has_ks_textures, light_pos)
+    out = _gaps(SHADE_OUTPUTS, kern[:4], plain[:4])
     out["mask_equal"] = bool(torch.equal(kern[4], plain[4]))
-    out["max_abs_err"] = max(
-        float(torch.nan_to_num((k - p).abs()).max()) if k.numel() else 0.0
-        for k, p in zip(kern[:4], plain[:4]))
     out["hits"] = int(kern[4].sum())
+    return out
+
+
+def compare_camera_stochastic(scene, ids, width, height, samples,
+                              seed) -> dict:
+    """K7 and the plain stochastic ray chain on the same ids: {'uv', 'ro',
+    'rd': ULP gap} and 'max_abs_err'."""
+    with torch.no_grad():
+        kern = camera_mod.camera_rays_stochastic_cuda(scene, ids, width,
+                                                      height, samples, seed)
+        plain = camera_mod.camera_rays_stochastic_plain(scene, ids, width,
+                                                        height, samples, seed)
+    return _gaps(("uv", "ro", "rd"), kern, plain)
+
+
+def compare_light_points(scene, sampler, ids, seed) -> dict:
+    """K8 and the plain light sampling on the same ids: {'points': ULP
+    gap}, 'max_abs_err' and 'equal' (bit for bit)."""
+    with torch.no_grad():
+        kern = lights_mod.sample_light_points_cuda(scene, sampler, ids, seed)
+        plain = lights_mod.sample_light_points_plain(scene, sampler, ids,
+                                                     seed)
+    out = _gaps(("points",), (kern,), (plain,))
+    out["equal"] = bool(torch.equal(kern, plain))
     return out
 
 

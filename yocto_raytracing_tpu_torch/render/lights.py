@@ -1,0 +1,171 @@
+"""Area-light sampling: element CDFs and per-ray light points (K8).
+
+Port of ``yocto_raytracing_tpu/render/lights.py``. The reference builds
+per-element CDFs for area sampling (yscn::update_lights,
+src/ext/yocto_scn.cpp:1748-1779: point counts, line lengths, triangle areas)
+and never uses them: its renderer puts point lights at ``shp->pos.front()``
+(src/raytrace.cpp:121-130). The stochastic soft-shadow mode samples ONE
+point on each emissive shape per ray (element by inverse CDF, position
+uniform within the element, ym::sample_triangle semantics) and shades with
+the same ke/r^2 point-light model, so an emissive shape whose geometry is a
+single point gives the deterministic frame bit for bit.
+
+Sampling is in SHAPE SPACE, as the reference's light convention (the light
+position is a shape-space pos, moved by the light frame at shading time,
+raytrace.cpp:129-130).
+
+* ``build_light_sampler``: the host tables (numpy, as in JAX), as tensors
+  on the scene's device;
+* ``sample_light_points``: (L, N, 3) points for a batch of ray ids; the
+  plain version for CPU tensors, K8 (``kernels/csrc/lights.cu``) for CUDA
+  tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels import _build
+from ..ops import sampling
+from ..scene import PRIM_LINE, PRIM_TRIANGLE
+from . import camera as camera_mod
+
+LIGHT_SEED_XOR = 0x85EBCA6B   # light variates: seed ^ this (renderer.py:271)
+
+
+def build_light_sampler(host, leaves, meta, device="cuda"):
+    """Per-light element CDF tables -> dict of tensors on ``device`` (None
+    if the scene has no light).
+
+    For each light instance (every component of ke positive, the shading
+    rule), the unnormalized running-sum CDF over the emissive shape's
+    elements in POOL ORDER (points, then lines, then triangles), padded to
+    the largest element count with its last value. Returns dict(cdf (L, E)
+    f32, n (L,) i32, prim_lo (L,) i32, deg (L,) bool). ``leaves`` is not
+    read (the JAX function's device-scene argument).
+
+    An emissive shape with no element adds nothing to the prim pool, so its
+    pool offset is the NEXT shape's first prim: it is marked ``deg`` and
+    keeps its deterministic position (pos[0]).
+    """
+    del leaves
+    pool_off = list(meta.shape_prim_offset)
+    lights = []
+    for ist in host.instances:
+        mat = host.materials[ist.material] if ist.material >= 0 else None
+        if mat is None or not (mat.ke > 0).all():
+            continue
+        shp = host.shapes[ist.shape]
+        weights = []
+        if len(shp.points):
+            weights.append(np.ones(len(shp.points), np.float32))
+        if len(shp.lines):
+            d = shp.pos[shp.lines[:, 1]] - shp.pos[shp.lines[:, 0]]
+            weights.append(np.linalg.norm(d, axis=-1).astype(np.float32))
+        if len(shp.triangles):
+            c = np.cross(shp.pos[shp.triangles[:, 1]]
+                         - shp.pos[shp.triangles[:, 0]],
+                         shp.pos[shp.triangles[:, 2]]
+                         - shp.pos[shp.triangles[:, 0]])
+            weights.append(
+                (0.5 * np.linalg.norm(c, axis=-1)).astype(np.float32))
+        degenerate = not weights
+        w = (np.concatenate(weights) if weights
+             else np.ones(1, np.float32))
+        lights.append((np.cumsum(w).astype(np.float32),
+                       pool_off[ist.shape], degenerate))
+    if not lights:
+        return None
+    emax = max(len(c) for c, _, _ in lights)
+    cdf = np.stack([np.pad(c, (0, emax - len(c)), mode="edge")
+                    for c, _, _ in lights])
+    device = torch.device(device)
+
+    def put(a, dtype):
+        return torch.from_numpy(np.asarray(a, dtype)).to(device)
+
+    return dict(cdf=put(cdf, np.float32),
+                n=put([len(c) for c, _, _ in lights], np.int32),
+                prim_lo=put([lo for _, lo, _ in lights], np.int32),
+                deg=put([d for _, _, d in lights], np.bool_))
+
+
+def sample_light_points_plain(scene, sampler, ids, seed: int):
+    """Plain torch light points: ids (N,) i32 -> (L, N, 3) shape-space
+    positions, from ``per_ray_uniform(seed ^ 0x85EBCA6B, ids, 3)`` (element
+    pick, then the element's own one or two coordinates)."""
+    ruv = camera_mod.per_ray_uniform((seed & camera_mod.U32)
+                                     ^ LIGHT_SEED_XOR, ids, 3)
+    cdf = sampler["cdf"]                      # (L, E)
+    total = cdf[:, -1]
+    x = ruv[None, :, 0] * total[:, None]      # (L, N)
+    # inverse CDF: count of strictly smaller entries (a dense compare, so a
+    # tie picks what the JAX function picks)
+    idx = (cdf[:, None, :] < x[..., None]).sum(dim=-1)
+    idx = torch.minimum(idx, (sampler["n"] - 1)[:, None].to(idx.dtype))
+    prim = torch.clamp(sampler["prim_lo"][:, None] + idx, 0,
+                       scene.prim_v.shape[0] - 1)
+    pv = scene.prim_v[prim]                   # (L, N, 3)
+    ptype = scene.prim_type[prim]             # (L, N)
+    v0 = scene.pos[pv[..., 0]]
+    v1 = scene.pos[pv[..., 1]]
+    v2 = scene.pos[pv[..., 2]]
+    u = ruv[None, :, 1:2]
+    v = ruv[None, :, 2:3]
+    tri = sampling.sample_triangle(
+        torch.cat([u, v], dim=-1).expand(v0.shape[:-1] + (2,)), v0, v1, v2)
+    line = v0 * (1.0 - u) + v1 * u
+    out = torch.where((ptype == PRIM_TRIANGLE)[..., None], tri,
+                      torch.where((ptype == PRIM_LINE)[..., None], line, v0))
+    return torch.where(sampler["deg"][:, None, None],
+                       scene.light_pos[:, None, :], out)
+
+
+def sample_light_points_cuda(scene, sampler, ids, seed: int):
+    """K8 launch: same contract as ``sample_light_points_plain``, CUDA
+    only. K8 has no reverse: with grad enabled and ``pos`` or
+    ``light_pos`` requiring grad it raises."""
+    if torch.is_grad_enabled() and (scene.pos.requires_grad
+                                    or scene.light_pos.requires_grad):
+        raise NotImplementedError("area-light points (K8) have no reverse "
+                                  "on the CUDA path")
+    dev = ids.device
+    n = ids.shape[0]
+    cdf = sampler["cdf"]
+    nl, ne = cdf.shape
+    check = _build.check_tensor
+    check("ids", ids, torch.int32, (n,), dev)
+    check("cdf", cdf, torch.float32, (nl, ne), dev)
+    check("n", sampler["n"], torch.int32, (nl,), dev)
+    check("prim_lo", sampler["prim_lo"], torch.int32, (nl,), dev)
+    check("deg", sampler["deg"], torch.bool, (nl,), dev)
+    check("prim_v", scene.prim_v, torch.int32, (-1, 3), dev)
+    check("prim_type", scene.prim_type, torch.int32, (-1,), dev)
+    check("pos", scene.pos, torch.float32, (-1, 3), dev)
+    check("light_pos", scene.light_pos, torch.float32, (nl, 3), dev)
+    if ne < 1 or scene.prim_v.shape[0] < 1:
+        raise ValueError("light sampler without elements or scene without "
+                         "prims")
+    out = torch.empty((nl, n, 3), dtype=torch.float32, device=dev)
+    ptr = _build.ptr
+    err = _build.library().yrt_light_points(
+        ptr(ids), n, seed & camera_mod.U32, ptr(cdf), nl, ne,
+        ptr(sampler["n"]), ptr(sampler["prim_lo"]), ptr(sampler["deg"]),
+        ptr(scene.prim_v), ptr(scene.prim_type), scene.prim_v.shape[0],
+        ptr(scene.pos), ptr(scene.light_pos), ptr(out),
+        _build.current_stream())
+    _build.check_launch(err, "yrt_light_points")
+    _build.launches["light_points"] += 1
+    return out
+
+
+def sample_light_points(scene, sampler, ids, seed: int):
+    """Per-ray shape-space sample point on each light: (L, N, 3).
+
+    CPU tensors take the plain version (differentiable by torch autograd
+    in ``pos`` and ``light_pos``); CUDA tensors launch K8 (or raise).
+    """
+    if _build.device_kind(ids) == "cpu":
+        return sample_light_points_plain(scene, sampler, ids, seed)
+    return sample_light_points_cuda(scene, sampler, ids, seed)

@@ -10,6 +10,8 @@ reference's shade() body (src/raytrace.cpp:88-211) as one batched bounce:
   the injected ``occluder``;
 * point lights keep the reference's light vector
   ``transform_point(light_frame, light_pos - p)`` (raytrace.cpp:129-130);
+  with area lights a per-ray (L, N, 3) ``light_pos`` (``render/lights.py``)
+  takes the place of the per-light position;
 * hair uses the ``sqrt(1 - |n.l|)`` pseudo-sine (raytrace.cpp:164-174),
   Blinn-Phong the exponent ``ns = rs ? 2/rs^4 - 2 : 1e6`` (raytrace.cpp:144);
 * ambient ``amb * kd * kd_txt`` is added once per shade, shadowed or not.
@@ -22,6 +24,8 @@ kernel K4 (``kernels/csrc/shade.cu``, around K1's any-hit) and, in the
 backward, the hand-written adjoint K5 (``kernels/csrc/shade_bwd.cu``). Like
 the JAX package's remat policy, the forward saves only the rays, the hit
 topology, the mask and the shadow visibility; K5 recomputes the bounce.
+K5 does not take per-ray light positions: on CUDA a bounce with them runs
+K4 alone and refuses a graph that would need K5.
 """
 
 from __future__ import annotations
@@ -115,13 +119,16 @@ def eval_hit(scene, ro, rd, inst, prim):
 
 
 def shade_step_plain(scene, ro, rd, hits, amb, active, occluder,
-                     has_kd_textures=True, has_ks_textures=True):
+                     has_kd_textures=True, has_ks_textures=True,
+                     light_pos=None):
     """One bounce of the reference shade() body, plain torch (any device).
 
     ``occluder(p, d, tmin, tmax, mask)`` takes (L, N, ...) stacked shadow
     rays and returns (L, N) bool occlusion (the any-hit query).
     ``has_kd_textures``/``has_ks_textures`` (SceneMeta) skip the texel
-    fetches of a slot no material uses.
+    fetches of a slot no material uses. ``light_pos``, when given, is a
+    per-ray (L, N, 3) shape-space light position (area-light samples) in
+    place of ``scene.light_pos`` (JAX render/shade.py:242-243).
 
     Returns (color, kr, p, refl_dir, hit_mask): this bounce's direct +
     ambient colour, the reflection throughput factor, and the next ray.
@@ -179,7 +186,9 @@ def shade_step_plain(scene, ro, rd, hits, amb, active, occluder,
     color = torch.zeros_like(p)
     if scene.light_ke.shape[0]:
         # quirk-exact light vector: transform_point(light_frame, lpos - p)
-        diff = scene.light_pos[:, None, :] - p[None, :, :]        # (L, N, 3)
+        lpos = (scene.light_pos[:, None, :] if light_pos is None
+                else light_pos)
+        diff = lpos - p[None, :, :]                               # (L, N, 3)
         lvec = isect.transform_point(scene.light_axes[:, None, :, :],
                                      scene.light_o[:, None, :], diff)
         rdist = isect.safe_sqrt(isect.dot(lvec, lvec))            # (L, N)
@@ -232,11 +241,13 @@ _INT_LEAVES = ("prim_v", "prim_type", "inst_mat", "inst_is_lines",
                "mat_kd_txt", "mat_ks_txt", "tex_quad", "tex_w", "tex_h")
 
 
-def _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures):
+def _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
+                light_pos_ray=None, n=0):
     """The ``ShadeScene`` struct of a launch, after checking every array.
 
     ``leaves`` maps the GRAD_LEAVES names to the tensors to shade with (the
     autograd inputs); the integer leaves come from ``scene``.
+    ``light_pos_ray`` is the optional per-ray (L, n, 3) light position.
     """
     dev = amb.device
     f32, i32 = torch.float32, torch.int32
@@ -255,8 +266,13 @@ def _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures):
         check(name, t, f32 if name in GRAD_LEAVES else i32, shapes[name],
               dev)
     check("amb", amb, f32, (3,), dev)
+    if light_pos_ray is not None:
+        check("light_pos (per ray)", light_pos_ray, f32,
+              (leaves["light_ke"].shape[0], n, 3), dev)
     args = _build.ShadeScene(
         **{k: t.data_ptr() for k, t in arrays.items()}, amb=amb.data_ptr(),
+        light_pos_ray=(None if light_pos_ray is None
+                       else light_pos_ray.data_ptr()),
         tex_th=scene.tex_quad.shape[1], tex_tw=scene.tex_quad.shape[2],
         num_lights=leaves["light_ke"].shape[0],
         has_kd_tex=int(has_kd_textures), has_ks_tex=int(has_ks_textures),
@@ -268,15 +284,18 @@ class ShadeStepFn(torch.autograd.Function):
     """One bounce on the card: K4 forward, K5 backward.
 
     ``forward(ctx, scene, occluder, has_kd_textures, has_ks_textures, ro,
-    rd, inst, prim, mask, amb, *leaves)`` with ``leaves`` the GRAD_LEAVES
-    tensors; returns (color, kr, p, refl_dir). Saved for the backward: ro,
-    rd, inst, prim, mask and the (L, N) occlusion. Masked lanes get exactly
-    zero gradient. ``amb`` takes no gradient.
+    rd, inst, prim, mask, amb, light_pos_ray, *leaves)`` with ``leaves`` the
+    GRAD_LEAVES tensors and ``light_pos_ray`` None or the per-ray (L, N, 3)
+    light positions; returns (color, kr, p, refl_dir). Saved for the
+    backward: ro, rd, inst, prim, mask and the (L, N) occlusion. Masked
+    lanes get exactly zero gradient. ``amb`` takes no gradient; a forward
+    with ``light_pos_ray`` has no backward (K5 does not take it, and
+    ``shade_step_cuda`` refuses such a graph).
     """
 
     @staticmethod
     def forward(ctx, scene, occluder, has_kd_textures, has_ks_textures, ro,
-                rd, inst, prim, mask, amb, *leaves):
+                rd, inst, prim, mask, amb, light_pos_ray, *leaves):
         n = ro.shape[0]
         dev = ro.device
         f32 = torch.float32
@@ -288,7 +307,7 @@ class ShadeStepFn(torch.autograd.Function):
         check("mask", mask, torch.bool, (n,), dev)
         named = dict(zip(GRAD_LEAVES, leaves))
         args = _shade_args(scene, named, amb, has_kd_textures,
-                           has_ks_textures)
+                           has_ks_textures, light_pos_ray, n)
         lib = _build.library()
         ptr = _build.ptr
         stream = _build.current_stream()
@@ -329,7 +348,7 @@ class ShadeStepFn(torch.autograd.Function):
             ctx.scene, dict(zip(GRAD_LEAVES, leaves)), amb, ro, rd, inst,
             prim, mask, occ, (g_color, g_kr, g_p, g_refl), *ctx.tex)
         return (None, None, None, None, d_ro, d_rd, None, None, None, None,
-                *(grads[k] for k in GRAD_LEAVES))
+                None, *(grads[k] for k in GRAD_LEAVES))
 
 
 def shade_step_bwd(scene, leaves, amb, ro, rd, inst, prim, mask, occ,
@@ -366,27 +385,34 @@ def shade_step_bwd(scene, leaves, amb, ro, rd, inst, prim, mask, occ,
 
 
 def shade_step_cuda(scene, ro, rd, hits, amb, active, occluder,
-                    has_kd_textures=True, has_ks_textures=True):
+                    has_kd_textures=True, has_ks_textures=True,
+                    light_pos=None):
     """K4 launch (K5 in the backward): same contract as
-    ``shade_step_plain``, CUDA only."""
+    ``shade_step_plain``, CUDA only. With per-ray ``light_pos`` and grad
+    enabled for any input, it raises: K5 does not take them."""
+    if light_pos is not None and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (ro, rd, light_pos, *(
+                getattr(scene, k) for k in GRAD_LEAVES))):
+        raise NotImplementedError("shading with per-ray light positions "
+                                  "has no reverse on the CUDA path")
     mask = active & hits["hit"]
     color, kr, p, refl_dir = ShadeStepFn.apply(
         scene, occluder, has_kd_textures, has_ks_textures, ro, rd,
-        hits["inst"], hits["prim"], mask, amb,
+        hits["inst"], hits["prim"], mask, amb, light_pos,
         *(getattr(scene, k) for k in GRAD_LEAVES))
     return color, kr, p, refl_dir, mask
 
 
 def shade_step(scene, ro, rd, hits, amb, active, occluder,
-               has_kd_textures=True, has_ks_textures=True):
+               has_kd_textures=True, has_ks_textures=True, light_pos=None):
     """One bounce of the reference shade() body: (color, kr, p, refl_dir,
-    hit_mask).
+    hit_mask); ``light_pos`` as in ``shade_step_plain``.
 
     CPU tensors take the plain version; CUDA tensors launch K4 (or raise),
     and K5 in the backward.
     """
     if _build.device_kind(ro) == "cpu":
         return shade_step_plain(scene, ro, rd, hits, amb, active, occluder,
-                                has_kd_textures, has_ks_textures)
+                                has_kd_textures, has_ks_textures, light_pos)
     return shade_step_cuda(scene, ro, rd, hits, amb, active, occluder,
-                           has_kd_textures, has_ks_textures)
+                           has_kd_textures, has_ks_textures, light_pos)

@@ -4,12 +4,14 @@ Port of ``yocto_raytracing_tpu/scene.py`` without its JAX pytree:
 
 * ``Host*`` dataclasses, smooth normals, ``finalize_scene``
   and the framing default camera, with the same loader semantics;
-* ``load_scene`` for ``.obj`` through the JAX package's numpy-only OBJ
-  parser (glTF is not ported yet);
+* ``load_scene`` / ``save_scene`` for ``.obj`` through this package's
+  copies of the JAX package's numpy-only OBJ parser and writer (glTF is not
+  ported yet);
 * ``build_device_scene`` -> ``({leaf name: numpy array}, SceneMeta)``, leaf
-  for leaf the JAX ``DeviceScene``. The BVH comes from the JAX package's
-  ``bvh.build_scene_bvh``: one builder, because its partition order decides
-  which prim wins an equal-t tie;
+  for leaf the JAX ``DeviceScene``. The BVH comes from ``bvh.build_scene_bvh``,
+  this package's copy of the JAX package's builder with its native fast
+  path: the same builder, because its partition order decides which prim
+  wins an equal-t tie;
 * ``TorchScene``: the same leaves as tensors on one device, made by
   ``to_torch`` (from this package's arrays) or ``from_jax_arrays`` (from the
   leaves of a JAX ``DeviceScene``, so both packages compute on identical
@@ -27,9 +29,9 @@ from dataclasses import dataclass, field, fields
 import numpy as np
 import torch
 
-from yocto_raytracing_tpu import bvh as bvh_mod
-from yocto_raytracing_tpu import image as image_mod
-from yocto_raytracing_tpu.io import objparser
+from . import bvh as bvh_mod
+from . import image as image_mod
+from .io import objparser, objwriter
 
 # primitive type tags in the unified prim pool
 PRIM_POINT = 0
@@ -205,12 +207,10 @@ def load_scene(filename: str) -> HostScene:
 
 
 def save_scene(host: HostScene, filename: str) -> None:
-    """Save a scene by extension: ``.obj`` -> OBJ/MTL (the JAX package's
-    numpy-only writer); glTF is not ported yet."""
+    """Save a scene by extension: ``.obj`` -> OBJ/MTL (``io.objwriter``);
+    glTF is not ported yet."""
     ext = os.path.splitext(filename)[1].lower()
     if ext == ".obj":
-        from yocto_raytracing_tpu.io import objwriter
-
         return objwriter.save_obj(host, filename)
     if ext in (".gltf", ".glb"):
         raise SceneLoadError(f"{ext} scenes are not yet ported: {filename}")
@@ -621,8 +621,10 @@ def detached(scene: TorchScene) -> TorchScene:
     return TorchScene(*(getattr(scene, n).detach() for n in LEAF_NAMES))
 
 
-def to_torch(np_scene: Mapping[str, np.ndarray], device) -> TorchScene:
-    """{leaf name: numpy array} -> TorchScene on ``device``.
+def to_torch(np_scene: Mapping[str, np.ndarray],
+             device="cuda") -> TorchScene:
+    """{leaf name: numpy array} -> TorchScene on ``device`` (the card unless
+    the caller asks for the CPU).
 
     Float leaves become f32 and integer leaves i32, values and shapes
     unchanged (the camera scalars are 0-dim).
