@@ -5,9 +5,11 @@
 Builds the port's CUDA kernels from this checkout and holds each against its
 plain torch version on the card: K1 hit, K2 camera rays, K3 pixel finish,
 K4 shading (bit-equal, also with per-ray light positions), K5 shading
-backward and K6 camera backward (relative L2 error <= 1e-4 per gradient
-leaf), K7 stochastic camera rays and K8 area-light points (bit-equal). Then
-it drives the port's three paths through their user entry points:
+backward (also with per-ray light positions), K6 camera backward, K9
+thin-lens camera backward and K10 light-points backward (relative L2 error
+<= 1e-4 per gradient leaf of torch autograd), K7 stochastic camera rays,
+K8 area-light points and K11 overlap query (bit-equal). Then it drives the
+port's five paths through their user entry points:
 
 * rendering, ``render_scene_file(..., device="cuda")``: the hair scene
   (lines + triangles + two point lights; the stand-in for the reference's
@@ -27,7 +29,16 @@ it drives the port's three paths through their user entry points:
   both 4x4 samples, depth 4. Each frame is held within 1 u8 step of the
   all-plain path, bit-identical on a rerun and at another chunk size, and
   different under another seed; the point-light hair frame in area mode is
-  the deterministic frame bit for bit.
+  the deterministic frame bit for bit;
+* the stochastic modes' gradient, ``trace_rays(..., differentiable=True,
+  stochastic=True, seed=7, light_sampler=...)`` with an MSE loss on 2**20
+  rays of the area hair and area mirror frames, towards a target rendered
+  with perturbed ``mat_kd``, ``light_ke`` and light-shape ``pos``: every
+  float leaf's gradient against the f64 reference, ``cam_aperture`` and
+  the light vertices moved, a timed and a profiled fwd+bwd;
+* the overlap query, ``ops.overlap.overlap_scene`` on 2**20 query points
+  against the hair scene (capsule radii) and a random scene (points, lines,
+  triangles), equal to the plain query on a 65,536-query subset.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails if a kernel of the path never launched.
@@ -80,8 +91,17 @@ F32_OPS_PER_S = 67e12
 # kernel sources, integer and float alike; K1's are a floor (one slab test
 # per ray: its traversal depends on the data and is not counted)
 OPS_PER_RAY = {"hit": 30, "camera_rays": 45, "pixel_finish": 6,
-               "shade": 360, "shade_bwd": 1100, "camera_bwd": 110,
-               "camera_rays_stochastic": 150, "light_points": 60}
+               "shade": 360, "shade_bwd": 1100, "shade_bwd_lights": 1100,
+               "camera_bwd": 110, "camera_rays_stochastic": 150,
+               "camera_bwd_stochastic": 210, "light_points": 60,
+               "light_points_bwd": 75}
+# K11's operations per (query, prim) pair by prim type, counted from
+# overlap.cu (the triangle's cascade at its face case), and per (query,
+# instance) for the move into the instance frame
+OVERLAP_OPS_PER_PAIR = {0: 15, 1: 50, 2: 100}   # point, line, triangle
+OVERLAP_OPS_PER_INSTANCE = 20
+OVERLAP_QUERIES = 1 << 20
+OVERLAP_COMPARE = 1 << 16
 
 
 def log(*args):
@@ -155,7 +175,12 @@ DEVICE_FUNCTIONS = {
     "shade_bwd": ("shade_bwd_kernel",),
     "camera_bwd": ("camera_bwd_partial_kernel", "camera_bwd_sum_kernel"),
     "camera_rays_stochastic": ("camera_rays_stochastic_kernel",),
-    "light_points": ("light_points_kernel",)}
+    "light_points": ("light_points_kernel",),
+    "shade_bwd_lights": ("shade_bwd_kernel",),
+    "camera_bwd_stochastic": ("camera_stochastic_bwd_partial_kernel",
+                              "camera_stochastic_bwd_sum_kernel"),
+    "light_points_bwd": ("light_points_bwd_kernel",),
+    "overlap": ("overlap_kernel",)}
 
 
 def device_ms(prof: dict, kernel: str, launches: int) -> float:
@@ -175,12 +200,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(name: str, nbytes_: int, rays: int) -> dict:
+def bound(name: str, nbytes_: int, rays: int, ops: int | None = None) -> dict:
     """``bound_ms``, the least time the card could take: the larger of the
-    bytes over the memory rate and the operations (OPS_PER_RAY[name] *
-    rays) over the f32 rate; ``bound_by`` says which."""
+    bytes over the memory rate and the operations (``ops``, or
+    OPS_PER_RAY[name] * rays) over the f32 rate; ``bound_by`` says
+    which."""
     t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_RAY[name] * rays / F32_OPS_PER_S * 1e3
+    if ops is None:
+        ops = OPS_PER_RAY[name] * rays
+    t_ops = ops / F32_OPS_PER_S * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -769,7 +797,8 @@ def phase_shade_kernel(cases, device) -> dict:
 
 def _backward_ms(outs, wrt, cots, reps):
     return cuda_ms(lambda: torch.autograd.grad(outs, wrt, cots,
-                                               retain_graph=True), reps)
+                                               retain_graph=True,
+                                               allow_unused=True), reps)
 
 
 def phase_grad_kernels(cases, device) -> dict:
@@ -858,9 +887,10 @@ def phase_grad_kernels(cases, device) -> dict:
     return rec
 
 
-def perturbed(scene, seed):
-    """The scene with mat_kd and light_ke scaled by 1 + 0.2 N(0, 1)
-    (seeded numpy): what the training target is rendered from."""
+def perturbed(scene, seed, pos_rows=()):
+    """The scene with mat_kd and light_ke scaled by 1 + 0.2 N(0, 1), and
+    the ``pos`` rows ``pos_rows`` moved by 0.05 N(0, 1) (seeded numpy): what
+    the training target is rendered from."""
     import dataclasses
 
     rng = np.random.default_rng(seed)
@@ -869,7 +899,52 @@ def perturbed(scene, seed):
         x = getattr(scene, name)
         f = 1 + 0.2 * rng.standard_normal(tuple(x.shape))
         out[name] = x * torch.from_numpy(f.astype(np.float32)).to(x.device)
+    if len(pos_rows):
+        pos = scene.pos.clone()
+        d = 0.05 * rng.standard_normal((len(pos_rows), 3))
+        pos[list(pos_rows)] += torch.from_numpy(d.astype(np.float32)).to(
+            pos.device)
+        out["pos"] = pos
     return dataclasses.replace(scene, **out)
+
+
+def check_loss_gradient(what: str, rep: dict, loss: float) -> str:
+    """Hold a ``parity.compare_loss_grads`` report: ``loss`` equal to the
+    kernel and plain paths' losses (1e-5), every leaf's gradient within
+    TRAIN_GRAD_RTOL of the f64 reference or TRAIN_PLAIN_FACTOR x the plain
+    f32 path's own error, and each leaf the report leaves out as zero up to
+    rounding (cam_focus without a lens, cam_aperture at aperture 0) within
+    1e-5 |d cam_axes|, as a value that vanishes to first order. Logs the
+    per-leaf errors; returns a summary for the caller's log line."""
+    from yocto_raytracing_tpu_torch.kernels import parity
+
+    for key in ("loss", "plain_loss"):
+        if not abs(rep[key] - loss) <= 1e-5 * abs(loss):
+            raise AssertionError(f"{what}: loss {loss} vs {key} {rep[key]}")
+    bounds = parity.loss_grad_bounds(rep, TRAIN_GRAD_RTOL,
+                                     TRAIN_PLAIN_FACTOR)
+    worst = parity.check_grads(rep["kernel"], bounds, f"{what} gradient")
+    worst_leaf = max(rep["kernel"], key=lambda k: rep["kernel"][k]["rel"])
+    rounding = {k: float(rep["grads"][k].abs())
+                for k in ("cam_focus", "cam_aperture")
+                if k not in rep["kernel"]}
+    for k, v in rounding.items():
+        if v > 1e-5 * rep["kernel"]["cam_axes"]["norm"]:
+            raise AssertionError(f"{what}: d {k} {v}")
+    wide = sorted(k for k, b in bounds.items() if b > TRAIN_GRAD_RTOL)
+    log(f"{what}: per leaf, relative L2 error vs the f64 reference, kernel "
+        f"path / plain path: " + ", ".join(
+            f"{k} {rep['kernel'][k]['rel']:.2e}/{rep['plain'][k]['rel']:.2e}"
+            for k in sorted(rep["kernel"]) if rep["kernel"][k]["norm"] > 0))
+    return (f"loss {loss!r} (kernel path {rep['loss']!r}, plain path "
+            f"{rep['plain_loss']!r}, f64 reference {rep['ref_loss']!r}); "
+            f"gradient vs the f64 reference: largest relative L2 error "
+            f"{worst:.3e} ({worst_leaf}; tolerance {TRAIN_GRAD_RTOL} per "
+            f"leaf, {TRAIN_PLAIN_FACTOR}x the plain f32 path's own error on "
+            f"{', '.join(wide) or 'no leaf'}), the plain f32 path's largest "
+            f"{max(r['rel'] for r in rep['plain'].values()):.3e}; zero up "
+            f"to rounding (<= 1e-5 |d cam_axes|): " + (", ".join(
+                f"d {k} {v:.3e}" for k, v in rounding.items()) or "none"))
 
 
 def phase_train(name, scene, w, h, last, device, dev_info) -> dict:
@@ -906,38 +981,13 @@ def phase_train(name, scene, w, h, last, device, dev_info) -> dict:
     rep = parity.compare_loss_grads(scene, ids, target, amb, **kw)
     torch.cuda.synchronize()
     compare_s = time.perf_counter() - t0
-    lk = float(loss_k)
-    for what in ("loss", "plain_loss"):
-        if not abs(rep[what] - lk) <= 1e-5 * abs(lk):
-            raise AssertionError(f"train {name}: step loss {lk} vs {what} "
-                                 f"{rep[what]}")
-    bounds = parity.loss_grad_bounds(rep, TRAIN_GRAD_RTOL,
-                                     TRAIN_PLAIN_FACTOR)
-    worst = parity.check_grads(rep["kernel"], bounds,
-                               f"train {name} gradient")
-    worst_leaf = max(rep["kernel"], key=lambda k: rep["kernel"][k]["rel"])
-    focus = float(rep["grads"]["cam_focus"].abs())
-    if focus > 1e-5 * rep["kernel"]["cam_axes"]["norm"]:
-        raise AssertionError(f"train {name}: d cam_focus {focus}")
+    summary = check_loss_gradient(f"train {name}", rep, float(loss_k))
     parity.check_update(scene, new_k, rep["grads"], TRAIN_LR,
                         f"train {name}")
-    moved = sorted(k for k, r in rep["kernel"].items() if r["norm"] > 0)
-    wide = sorted(k for k, b in bounds.items() if b > TRAIN_GRAD_RTOL)
     log(f"train {name}: step 1, all float leaves trainable, {TRAIN_RAYS} "
-        f"rays: loss {lk!r} (kernel render_loss {rep['loss']!r}, plain "
-        f"path {rep['plain_loss']!r}, f64 reference {rep['ref_loss']!r}); "
-        f"gradient vs the f64 reference: largest relative L2 error "
-        f"{worst:.3e} ({worst_leaf}; tolerance {TRAIN_GRAD_RTOL} per leaf, "
-        f"{TRAIN_PLAIN_FACTOR}x the plain f32 path's own error on "
-        f"{', '.join(wide) or 'no leaf'}), the plain f32 path's largest "
-        f"{max(r['rel'] for r in rep['plain'].values()):.3e}"
-        f"; d cam_focus {focus:.3e} (zero up to rounding); update = d - lr "
-        f"* g on every float leaf; kernel step {wall1:.3f} s, the three "
-        f"gradients {compare_s:.1f} s; launches {counts}")
-    log(f"train {name}: per leaf, relative L2 error vs the f64 reference, "
-        f"kernel path / plain path: " + ", ".join(
-            f"{k} {rep['kernel'][k]['rel']:.2e}/{rep['plain'][k]['rel']:.2e}"
-            for k in moved))
+        f"rays: {summary}; update = d - lr * g on every float leaf; kernel "
+        f"step {wall1:.3f} s, the three gradients {compare_s:.1f} s; "
+        f"launches {counts}")
     if name == "mirror" and rep["kernel"]["mat_kr"]["norm"] == 0:
         raise AssertionError("train mirror: no gradient through the bounce")
 
@@ -971,6 +1021,335 @@ def phase_train(name, scene, w, h, last, device, dev_info) -> dict:
         cur, ids, target, amb, TRAIN_LR, **kw),
         f"warm train step {name}, every float leaf trainable")
     return dict(counts=counts, walls=walls, peak=peak, prof=prof)
+
+
+def light_vertex_rows(host, meta) -> list:
+    """Per light (emissive instance, in the scene's light order), the rows
+    of ``pos`` that hold its shape's vertices."""
+    rows = []
+    for ist in host.instances:
+        mat = host.materials[ist.material] if ist.material >= 0 else None
+        if mat is not None and (mat.ke > 0).all():
+            lo = meta.shape_vert_offset[ist.shape]
+            rows.append(list(range(lo, lo + len(host.shapes[ist.shape].pos))))
+    return rows
+
+
+def phase_reverse_kernels(host, device) -> dict:
+    """The reverses of the stochastic modes against torch autograd of
+    their plain versions on the area hair scene, relative L2 error <=
+    GRAD_RTOL per leaf: K5 with per-ray light positions (GRAD_RAYS rays,
+    camera bounce), K9 at the scene's aperture (0.1) and at aperture 0,
+    where its 15 shared sums must equal K6's on the same uv, and K10 on the
+    quad and polyline lights; each then timed at TRAIN_RAYS, kernel
+    backward against plain autograd (CUDA events)."""
+    import dataclasses
+    import functools
+
+    from yocto_raytracing_tpu_torch import scene as scene_lib
+    from yocto_raytracing_tpu_torch.kernels import parity
+    from yocto_raytracing_tpu_torch.render import (camera, lights, renderer,
+                                                   shade)
+
+    leaves, meta = scene_lib.build_device_scene(host)
+    scene = scene_lib.to_torch(leaves, device)
+    sampler = lights.build_light_sampler(host, leaves, meta, device)
+    nl = int(sampler["cdf"].shape[0])
+    width = renderer.image_width(host.cameras[0].aspect, RES)
+    amb = torch.full((3,), 0.1, device=device)
+    gen = torch.Generator(device=device)
+    rec = {}
+
+    for n in (GRAD_RAYS, TRAIN_RAYS):
+        ids = middle_ids(width, RES, SAMPLES, n, device)
+        inputs = parity.shade_inputs(scene, ids, width, RES, SAMPLES, 1, amb)
+        with torch.no_grad():
+            lpos = lights.sample_light_points_cuda(scene, sampler, ids, SEED)
+        if n == GRAD_RAYS:
+            gen.manual_seed(300)
+            rep = parity.compare_shade_grads(
+                scene, inputs, amb, gen, meta.has_kd_textures,
+                meta.has_ks_textures, light_pos=lpos)
+            worst = parity.check_grads(rep, GRAD_RTOL, "K5 per-ray lights")
+            log(f"K5 shade_bwd with per-ray lights, area hair: {n} rays: "
+                f"largest relative L2 error {worst:.3e} over ro, rd, the "
+                f"(L, N, 3) light positions "
+                f"({rep['light_pos_ray']['rel']:.3e}) and {len(rep) - 3} "
+                f"scene leaves (tolerance {GRAD_RTOL}); "
+                f"plain zeros kept (unlit lanes' light positions included)")
+            k5_err = max(r["max_abs"] for r in rep.values())
+            continue
+        ro, _, hits, active = inputs
+        cots = [torch.randn(ro.shape, device=device, generator=gen)
+                * (active & hits["hit"])[:, None] for _ in range(4)]
+        times = {}
+        for which, fn, reps in (("ms", shade.shade_step_cuda, 10),
+                                ("plain_ms", shade.shade_step_plain, 1)):
+            outs, wrt = parity.shade_graph(fn, scene, inputs, amb,
+                                           meta.has_kd_textures,
+                                           meta.has_ks_textures, lpos)
+            times[which] = _backward_ms(outs, list(wrt.values()), cots, reps)
+            del outs
+        rec["shade_bwd_lights"] = dict(
+            max_abs_err=k5_err, library_ms=None, **times,
+            # as K5, plus the per-ray light positions in and their
+            # gradient out
+            **bound("shade_bwd_lights", n * (24 + 8 + 1 + 48 + 24)
+                    + 2 * nbytes(lpos)
+                    + nbytes(*(getattr(scene, k) for k in shade.GRAD_LEAVES))
+                    + leaves_bytes(scene, SHADE_LEAVES) + n * nl, n))
+        log(f"K5 shade_bwd with per-ray lights: backward of one bounce at "
+            f"{n} rays: kernel {times['ms']:.3f} ms, plain autograd "
+            f"{times['plain_ms']:.3f} ms")
+
+    n = TRAIN_RAYS
+    ids = middle_ids(width, RES, SAMPLES, n, device)
+    gen.manual_seed(301)
+    rep = parity.compare_camera_stochastic_grads(scene, ids, width, RES,
+                                                 SAMPLES, SEED, gen)
+    worst = parity.check_grads(rep, GRAD_RTOL, "K9")
+    flat = dataclasses.replace(scene, cam_aperture=torch.zeros_like(
+        scene.cam_aperture))
+    g_ro, g_rd = (torch.randn((n, 3), device=device, generator=gen)
+                  for _ in range(2))
+    with torch.no_grad():
+        uv = camera.camera_rays_stochastic_cuda(flat, ids, width, RES,
+                                                SAMPLES, SEED)[0]
+        h, w = camera.camera_frame(flat)
+        k6 = camera.camera_rays_bwd(uv, g_ro, g_rd, flat.cam_axes, flat.cam_o,
+                                    h, w, flat.cam_focus)
+        k9 = camera.camera_rays_stochastic_bwd(
+            ids, flat.cam_axes, flat.cam_o, h, w, flat.cam_focus,
+            flat.cam_aperture, width, RES, SAMPLES, SEED, g_ro, g_rd)
+    rel0 = float(torch.linalg.vector_norm(k9[:15] - k6)
+                 / torch.linalg.vector_norm(k6))
+    log(f"K9 camera_bwd_stochastic, area hair: {n} rays, aperture "
+        f"{float(scene.cam_aperture)}: largest relative L2 error {worst:.3e} "
+        f"over {', '.join(rep)} (tolerance {GRAD_RTOL}; d_aperture "
+        f"{rep['cam_aperture']['norm']:.3e}, d_focus "
+        f"{rep['cam_focus']['norm']:.3e}); aperture 0: K9's 15 shared sums "
+        f"vs K6 on the same uv, relative L2 {rel0:.3e}, max |diff| "
+        f"{float((k9[:15] - k6).abs().max()):.3e} (tolerance {GRAD_RTOL})")
+    if not rel0 <= GRAD_RTOL:
+        raise AssertionError(f"K9 at aperture 0 vs K6: {rel0}")
+    cam_cots = [torch.randn((n, 3), device=device, generator=gen)
+                for _ in range(2)]
+    times = {}
+    for which, fn, reps in (
+            ("ms", camera.camera_rays_stochastic_cuda, 20),
+            ("plain_ms", camera.camera_rays_stochastic_plain, 5)):
+        outs, cleaves = parity.camera_graph(
+            functools.partial(fn, seed=SEED), scene, ids, width, RES,
+            SAMPLES, parity.STOCHASTIC_CAMERA_LEAVES)
+        times[which] = _backward_ms(outs, list(cleaves.values()), cam_cots,
+                                    reps)
+    rec["camera_bwd_stochastic"] = dict(
+        max_abs_err=max(r["max_abs"] for r in rep.values()),
+        library_ms=None, **times,
+        # ids, g_ro, g_rd in, 16 sums out
+        **bound("camera_bwd_stochastic", n * 28 + 16 * 4, n))
+    log(f"K9 camera_bwd_stochastic: backward at {n} rays: kernel "
+        f"{times['ms']:.3f} ms, plain autograd {times['plain_ms']:.3f} ms "
+        f"(the kernel's include the fovy/aspect chain in torch)")
+
+    gen.manual_seed(302)
+    rep = parity.compare_light_points_grads(scene, sampler, ids, SEED, gen)
+    worst = parity.check_grads(rep, GRAD_RTOL, "K10")
+    log(f"K10 light_points_bwd, area hair: {nl} lights x {n} rays, elements "
+        f"{sampler['n'].tolist()}: relative L2 error pos "
+        f"{rep['pos']['rel']:.3e}, light_pos {rep['light_pos']['rel']:.3e} "
+        f"(tolerance {GRAD_RTOL})")
+    lcots = [torch.randn((nl, n, 3), device=device, generator=gen)]
+    times = {}
+    for which, fn, reps in (("ms", lights.sample_light_points_cuda, 20),
+                            ("plain_ms", lights.sample_light_points_plain,
+                             5)):
+        outs, lleaves = parity.light_points_graph(fn, scene, sampler, ids,
+                                                  SEED)
+        times[which] = _backward_ms(outs, list(lleaves.values()), lcots,
+                                    reps)
+    rec["light_points_bwd"] = dict(
+        max_abs_err=max(r["max_abs"] for r in rep.values()),
+        library_ms=None, **times,
+        # ids, the (L, N, 3) cotangent and the tables in; d_pos, d_light_pos
+        # out
+        **bound("light_points_bwd", nbytes(ids, lcots[0], *sampler.values(),
+                                           scene.prim_v, scene.prim_type,
+                                           scene.pos, scene.light_pos),
+                nl * n))
+    log(f"K10 light_points_bwd: backward at {nl} x {n}: kernel "
+        f"{times['ms']:.4f} ms, plain autograd {times['plain_ms']:.4f} ms")
+    return rec
+
+
+STOCHASTIC_TRAIN_KERNELS = ("hit", "camera_rays_stochastic",
+                            "camera_bwd_stochastic", "light_points",
+                            "light_points_bwd", "shade", "shade_bwd_lights")
+
+
+def phase_train_stochastic(name, host, last, device, dev_info) -> dict:
+    """The stochastic modes' gradient on TRAIN_RAYS rays: the MSE loss of
+    ``trace_rays(..., differentiable=True, stochastic=True, seed=SEED,
+    light_sampler=...)`` towards a target rendered with perturbed mat_kd,
+    light_ke and light-shape pos, every float leaf trainable. The kernel
+    path's gradient within TRAIN_GRAD_RTOL of the f64 reference (or
+    TRAIN_PLAIN_FACTOR x the plain f32 path's error), cam_aperture and each
+    light's vertices moved; warm fwd+bwd walls and one profiled call, which
+    must hold K5, K9 and K10."""
+    from yocto_raytracing_tpu_torch import kernels
+    from yocto_raytracing_tpu_torch import scene as scene_lib
+    from yocto_raytracing_tpu_torch.kernels import parity
+    from yocto_raytracing_tpu_torch.render import lights, renderer
+
+    leaves, meta = scene_lib.build_device_scene(host)
+    scene = scene_lib.to_torch(leaves, device)
+    sampler = lights.build_light_sampler(host, leaves, meta, device)
+    w = renderer.image_width(host.cameras[0].aspect, RES)
+    amb = torch.full((3,), 0.1, device=device)
+    ids = middle_ids(w, RES, SAMPLES, TRAIN_RAYS, device, last)
+    rows = light_vertex_rows(host, meta)
+    kw = dict(width=w, height=RES, samples=SAMPLES, max_depth=DEPTH,
+              stochastic=True, seed=SEED, light_sampler=sampler)
+    target = renderer.trace_rays(
+        perturbed(scene, 7, [r for lr in rows for r in lr]), ids, amb, w,
+        RES, SAMPLES, DEPTH, meta.has_kd_textures, meta.has_ks_textures,
+        stochastic=True, seed=SEED, light_sampler=sampler)
+
+    def step():
+        return parity.loss_grads(scene, ids, target, amb, **kw)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = step()
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    for k in STOCHASTIC_TRAIN_KERNELS:
+        if counts[k] <= 0:
+            raise AssertionError(f"stochastic train {name}: kernel {k} "
+                                 f"never launched")
+    for k in ("camera_rays", "camera_bwd", "shade_bwd"):
+        if counts[k]:
+            raise AssertionError(f"stochastic train {name}: the fixed-light "
+                                 f"or pinhole kernel {k} ran")
+
+    t0 = time.perf_counter()
+    rep = parity.compare_loss_grads(scene, ids, target, amb, **kw)
+    torch.cuda.synchronize()
+    compare_s = time.perf_counter() - t0
+    summary = check_loss_gradient(f"stochastic train {name}", rep,
+                                  float(loss))
+    aperture_g = float(grads["cam_aperture"])
+    light_g = [float(grads["pos"][r].abs().sum()) for r in rows]
+    if aperture_g == 0 or not all(light_g):
+        raise AssertionError(f"stochastic train {name}: d cam_aperture "
+                             f"{aperture_g}, light vertices {light_g}")
+    log(f"stochastic train {name}: {TRAIN_RAYS} rays, every float leaf "
+        f"trainable, aperture {float(scene.cam_aperture)}: {summary}; d "
+        f"cam_aperture {aperture_g:.4e}, |d pos| over each light's vertices "
+        f"{', '.join(f'{x:.4e}' for x in light_g)}; first fwd+bwd "
+        f"{wall1:.3f} s, the three gradients {compare_s:.1f} s; launches "
+        f"{counts}")
+
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"stochastic train {name}: fwd+bwd wall (warm, 5 reps) "
+        f"{', '.join(f'{x:.4f}' for x in walls)} s = "
+        f"{', '.join(f'{TRAIN_RAYS / x / 1e6:.2f}' for x in walls)} Mrays/s "
+        f"on {dev_info['smi']}; peak memory {peak / 2**30:.2f} GiB")
+    prof = profile_summary(step, f"warm stochastic fwd+bwd {name}")
+    for k in ("shade_bwd_lights", "camera_bwd_stochastic",
+              "light_points_bwd"):
+        device_ms(prof, k, counts[k])   # raises if K5, K9 or K10 is missing
+    return dict(counts=counts, walls=walls, peak=peak, prof=prof)
+
+
+def phase_overlap(device, dev_info):
+    """``overlap_scene`` on OVERLAP_QUERIES points against the hair scene
+    (capsule radii, triangles, points) and a random scene (points, lines,
+    triangles in 8 instances): K11 on all of them, equal to the plain query
+    on the first OVERLAP_COMPARE (found, inst, prim equal; dist and euv
+    bit-equal). The hair run is the path: its launch count, a profiled call,
+    and kernel and plain timed on all queries. Returns (record, path)."""
+    from yocto_raytracing_tpu_torch import kernels, testscenes
+    from yocto_raytracing_tpu_torch.kernels import parity
+    from yocto_raytracing_tpu_torch.ops import overlap
+
+    cases = [("hair 256", testscenes.make_hair_scene(256),
+              ([-1.5, -0.2, -1.5], [1.5, 2.2, 1.5]), 0.2),
+             ("random seed 0", testscenes.make_random_scene(seed=0),
+              ([-4.0] * 3, [4.0] * 3), 0.75)]
+    rec = path = None
+    for k, (name, host, box, dist_max) in enumerate(cases):
+        scene, meta = scene_on(host, device)
+        rng = np.random.default_rng(11 + k)
+        q = torch.from_numpy(rng.uniform(*box, (OVERLAP_QUERIES, 3)).astype(
+            np.float32)).to(device)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = overlap.overlap_scene(scene, meta, q, dist_max)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        if counts["overlap"] != 1:
+            raise AssertionError(f"overlap {name}: K11 launched "
+                                 f"{counts['overlap']} times")
+        share = float(out["found"].float().mean())
+        sub = slice(0, OVERLAP_COMPARE)
+        plain = overlap.overlap_scene_plain(scene, meta, q[sub], dist_max)
+        gaps = parity.overlap_gaps({key: v[sub] for key, v in out.items()},
+                                   plain)
+        log(f"K11 overlap {name}: {OVERLAP_QUERIES} queries, {meta.num_prims} "
+            f"prims in {meta.num_instances} instances, dist_max {dist_max}: "
+            f"found share {share:.4f}; on the first {OVERLAP_COMPARE}: "
+            f"found/inst/prim equal {gaps['equal']}, ULP gap dist "
+            f"{gaps['dist']}, euv {gaps['euv']} over {gaps['found']} found "
+            f"(tolerance: bit-equal); call {wall:.4f} s")
+        if not gaps["equal"] or gaps["dist"] or gaps["euv"]:
+            raise AssertionError(f"K11 {name}: {gaps}")
+        if not 0.05 <= share <= 0.95:
+            raise AssertionError(f"overlap {name}: found share {share}")
+        if path is not None:
+            continue
+        prof = profile_summary(lambda: overlap.overlap_scene(
+            scene, meta, q, dist_max), f"overlap {name}")
+        path = dict(counts=counts, prof=prof)
+        lo, hi = overlap.instance_prim_ranges(scene, meta)
+        ptype = scene.prim_type.cpu().numpy()
+        ops = 0
+        for a, b in zip(lo.tolist(), hi.tolist()):
+            kinds = np.bincount(ptype[a:b], minlength=3)
+            ops += OVERLAP_OPS_PER_INSTANCE + sum(
+                int(c) * OVERLAP_OPS_PER_PAIR[t] for t, c in enumerate(kinds))
+        ops *= OVERLAP_QUERIES
+        rec = dict(
+            max_abs_err=gaps["max_abs_err"],
+            ms=cuda_ms(lambda: overlap.overlap_scene(scene, meta, q,
+                                                     dist_max), 5),
+            plain_ms=cuda_ms(lambda: overlap.overlap_scene_plain(
+                scene, meta, q, dist_max), 1),
+            library_ms=None,
+            # queries and dist_max in, found/dist/inst/prim/euv out, the
+            # instance frames and the prims' vertices and radii once
+            **bound("overlap", OVERLAP_QUERIES * (16 + 29) + nbytes(
+                scene.inst_axes, scene.inst_o, lo, hi, scene.prim_v,
+                scene.prim_type, scene.pos, scene.radius), OVERLAP_QUERIES,
+                ops=ops))
+        log(f"K11 overlap {name}: kernel {rec['ms']:.3f} ms, plain "
+            f"{rec['plain_ms']:.3f} ms for {OVERLAP_QUERIES} queries; "
+            f"{ops / OVERLAP_QUERIES:.0f} operations per query counted from "
+            f"overlap.cu, bound {rec['bound_ms'] * 1e3:.1f} us "
+            f"({rec['bound_by']}) on {dev_info['smi']}")
+    return rec, path
 
 
 def main() -> None:
@@ -1026,6 +1405,15 @@ def main() -> None:
                                             "area hair")
         phase_area_frame(area_mirror_obj, device, dev_info, "area mirror")
         phase_point_light_area(hair_obj, main_frame["image"], device)
+        rec.update(phase_reverse_kernels(scene_lib.load_scene(area_hair_obj),
+                                         device))
+        stochastic_train = phase_train_stochastic(
+            "area hair", scene_lib.load_scene(area_hair_obj), False, device,
+            dev_info)
+        phase_train_stochastic("area mirror",
+                               scene_lib.load_scene(area_mirror_obj), True,
+                               device, dev_info)
+    rec["overlap"], overlap_path = phase_overlap(device, dev_info)
 
     src = "yocto_raytracing_tpu_torch/kernels/csrc/"
     table = {  # name: (source, replaces, path that runs it)
@@ -1051,6 +1439,17 @@ def main() -> None:
         "light_points": ("lights.cu",
                          "yocto_raytracing_tpu/render/lights.py:82",
                          stochastic_frame),
+        "shade_bwd_lights": ("shade_bwd.cu",
+                             "yocto_raytracing_tpu/render/shade.py:242",
+                             stochastic_train),
+        "camera_bwd_stochastic": ("stochastic.cu",
+                                  "yocto_raytracing_tpu/render/camera.py:73",
+                                  stochastic_train),
+        "light_points_bwd": ("lights.cu",
+                             "yocto_raytracing_tpu/render/lights.py:82",
+                             stochastic_train),
+        "overlap": ("overlap.cu", "yocto_raytracing_tpu/ops/overlap.py:244",
+                    overlap_path),
     }
     kernels_rec = [dict(name=k, route="cuda", source=src + f, replaces=r,
                         launches=path["counts"][k], **rec[k],

@@ -23,14 +23,19 @@ Usage from a test:
   traverse.intersect_scene``'s dict as numpy arrays; the child rebuilds the
   scene with the JAX package's own ``testscenes``;
 * ``grads(leaves, ids, weights, amb, width=, height=, samples=,
-  max_depth=)``: ``jax.grad`` of ``sum(trace_rays(..., differentiable=True)
-  * weights)`` with respect to every float leaf, ``{name: array}``;
+  max_depth=, stochastic=, seed=, sampler=)``: ``jax.grad`` of
+  ``sum(trace_rays(..., differentiable=True) * weights)`` with respect to
+  every float leaf, ``{name: array}``, optionally with the stochastic
+  modes;
 * ``train_step(leaves, ids, target, amb, lr, width=, ..., trainable=)``: the
   JAX ``mesh.train_step``: ``{name: new leaf}`` plus ``"loss"``;
 * ``radiance(leaves, ids, amb, width=, ..., stochastic=, seed=,
   sampler=)``: ``renderer.trace_rays`` (forward) with the stochastic modes,
   ``sampler`` the light tables of ``lights.build_light_sampler`` as numpy
-  arrays; ``{"rgb": (N, 3)}``.
+  arrays; ``{"rgb": (N, 3)}``;
+* ``overlap("make_random_scene", {"seed": 0}, queries, dist_max)``: the
+  dict of ``ops.overlap.overlap_scene`` (jitted) as numpy arrays, for the
+  scene ``testscenes.<scene_fn>(**scene_kwargs)``.
 
 ``leaves`` is ``{field name: numpy array}`` of a ``DeviceScene`` (equal to
 the port's ``build_device_scene`` output).
@@ -82,13 +87,24 @@ def _scene_arrays(leaves: dict) -> dict:
     return {"leaf_" + k: np.asarray(v) for k, v in leaves.items()}
 
 
+def _sampler_arrays(sampler) -> dict:
+    return {} if sampler is None else {"sampler_" + k: np.asarray(v)
+                                       for k, v in sampler.items()}
+
+
 def grads(leaves: dict, ids, weights, amb, *, width: int, height: int,
-          samples: int, max_depth: int, timeout: float = 600.0) -> dict:
-    """``jax.grad`` of the weighted radiance sum, per float leaf."""
+          samples: int, max_depth: int, stochastic: bool = False,
+          seed: int = 0, sampler: dict | None = None,
+          timeout: float = 600.0) -> dict:
+    """``jax.grad`` of the weighted radiance sum, per float leaf; with
+    ``stochastic``, ``seed`` and the light tables ``sampler`` as in
+    ``radiance``."""
     return _run("grads", dict(_scene_arrays(leaves), ids=ids,
-                              weights=weights, amb=amb),
+                              weights=weights, amb=amb,
+                              **_sampler_arrays(sampler)),
                 dict(width=width, height=height, samples=samples,
-                     max_depth=max_depth), timeout)
+                     max_depth=max_depth, stochastic=stochastic, seed=seed),
+                timeout)
 
 
 def train_step(leaves: dict, ids, target, amb, lr: float, *, width: int,
@@ -107,14 +123,22 @@ def radiance(leaves: dict, ids, amb, *, width: int, height: int,
              samples: int, max_depth: int, stochastic: bool, seed: int,
              sampler: dict | None = None, timeout: float = 600.0) -> dict:
     """Forward ``trace_rays`` radiance (N, 3) of the JAX package."""
-    arrays = dict(_scene_arrays(leaves), ids=ids, amb=amb)
-    if sampler is not None:
-        arrays.update({"sampler_" + k: np.asarray(v)
-                       for k, v in sampler.items()})
-    return _run("radiance", arrays,
+    return _run("radiance", dict(_scene_arrays(leaves), ids=ids, amb=amb,
+                                 **_sampler_arrays(sampler)),
                 dict(width=width, height=height, samples=samples,
                      max_depth=max_depth, stochastic=stochastic, seed=seed),
                 timeout)
+
+
+def overlap(scene_fn: str, scene_kwargs: dict, queries, dist_max,
+            timeout: float = 600.0) -> dict:
+    """``ops.overlap.overlap_scene`` of the JAX package for ``queries``
+    (Q, 3) and ``dist_max`` (a scalar or (Q,)), on the scene
+    ``testscenes.<scene_fn>(**scene_kwargs)``."""
+    dist_max = np.broadcast_to(np.asarray(dist_max, np.float32),
+                               (len(queries),))
+    return _run("overlap", dict(queries=queries, dist_max=dist_max),
+                dict(scene_fn=scene_fn, kwargs=scene_kwargs), timeout)
 
 
 def _main(job: str, spec: str, tmp: str) -> None:
@@ -124,6 +148,7 @@ def _main(job: str, spec: str, tmp: str) -> None:
     import jax.numpy as jnp
 
     from yocto_raytracing_tpu import scene as scene_lib, testscenes
+    from yocto_raytracing_tpu.ops import overlap as overlap_mod
     from yocto_raytracing_tpu.ops import traverse
     from yocto_raytracing_tpu.parallel import mesh
     from yocto_raytracing_tpu.render import renderer
@@ -139,6 +164,13 @@ def _main(job: str, spec: str, tmp: str) -> None:
         out = traverse.intersect_scene(scene_lib.to_jax(dev), *rays,
                                        any_hit=cfg["any_hit"])
         out = {k: np.asarray(v) for k, v in out.items()}
+    elif job == "overlap":
+        host = getattr(testscenes, cfg["scene_fn"])(**cfg["kwargs"])
+        dev, meta = scene_lib.build_device_scene(host)
+        out = overlap_mod.overlap_scene(
+            scene_lib.to_jax(dev), meta, jnp.asarray(inp["queries"]),
+            jnp.asarray(inp["dist_max"]))
+        out = {k: np.asarray(v) for k, v in out.items()}
     else:
         dev = scene_lib.DeviceScene(**{
             k[5:]: jnp.asarray(v) for k, v in inp.items()
@@ -149,12 +181,14 @@ def _main(job: str, spec: str, tmp: str) -> None:
                   max_stack=64)
         ids = jnp.asarray(inp["ids"])
         amb = jnp.asarray(inp["amb"])
+        if "stochastic" in cfg:   # radiance and grads
+            kw.update(stochastic=cfg["stochastic"],
+                      rng_key=jnp.uint32(cfg["seed"]),
+                      light_sampler={k[8:]: jnp.asarray(v)
+                                     for k, v in inp.items()
+                                     if k.startswith("sampler_")} or None)
         if job == "radiance":
-            sampler = {k[8:]: jnp.asarray(v) for k, v in inp.items()
-                       if k.startswith("sampler_")} or None
-            rgb = renderer.trace_rays(
-                dev, ids, amb, stochastic=cfg["stochastic"],
-                rng_key=jnp.uint32(cfg["seed"]), light_sampler=sampler, **kw)
+            rgb = renderer.trace_rays(dev, ids, amb, **kw)
             out = {"rgb": np.asarray(rgb)}
         elif job == "grads":
             diff, static, treedef = mesh.partition_scene(dev)

@@ -10,7 +10,12 @@ plain path in f64 on the same hits; 1.25x the plain f32 path's own error
 where that is larger), update ``d - lr * g``; K7 (stochastic camera
 rays), K8 (area-light points) and K4 with per-ray light positions bit-equal
 to their plain versions, and a stochastic area-light frame through them
-within 1 u8 step of the all-plain path.
+within 1 u8 step of the all-plain path; the reverses of the stochastic
+modes, K5 with per-ray light positions, K9 (thin-lens rays, also against
+K6 at aperture 0) and K10 (light points), within 1e-4 of torch autograd of
+their plain versions, and the stochastic training gradient against its
+f64 reference; K11 (overlap query) equal to the plain query (found, inst,
+prim equal; dist and euv bit-equal).
 
 Every test here needs an NVIDIA GPU and nvcc, and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed:
@@ -20,8 +25,6 @@ file imports no JAX, so it also runs where JAX is not installed:
 
 (``--noconftest``: tests/conftest.py configures JAX for the other tests.)
 """
-
-import dataclasses
 
 import numpy as np
 import pytest
@@ -312,17 +315,119 @@ def test_stochastic_area_frame_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-def test_stochastic_modes_are_forward_only_on_cuda(cuda_device):
-    ts, _, sampler = _area_case(cuda_device, aperture=0.2)
-    ids = torch.arange(256, dtype=torch.int32, device=cuda_device)
+def test_shade_bwd_per_ray_lights_matches_autograd(cuda_device):
+    ts, meta, sampler = _area_case(cuda_device)
+    ids = torch.arange(64 * 64 * 4, dtype=torch.int32, device=cuda_device)
     amb = torch.full((3,), 0.1, device=cuda_device)
+    inputs = parity.shade_inputs(ts, ids, 64, 64, 2, 1, amb)
+    lpos = lights.sample_light_points(ts, sampler, ids, 3)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
     before = dict(kernels.launches)
-    for kw in (dict(stochastic=True), dict(light_sampler=sampler)):
-        with pytest.raises(NotImplementedError):
-            renderer.trace_rays(ts, ids, amb, 16, 16, 1, 2,
-                                differentiable=True, **kw)
-    assert kernels.launches == before     # raised before any launch
-    leaf = ts.cam_o.detach().requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        camera.camera_rays_stochastic(dataclasses.replace(ts, cam_o=leaf),
-                                      ids, 16, 16, 1, 0)
+    rep = parity.compare_shade_grads(ts, inputs, amb, gen,
+                                     meta.has_kd_textures,
+                                     meta.has_ks_textures, light_pos=lpos)
+    assert kernels.launches["shade_bwd_lights"] == \
+        before["shade_bwd_lights"] + 1
+    assert kernels.launches["shade_bwd"] == before["shade_bwd"]
+    parity.check_grads(rep, GRAD_RTOL, "K5 per-ray lights")
+    for leaf in ("ro", "rd", "light_pos_ray", "light_ke", "mat_kd"):
+        assert rep[leaf]["norm"] > 0, leaf
+    assert rep["light_pos"]["norm"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aperture", [0.0, 0.3])
+def test_camera_stochastic_bwd_matches_autograd(cuda_device, aperture):
+    ts, _, _ = _area_case(cuda_device, aperture=aperture)
+    ids = torch.arange(171 * 96 * 9, dtype=torch.int32, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    before = kernels.launches["camera_bwd_stochastic"]
+    rep = parity.compare_camera_stochastic_grads(ts, ids, 171, 96, 3, 7, gen)
+    assert kernels.launches["camera_bwd_stochastic"] == before + 1
+    focus = rep.pop("cam_focus")
+    parity.check_grads(rep, GRAD_RTOL, "K9")
+    assert rep["cam_aperture"]["norm"] > 0
+    if aperture:
+        parity.check_grads({"cam_focus": focus}, GRAD_RTOL, "K9")
+    else:   # no lens: d_focus is zero up to rounding, as K6's
+        assert focus["max_abs"] <= 1e-5 * rep["cam_axes"]["norm"]
+
+
+@pytest.mark.cuda
+def test_camera_stochastic_bwd_zero_aperture_is_k6(cuda_device):
+    """At aperture 0, K9's 15 shared sums are K6's on the same uv."""
+    ts, _, _ = _area_case(cuda_device, aperture=0.0)
+    n = 64 * 64 * 4
+    ids = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    g_ro, g_rd = (torch.randn((n, 3), device=cuda_device, generator=gen)
+                  for _ in range(2))
+    uv, _, _ = camera.camera_rays_stochastic(ts, ids, 64, 64, 2, 5)
+    h, w = camera.camera_frame(ts)
+    k6 = camera.camera_rays_bwd(uv, g_ro, g_rd, ts.cam_axes, ts.cam_o, h, w,
+                                ts.cam_focus)
+    k9 = camera.camera_rays_stochastic_bwd(
+        ids, ts.cam_axes, ts.cam_o, h, w, ts.cam_focus, ts.cam_aperture, 64,
+        64, 2, 5, g_ro, g_rd)
+    rel = float(torch.linalg.vector_norm(k9[:15] - k6)
+                / torch.linalg.vector_norm(k6))
+    assert rel <= GRAD_RTOL, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg", [False, True], ids=["sampled", "deg"])
+def test_light_points_bwd_matches_autograd(cuda_device, deg):
+    ts, _, sampler = _area_case(cuda_device)
+    if deg:
+        sampler = dict(sampler, deg=torch.ones_like(sampler["deg"]))
+    ids = torch.arange(1 << 16, dtype=torch.int32, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    before = kernels.launches["light_points_bwd"]
+    rep = parity.compare_light_points_grads(ts, sampler, ids, 11, gen)
+    assert kernels.launches["light_points_bwd"] == before + 1
+    parity.check_grads(rep, GRAD_RTOL, "K10")
+    assert rep["light_pos" if deg else "pos"]["norm"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", [
+    lambda: testscenes.make_random_scene(seed=0),
+    lambda: testscenes.make_hair_scene(64),
+], ids=["random0", "hair64"])
+@pytest.mark.parametrize("dist_max", [1.0, 0.05])
+def test_overlap_kernel_matches_plain(cuda_device, make, dist_max):
+    ts, meta = _scene(make(), cuda_device)
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.uniform(-2, 2, (8192, 3)).astype(np.float32))
+    before = kernels.launches["overlap"]
+    rep = parity.compare_overlap(ts, meta, q.to(cuda_device), dist_max)
+    assert kernels.launches["overlap"] == before + 1
+    assert rep["equal"] and rep["found"] > 0, rep
+    assert rep["dist"] == rep["euv"] == 0, rep
+
+
+@pytest.mark.cuda
+def test_stochastic_train_gradient_matches_reference(cuda_device):
+    """The gradient of the render loss through K7/K9, K8/K10 and K4/K5 with
+    per-ray lights, against the f64 reference on the recorded hits."""
+    ts, meta, sampler = _area_case(cuda_device, aperture=0.2)
+    w = h = 32
+    ids = torch.arange(w * h * 4, dtype=torch.int32, device=cuda_device)
+    amb = torch.full((3,), 0.1, device=cuda_device)
+    target = torch.rand((ids.shape[0], 3), device=cuda_device,
+                        generator=torch.Generator(
+                            device=cuda_device).manual_seed(1))
+    kw = dict(width=w, height=h, samples=2, max_depth=3, stochastic=True,
+              seed=7, light_sampler=sampler)
+    kernels.reset_launches()
+    rep = parity.compare_loss_grads(ts, ids, target, amb, **kw)
+    for k in ("camera_rays_stochastic", "camera_bwd_stochastic",
+              "light_points", "light_points_bwd", "shade_bwd_lights"):
+        assert kernels.launches[k] > 0, k
+    assert kernels.launches["shade_bwd"] == 0
+    np.testing.assert_allclose(rep["loss"], rep["ref_loss"], rtol=1e-5)
+    parity.check_grads(rep["kernel"],
+                       parity.loss_grad_bounds(rep, GRAD_RTOL, 1.25),
+                       "stochastic train gradient")
+    for leaf in ("cam_aperture", "cam_focus", "pos", "light_ke"):
+        assert rep["kernel"][leaf]["norm"] > 0, leaf

@@ -9,6 +9,10 @@
 * K7 ``stochastic.cu``  ray id -> jittered uv -> thin-lens ray
                                                    (render/camera.py)
 * K8 ``lights.cu``  area-light sample points       (render/lights.py)
+* K9 ``stochastic.cu``  reverse of the thin-lens rays  (render/camera.py)
+* K10 ``lights.cu`` reverse of the light points    (render/lights.py)
+* K11 ``overlap.cu``  closest element within a distance, per query point
+                                                   (ops/overlap.py)
 
 ``host/yrt_native.cpp`` is the host-side OBJ parser and BVH builder (g++,
 ``native.py``). Nothing is compiled at import: ``build()`` runs nvcc on

@@ -9,8 +9,8 @@ and a finished build is reused.
 
 Numerics: ``--fmad=false`` (no a*b+c contraction, like eager torch) and no
 fast-math, so division and sqrt are IEEE-rounded. The kernels are held
-bit-equal (K1, K2, K4, K7, K8) or within a stated tolerance (K3, K5, K6) to
-their plain torch versions.
+bit-equal (K1, K2, K4, K7, K8, K11) or within a stated tolerance (K3, K5,
+K6, K9, K10) to their plain torch versions.
 
 Each wrapper counts its launches in ``launches``; a run resets the counts
 with ``reset_launches`` and reads them afterwards to show which kernels it
@@ -33,16 +33,18 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("hit.cu", "camera.cu", "pixel.cu", "shade.cu", "shade_bwd.cu",
-           "stochastic.cu", "lights.cu")
+           "stochastic.cu", "lights.cu", "overlap.cu")
 HEADERS = ("common.cuh", "shade.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
 
-# launches of each kernel since the last reset_launches()
+# launches of each kernel since the last reset_launches(); K5 with per-ray
+# light positions counts apart from K5 with the fixed ones
 launches = {"hit": 0, "camera_rays": 0, "pixel_finish": 0, "shade": 0,
-            "shade_bwd": 0, "camera_bwd": 0, "camera_rays_stochastic": 0,
-            "light_points": 0}
+            "shade_bwd": 0, "shade_bwd_lights": 0, "camera_bwd": 0,
+            "camera_rays_stochastic": 0, "camera_bwd_stochastic": 0,
+            "light_points": 0, "light_points_bwd": 0, "overlap": 0}
 
 
 def reset_launches() -> None:
@@ -151,9 +153,19 @@ def library() -> ctypes.CDLL:
     lib.yrt_camera_rays_stochastic.restype = i32
     lib.yrt_camera_rays_stochastic.argtypes = ([vp, i32, i32, i32, i32, u32]
                                                + [vp] * 10)
-    lib.yrt_light_points.restype = i32
-    lib.yrt_light_points.argtypes = ([vp, i32, u32, vp, i32, i32] + [vp] * 5
-                                     + [i32] + [vp] * 4)
+    lib.yrt_camera_stochastic_bwd_scratch.restype = i32
+    lib.yrt_camera_stochastic_bwd_scratch.argtypes = [i32]
+    lib.yrt_camera_stochastic_bwd.restype = i32
+    lib.yrt_camera_stochastic_bwd.argtypes = ([vp, i32, i32, i32, i32, u32]
+                                              + [vp] * 11)
+    for name in ("yrt_light_points", "yrt_light_points_bwd"):
+        fn = getattr(lib, name)
+        fn.restype = i32
+        fn.argtypes = ([vp, i32, u32, vp, i32, i32] + [vp] * 5 + [i32]
+                       + [vp] * 4)
+    lib.yrt_overlap.restype = i32
+    lib.yrt_overlap.argtypes = ([vp, vp, i32] + [vp] * 4 + [i32] + [vp] * 4
+                                + [vp] * 6)
     _lib = lib
     return lib
 
@@ -175,13 +187,14 @@ class ShadeScene(ctypes.Structure):
 
 
 class ShadeGrads(ctypes.Structure):
-    """f64 gradient buffers of a K5 launch: ``yrt::ShadeGrads`` of
+    """Gradient buffers of a K5 launch (f64 leaf sums, and the f32 per-ray
+    light positions' or null): ``yrt::ShadeGrads`` of
     ``csrc/shade_bwd.cu``."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "pos", "norm", "texcoord", "inst_axes", "inst_o", "mat_kd", "mat_ks",
         "mat_kr", "mat_rs", "light_pos", "light_axes", "light_o",
-        "light_ke")]
+        "light_ke", "light_pos_ray")]
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -82,8 +82,7 @@ __global__ void camera_rays_kernel(const int* __restrict__ ids, int n,
   rd[3 * k + 2] = d.z;
 }
 
-// Stage 1: one thread per ray, warp shuffle tree, then the block's warps in
-// order: partials[block][15].
+// Stage 1: one thread per ray, then block_partial_sums: partials[block][15].
 __global__ void __launch_bounds__(kCamBwdThreads)
     camera_bwd_partial_kernel(const float* __restrict__ uv,
                               const float* __restrict__ g_ro,
@@ -94,7 +93,6 @@ __global__ void __launch_bounds__(kCamBwdThreads)
                               const float* __restrict__ w_p,
                               const float* __restrict__ focus_p,
                               float* __restrict__ partials) {
-  __shared__ float warp_part[kCamBwdThreads / 32][kCamGrads];
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   float gr[kCamGrads];
 #pragma unroll
@@ -136,33 +134,13 @@ __global__ void __launch_bounds__(kCamBwdThreads)
     gr[13] = (u - 0.5f) * dot(gq, x);
     gr[14] = -dot(gq, z);
   }
-#pragma unroll
-  for (int j = 0; j < kCamGrads; ++j) {
-    float s = gr[j];
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    if ((threadIdx.x & 31) == 0) warp_part[threadIdx.x / 32][j] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < kCamGrads) {
-    float s = 0.0f;
-    for (int wi = 0; wi < kCamBwdThreads / 32; ++wi)
-      s += warp_part[wi][threadIdx.x];
-    partials[static_cast<long long>(blockIdx.x) * kCamGrads + threadIdx.x] = s;
-  }
+  block_partial_sums<kCamGrads, kCamBwdThreads>(gr, partials);
 }
 
 // Stage 2: one block, warp j sums column j of the partials in a fixed order.
 __global__ void camera_bwd_sum_kernel(const float* __restrict__ partials,
                                       int nblocks, float* __restrict__ out) {
-  const int j = threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  float s = 0.0f;
-  for (int b = lane; b < nblocks; b += 32)
-    s += partials[static_cast<long long>(b) * kCamGrads + j];
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) out[j] = s;
+  column_sums<kCamGrads>(partials, nblocks, out);
 }
 
 }  // namespace yrt

@@ -167,4 +167,43 @@ __host__ __device__ inline unsigned int blocks_for(long long n, int threads) {
   return static_cast<unsigned int>((n + threads - 1) / threads);
 }
 
+// Deterministic batch sums of K per-thread values (the camera reverses K6
+// and K9), in two stages with a fixed order. Stage 1, in a block of
+// kThreads threads: each warp sums its lanes with a shuffle tree, then the
+// block's warps are added in order into partials[blockIdx.x][K].
+template <int K, int kThreads>
+__device__ __forceinline__ void block_partial_sums(const float (&v)[K],
+                                                   float* __restrict__ partials) {
+  __shared__ float warp_part[kThreads / 32][K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    float s = v[j];
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if ((threadIdx.x & 31) == 0) warp_part[threadIdx.x / 32][j] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < K) {
+    float s = 0.0f;
+    for (int wi = 0; wi < kThreads / 32; ++wi) s += warp_part[wi][threadIdx.x];
+    partials[static_cast<long long>(blockIdx.x) * K + threadIdx.x] = s;
+  }
+}
+
+// Stage 2, in one block of 32 * K threads: warp j sums column j of the
+// nblocks partials (lane-strided, then a shuffle tree) into out[j].
+template <int K>
+__device__ __forceinline__ void column_sums(const float* __restrict__ partials,
+                                            int nblocks,
+                                            float* __restrict__ out) {
+  const int j = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  float s = 0.0f;
+  for (int b = lane; b < nblocks; b += 32)
+    s += partials[static_cast<long long>(b) * K + j];
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) out[j] = s;
+}
+
 }  // namespace yrt

@@ -14,6 +14,15 @@
 // light_ke. Texels are integers: only d_uv flows, through the bilinear
 // weights and d s / d u = w.
 //
+// With per-ray light positions (area lights, ShadeScene::light_pos_ray) the
+// bounce reads light l's position for ray i from row l * N + i, and the
+// gradient of that position is written densely into the (L, N, 3) f32
+// ShadeGrads::light_pos_ray, each ray's thread its own rows, no atomics;
+// unlit and masked lanes get exact zeros, and the per-light light_pos
+// gradient stays zero (the bounce does not read light_pos). The light
+// frame and emission sums are warp-summed as on the point-light path, whose
+// code and results are unchanged.
+//
 // Derivative conventions are torch autograd's of the plain version:
 // safe_sqrt, safe_normalize and safe_pow have zero gradient where their
 // guard is false (JAX ops/intersect.py:40-70); clamp passes the gradient at
@@ -45,8 +54,10 @@
 
 namespace yrt {
 
-// f64 gradient buffers of a K5 launch, zero-filled by the caller. Mirrors
-// kernels/_build.py::ShadeGrads.
+// Gradient buffers of a K5 launch: f64, zero-filled by the caller, except
+// light_pos_ray, the dense (L, N, 3) f32 gradient of the per-ray light
+// positions (written in full when ShadeScene::light_pos_ray is set, else
+// null). Mirrors kernels/_build.py::ShadeGrads.
 struct ShadeGrads {
   double* pos;
   double* norm;
@@ -61,6 +72,7 @@ struct ShadeGrads {
   double* light_axes;
   double* light_o;
   double* light_ke;
+  float* light_pos_ray;
 };
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -188,13 +200,14 @@ __global__ void __launch_bounds__(128)
   V3 g_kse = zero3();
   float g_ns = 0.0f;
 
+  const bool per_ray = s.light_pos_ray != nullptr;  // uniform
   for (int l = 0; l < s.num_lights; ++l) {
     const bool lit = live && occ[static_cast<long long>(l) * n + i] == 0;
     V3 gl_pos = zero3(), gl_o = zero3(), gl_ke = zero3();
     V3 gl_a0 = zero3(), gl_a1 = zero3(), gl_a2 = zero3();
     if (lit) {
       LightGeom lg;
-      light_geom(s, l, load3(s.light_pos, l), g.p, lg);
+      light_geom(s, l, light_position(s, l, i, n), g.p, lg);
       const V3 ke = load3(s.light_ke, l);
       const float r2 = lg.rdist * lg.rdist;
       const float den2 = r2 < kMinR2 ? kMinR2 : r2;
@@ -263,8 +276,17 @@ __global__ void __launch_bounds__(128)
       gl_pos = make(dot(lg.a0, g_lvec), dot(lg.a1, g_lvec), dot(lg.a2, g_lvec));
       g_p = sub(g_p, gl_pos);
     }
-    if (live_bits) {
+    if (per_ray) {
+      if (valid) {
+        float* dst = G.light_pos_ray + 3 * (static_cast<long long>(l) * n + i);
+        dst[0] = gl_pos.x;
+        dst[1] = gl_pos.y;
+        dst[2] = gl_pos.z;
+      }
+    } else if (live_bits) {
       warp_add3(G.light_pos, 3LL * l, gl_pos);
+    }
+    if (live_bits) {
       warp_add3(G.light_axes, 9LL * l, gl_a0);
       warp_add3(G.light_axes, 9LL * l + 3, gl_a1);
       warp_add3(G.light_axes, 9LL * l + 6, gl_a2);
@@ -442,8 +464,8 @@ extern "C" int yrt_shade_bwd(const yrt::ShadeScene* s,
                              const float* g_kr, const float* g_p,
                              const float* g_refl, float* d_ro, float* d_rd,
                              void* stream) {
-  // the gradient of per-ray light positions is not written: refuse them
-  if (s->light_pos_ray != nullptr)
+  // per-ray light positions need their dense gradient buffer
+  if ((s->light_pos_ray != nullptr) != (grads->light_pos_ray != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     constexpr int kThreads = 128;  // a multiple of the warp size

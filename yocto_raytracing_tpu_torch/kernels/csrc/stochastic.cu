@@ -21,23 +21,38 @@
 // (uv, ro, rd), about 5.6 us per 524,288-ray chunk at 3.35 TB/s; ~150
 // scalar operations per ray are ~1.2 us at 67 TFLOP/s. Memory-bound; one
 // thread per ray with coalesced id reads is all the design needs.
+//
+// K9 is K7's reverse, the adjoint of eval_camera_dof (JAX
+// render/camera.py:73-97) for cotangents of (ro, rd): per ray, it recomputes
+// the jittered uv and the lens sample from the id and the seed with K7's own
+// device function (stochastic_sample), and the ray with K7's arithmetic,
+// then runs the adjoint of
+//   q  = o + (u - .5) w x + (v - .5) h y - focus z,   y = -axes[1]
+//   ro = o + (aperture / 2) (dx x + dy y)
+//   rd = (q - ro) / |q - ro|
+// The per-ray origin carries g_ro into o, x, y and the aperture, and
+// d = q - ro sends -g_d into it. The 16 sums (d_axes 9, d_o 3, d_h, d_w,
+// d_focus, d_aperture) are reduced like K6's 15, per-block partials then
+// one fixed-order sum, so the result does not depend on scheduling; h and w
+// go back to fovy, aspect and focus through torch. With aperture 0 the
+// shared sums are K6's. What bounds it: reading 4 + 24 bytes per ray (the id
+// and two cotangents) and K7's recompute plus ~60 operations per ray.
 #include "common.cuh"
 
 namespace yrt {
 
 constexpr unsigned int kLensSeedXor = 0x9E3779B9u;
 constexpr float kTwoPi = 2.0f * 3.14159265358979323846f;  // f32 2 * f32 pi
+constexpr int kCamStochGrads = 16;  // axes (9), o (3), h, w, focus, aperture
+constexpr int kCamStochBwdThreads = 256;
 
-__global__ void camera_rays_stochastic_kernel(
-    const int* __restrict__ ids, int n, int width, int height, int samples,
-    unsigned int seed, const float* __restrict__ axes,
-    const float* __restrict__ org, const float* __restrict__ h_p,
-    const float* __restrict__ w_p, const float* __restrict__ focus_p,
-    const float* __restrict__ aperture_p, float* __restrict__ uv,
-    float* __restrict__ ro, float* __restrict__ rd) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  const int id = ids[k];
+// Jittered uv and unit-disk lens sample (dx, dy) of ray `id`.
+struct StochasticSample {
+  float u, v, dx, dy;
+};
+
+__device__ __forceinline__ StochasticSample stochastic_sample(
+    int id, int width, int height, int samples, unsigned int seed) {
   const float j0 = per_ray_uniform(seed, id, 0u);
   const float j1 = per_ray_uniform(seed, id, 1u);
   const float l0 = per_ray_uniform(seed ^ kLensSeedXor, id, 0u);
@@ -60,33 +75,137 @@ __global__ void camera_rays_stochastic_kernel(
   // sample_disk: r = sqrt(r1), phi = 2 pi r0
   const float r = sqrtf(l1);
   const float phi = kTwoPi * l0;
-  const float dx = cosf(phi) * r;
-  const float dy = sinf(phi) * r;
+  return StochasticSample{u, v, cosf(phi) * r, sinf(phi) * r};
+}
 
-  const float h = __ldg(h_p), w = __ldg(w_p), focus = __ldg(focus_p);
-  const float lens = __ldg(aperture_p) / 2.0f;
-  const V3 x = load3(axes, 0);
+// The camera frame of a launch, read from device memory.
+struct CamFrame {
+  V3 x, y, z, o;  // y = -axes[1]
+  float h, w, focus, lens;  // lens = aperture / 2
+};
+
+__device__ __forceinline__ CamFrame cam_frame(const float* __restrict__ axes,
+                                              const float* __restrict__ org,
+                                              const float* __restrict__ h_p,
+                                              const float* __restrict__ w_p,
+                                              const float* __restrict__ focus_p,
+                                              const float* __restrict__ ap_p) {
+  CamFrame c;
+  c.x = load3(axes, 0);
   const V3 yn = load3(axes, 1);
-  const V3 y = make(-yn.x, -yn.y, -yn.z);
-  const V3 z = load3(axes, 2);
-  const V3 o = load3(org, 0);
-  // pinhole target on the focus plane, as in K2
-  const V3 q = sub(add(add(o, mul(x, (u - 0.5f) * w)), mul(y, (v - 0.5f) * h)),
-                   mul(z, focus));
-  // origin on the aperture disk: o + lens * (dx * x + dy * y)
-  const V3 e = add(o, mul(add(mul(x, dx), mul(y, dy)), lens));
-  V3 d = sub(q, e);
-  const float nrm = sqrtf(dot(d, d));
-  d = make(d.x / nrm, d.y / nrm, d.z / nrm);
+  c.y = make(-yn.x, -yn.y, -yn.z);
+  c.z = load3(axes, 2);
+  c.o = load3(org, 0);
+  c.h = __ldg(h_p);
+  c.w = __ldg(w_p);
+  c.focus = __ldg(focus_p);
+  c.lens = __ldg(ap_p) / 2.0f;
+  return c;
+}
 
-  uv[2 * k] = u;
-  uv[2 * k + 1] = v;
-  ro[3 * k] = e.x;
-  ro[3 * k + 1] = e.y;
-  ro[3 * k + 2] = e.z;
-  rd[3 * k] = d.x;
-  rd[3 * k + 1] = d.y;
-  rd[3 * k + 2] = d.z;
+// Thin-lens ray: origin e on the aperture disk, unnormalized direction
+// d = q - e and its length.
+struct LensRay {
+  V3 e, d;
+  float nrm;
+};
+
+__device__ __forceinline__ LensRay lens_ray(const CamFrame& c,
+                                            const StochasticSample& sm) {
+  // pinhole target on the focus plane, as in K2
+  const V3 q = sub(add(add(c.o, mul(c.x, (sm.u - 0.5f) * c.w)),
+                       mul(c.y, (sm.v - 0.5f) * c.h)),
+                   mul(c.z, c.focus));
+  // origin on the aperture disk: o + lens * (dx * x + dy * y)
+  LensRay r;
+  r.e = add(c.o, mul(add(mul(c.x, sm.dx), mul(c.y, sm.dy)), c.lens));
+  r.d = sub(q, r.e);
+  r.nrm = sqrtf(dot(r.d, r.d));
+  return r;
+}
+
+__global__ void camera_rays_stochastic_kernel(
+    const int* __restrict__ ids, int n, int width, int height, int samples,
+    unsigned int seed, const float* __restrict__ axes,
+    const float* __restrict__ org, const float* __restrict__ h_p,
+    const float* __restrict__ w_p, const float* __restrict__ focus_p,
+    const float* __restrict__ aperture_p, float* __restrict__ uv,
+    float* __restrict__ ro, float* __restrict__ rd) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  const StochasticSample sm =
+      stochastic_sample(ids[k], width, height, samples, seed);
+  const CamFrame c = cam_frame(axes, org, h_p, w_p, focus_p, aperture_p);
+  const LensRay r = lens_ray(c, sm);
+  uv[2 * k] = sm.u;
+  uv[2 * k + 1] = sm.v;
+  ro[3 * k] = r.e.x;
+  ro[3 * k + 1] = r.e.y;
+  ro[3 * k + 2] = r.e.z;
+  rd[3 * k] = r.d.x / r.nrm;
+  rd[3 * k + 1] = r.d.y / r.nrm;
+  rd[3 * k + 2] = r.d.z / r.nrm;
+}
+
+// K9 stage 1: one thread per ray, then block_partial_sums:
+// partials[block][16].
+__global__ void __launch_bounds__(kCamStochBwdThreads)
+    camera_stochastic_bwd_partial_kernel(
+        const int* __restrict__ ids, int n, int width, int height,
+        int samples, unsigned int seed, const float* __restrict__ g_ro,
+        const float* __restrict__ g_rd, const float* __restrict__ axes,
+        const float* __restrict__ org, const float* __restrict__ h_p,
+        const float* __restrict__ w_p, const float* __restrict__ focus_p,
+        const float* __restrict__ aperture_p, float* __restrict__ partials) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  float gr[kCamStochGrads];
+#pragma unroll
+  for (int j = 0; j < kCamStochGrads; ++j) gr[j] = 0.0f;
+  if (k < n) {
+    const StochasticSample sm =
+        stochastic_sample(ids[k], width, height, samples, seed);
+    const CamFrame c = cam_frame(axes, org, h_p, w_p, focus_p, aperture_p);
+    const LensRay r = lens_ray(c, sm);
+    const V3 rdn = make(r.d.x / r.nrm, r.d.y / r.nrm, r.d.z / r.nrm);
+    // rd = d / |d|: g_d = (g - rd (g . rd)) / |d|; q gets g_d, e gets
+    // g_ro - g_d
+    const V3 g = load3(g_rd, k);
+    const float cg = dot(g, rdn);
+    const V3 gq = make((g.x - rdn.x * cg) / r.nrm, (g.y - rdn.y * cg) / r.nrm,
+                       (g.z - rdn.z * cg) / r.nrm);
+    const V3 gro = load3(g_ro, k);
+    const V3 ge = sub(gro, gq);
+    const float cu = (sm.u - 0.5f) * c.w;
+    const float cv = (sm.v - 0.5f) * c.h;
+    // e = o + lens (dx x + dy y): x gets ge lens dx, y ge lens dy
+    const V3 gel = mul(ge, c.lens);
+    const V3 gx = add(mul(gq, cu), mul(gel, sm.dx));
+    const V3 gy = add(mul(gq, cv), mul(gel, sm.dy));
+    gr[0] = gx.x;
+    gr[1] = gx.y;
+    gr[2] = gx.z;
+    gr[3] = -gy.x;  // y = -axes[1]
+    gr[4] = -gy.y;
+    gr[5] = -gy.z;
+    gr[6] = -gq.x * c.focus;
+    gr[7] = -gq.y * c.focus;
+    gr[8] = -gq.z * c.focus;
+    gr[9] = gro.x;  // o: g_d from q and g_ro - g_d from e
+    gr[10] = gro.y;
+    gr[11] = gro.z;
+    gr[12] = (sm.v - 0.5f) * dot(gq, c.y);
+    gr[13] = (sm.u - 0.5f) * dot(gq, c.x);
+    gr[14] = -dot(gq, c.z);
+    gr[15] = dot(ge, add(mul(c.x, sm.dx), mul(c.y, sm.dy))) / 2.0f;
+  }
+  block_partial_sums<kCamStochGrads, kCamStochBwdThreads>(gr, partials);
+}
+
+// K9 stage 2: one block, warp j sums column j of the partials in a fixed
+// order.
+__global__ void camera_stochastic_bwd_sum_kernel(
+    const float* __restrict__ partials, int nblocks, float* __restrict__ out) {
+  column_sums<kCamStochGrads>(partials, nblocks, out);
 }
 
 }  // namespace yrt
@@ -104,5 +223,37 @@ extern "C" int yrt_camera_rays_stochastic(
         ids, n, width, height, samples, seed, cam_axes, cam_o, h, w, focus,
         aperture, uv, ro, rd);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Number of f32 partials yrt_camera_stochastic_bwd needs as scratch for n
+// rays.
+extern "C" int yrt_camera_stochastic_bwd_scratch(int n) {
+  return static_cast<int>(yrt::blocks_for(n, yrt::kCamStochBwdThreads)) *
+         yrt::kCamStochGrads;
+}
+
+// K9. out (16,) = [d_axes (9, row-major), d_o (3), d_h, d_w, d_focus,
+// d_aperture] for the cotangents g_ro, g_rd (N, 3) of K7's rays.
+extern "C" int yrt_camera_stochastic_bwd(
+    const int* ids, int n, int width, int height, int samples,
+    unsigned int seed, const float* g_ro, const float* g_rd,
+    const float* cam_axes, const float* cam_o, const float* h, const float* w,
+    const float* focus, const float* aperture, float* partials, float* out,
+    void* stream) {
+  const int nblocks =
+      n > 0 ? static_cast<int>(yrt::blocks_for(n, yrt::kCamStochBwdThreads))
+            : 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nblocks > 0) {
+    yrt::camera_stochastic_bwd_partial_kernel<<<
+        nblocks, yrt::kCamStochBwdThreads, 0, st>>>(
+        ids, n, width, height, samples, seed, g_ro, g_rd, cam_axes, cam_o, h,
+        w, focus, aperture, partials);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  yrt::camera_stochastic_bwd_sum_kernel<<<1, 32 * yrt::kCamStochGrads, 0,
+                                          st>>>(partials, nblocks, out);
   return static_cast<int>(cudaGetLastError());
 }

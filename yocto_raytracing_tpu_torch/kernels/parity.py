@@ -1,4 +1,4 @@
-"""K4-K8 against their plain torch versions, on a card.
+"""K4-K11 against their plain torch versions, on a card.
 
 The comparisons that ``chip_smoke.py`` and the card tests
 (``tests/test_torch_kernels.py``) make, kept in one place:
@@ -13,14 +13,21 @@ The comparisons that ``chip_smoke.py`` and the card tests
   the largest ULP gap;
 * ``compare_shade_grads``: K5 and torch autograd of the plain version, for
   the same seeded cotangents (zero on masked lanes, whose gradient K5
-  defines as zero); per leaf the relative L2 error;
+  defines as zero), optionally with per-ray light positions; per leaf the
+  relative L2 error;
 * ``compare_camera_grads``: K6 and torch autograd of ``camera_rays_plain``;
-* ``shade_graph`` / ``camera_graph``: the autograd graphs both compare
-  (and ``chip_smoke.py`` times);
+  ``compare_camera_stochastic_grads``: K9 and torch autograd of the plain
+  stochastic chain; ``compare_light_points_grads``: K10 and torch autograd
+  of the plain light sampling;
+* ``shade_graph`` / ``camera_graph`` / ``light_points_graph``: the
+  autograd graphs those compare (and ``chip_smoke.py`` times);
+* ``compare_overlap`` (``overlap_gaps``): K11 and the plain overlap query
+  on the same queries;
 * ``compare_loss_grads`` (from ``loss_grads``, ``recorder``,
-  ``replayer`` and ``as_dtype``): the gradient of ``mesh.render_loss`` on
-  the kernel path and on the plain path against its f64 reference, the
-  plain path in f64 on the hits that the kernel path recorded.
+  ``replayer`` and ``as_dtype``): the gradient of the MSE render loss of
+  ``mesh.render_loss`` (with the stochastic modes, if asked) on the kernel
+  path and on the plain path against its f64 reference, the plain path in
+  f64 on the hits that the kernel path recorded.
 
 Launches made here count in ``_build.launches`` like any other: a caller
 that reads the counts of a main path resets them after these comparisons.
@@ -29,12 +36,13 @@ that reads the counts of a main path resets them after these comparisons.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from ..ops import overlap as overlap_mod
 from ..ops import traverse
-from ..parallel import mesh as mesh_mod
 from ..render import camera as camera_mod
 from ..render import lights as lights_mod
 from ..render import renderer as renderer_mod
@@ -43,6 +51,8 @@ from .. import scene as scene_lib
 
 SHADE_OUTPUTS = ("color", "kr", "p", "refl_dir")
 CAMERA_LEAVES = ("cam_axes", "cam_o", "cam_fovy", "cam_aspect", "cam_focus")
+STOCHASTIC_CAMERA_LEAVES = CAMERA_LEAVES + ("cam_aperture",)
+LIGHT_POINT_LEAVES = ("pos", "light_pos")
 
 
 def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -203,32 +213,47 @@ def check_update(old, new, grads: dict, lr: float, what: str) -> None:
 
 
 def shade_graph(fn, scene, inputs, amb, has_kd_textures=True,
-                has_ks_textures=True):
+                has_ks_textures=True, light_pos=None):
     """One bounce through ``fn`` (``shade_step_cuda`` or
     ``shade_step_plain``) with fresh leaves that require grad: returns
-    (outputs (color, kr, p, refl_dir), {name: input}) for ro, rd and the
-    ``shade.GRAD_LEAVES``."""
+    (outputs (color, kr, p, refl_dir), {name: input}) for ro, rd, the
+    ``shade.GRAD_LEAVES`` and, when per-ray light positions are given,
+    ``light_pos_ray``."""
     ro, rd, hits, active = inputs
     wrt = {"ro": ro.detach().requires_grad_(True),
            "rd": rd.detach().requires_grad_(True)}
     leaves = {k: getattr(scene, k).detach().requires_grad_(True)
               for k in shade_mod.GRAD_LEAVES}
     wrt.update(leaves)
+    if light_pos is not None:
+        wrt["light_pos_ray"] = light_pos.detach().requires_grad_(True)
     outs = fn(dataclasses.replace(scene, **leaves), wrt["ro"], wrt["rd"],
               hits, amb, active, occluder(scene), has_kd_textures,
-              has_ks_textures)[:4]
+              has_ks_textures, wrt.get("light_pos_ray"))[:4]
     return outs, wrt
 
 
-def camera_graph(fn, scene, ids, width, height, samples):
+def camera_graph(fn, scene, ids, width, height, samples,
+                 names=CAMERA_LEAVES):
     """Camera rays through ``fn`` (``camera_rays_cuda`` or
-    ``camera_rays_plain``) with fresh camera leaves that require grad:
-    returns ((ro, rd), {name: leaf})."""
+    ``camera_rays_plain``, or a stochastic one with its seed bound) with
+    fresh camera leaves ``names`` that require grad: returns ((ro, rd),
+    {name: leaf})."""
     leaves = {k: getattr(scene, k).detach().requires_grad_(True)
-              for k in CAMERA_LEAVES}
+              for k in names}
     _, ro, rd = fn(dataclasses.replace(scene, **leaves), ids, width, height,
                    samples)
     return (ro, rd), leaves
+
+
+def light_points_graph(fn, scene, sampler, ids, seed):
+    """Light points through ``fn`` (``sample_light_points_cuda`` or
+    ``sample_light_points_plain``) with fresh ``pos`` and ``light_pos``
+    that require grad: returns ((points,), {name: leaf})."""
+    leaves = {k: getattr(scene, k).detach().requires_grad_(True)
+              for k in LIGHT_POINT_LEAVES}
+    return (fn(dataclasses.replace(scene, **leaves), sampler, ids, seed),), \
+        leaves
 
 
 def _grads(outs, wrt, cots):
@@ -239,18 +264,20 @@ def _grads(outs, wrt, cots):
 
 
 def compare_shade_grads(scene, inputs, amb, generator,
-                        has_kd_textures=True, has_ks_textures=True) -> dict:
+                        has_kd_textures=True, has_ks_textures=True,
+                        light_pos=None) -> dict:
     """K5 against torch autograd of the plain shading for seeded cotangents
     of (color, kr, p, refl_dir): a ``relative_errors`` report per leaf, and
-    for ro and rd."""
+    for ro and rd (and ``light_pos_ray`` with per-ray light positions)."""
     ro, _, hits, active = inputs
     mask = active & hits["hit"]
     cots = [torch.randn(ro.shape, device=ro.device, generator=generator)
             * mask[:, None] for _ in SHADE_OUTPUTS]
-    kern = _grads(*shade_graph(shade_mod.shade_step_cuda, scene, inputs, amb,
-                               has_kd_textures, has_ks_textures), cots)
-    plain = _grads(*shade_graph(shade_mod.shade_step_plain, scene, inputs,
-                                amb, has_kd_textures, has_ks_textures), cots)
+    kern, plain = (_grads(*shade_graph(fn, scene, inputs, amb,
+                                       has_kd_textures, has_ks_textures,
+                                       light_pos), cots)
+                   for fn in (shade_mod.shade_step_cuda,
+                              shade_mod.shade_step_plain))
     # masked lanes: K5 returns exact zeros; the plain rows there are the
     # (discarded) rays of inst 0 / prim 0
     for k in ("ro", "rd"):
@@ -269,6 +296,58 @@ def compare_camera_grads(scene, ids, width, height, samples,
         _grads(*camera_graph(fn, scene, ids, width, height, samples), cots)
         for fn in (camera_mod.camera_rays_cuda,
                    camera_mod.camera_rays_plain)))
+
+
+def compare_camera_stochastic_grads(scene, ids, width, height, samples,
+                                    seed, generator) -> dict:
+    """K9 against torch autograd of ``camera_rays_stochastic_plain`` for
+    seeded cotangents of (ro, rd): per camera leaf, ``cam_aperture``
+    included, as in ``compare_shade_grads``."""
+    n = ids.shape[0]
+    cots = [torch.randn((n, 3), device=ids.device, generator=generator)
+            for _ in range(2)]
+    return relative_errors(*(
+        _grads(*camera_graph(functools.partial(fn, seed=seed), scene, ids,
+                             width, height, samples,
+                             STOCHASTIC_CAMERA_LEAVES), cots)
+        for fn in (camera_mod.camera_rays_stochastic_cuda,
+                   camera_mod.camera_rays_stochastic_plain)))
+
+
+def compare_light_points_grads(scene, sampler, ids, seed,
+                               generator) -> dict:
+    """K10 against torch autograd of ``sample_light_points_plain`` for a
+    seeded (L, N, 3) cotangent: for ``pos`` and ``light_pos``, as in
+    ``compare_shade_grads``."""
+    shape = (sampler["cdf"].shape[0], ids.shape[0], 3)
+    cots = [torch.randn(shape, device=ids.device, generator=generator)]
+    return relative_errors(*(
+        _grads(*light_points_graph(fn, scene, sampler, ids, seed), cots)
+        for fn in (lights_mod.sample_light_points_cuda,
+                   lights_mod.sample_light_points_plain)))
+
+
+def overlap_gaps(kern: dict, plain: dict) -> dict:
+    """Two overlap query results: 'equal' (found, inst and prim equal), the
+    largest ULP gap of 'dist' and 'euv' over the queries the plain query
+    found, 'found' (their count) and 'max_abs_err'."""
+    out = dict(equal=all(bool(torch.equal(kern[k], plain[k]))
+                         for k in ("found", "inst", "prim")),
+               found=int(plain["found"].sum()))
+    sel = plain["found"]
+    out.update(_gaps(("dist", "euv"), (kern["dist"][sel], kern["euv"][sel]),
+                     (plain["dist"][sel], plain["euv"][sel])))
+    return out
+
+
+def compare_overlap(scene, meta, queries, dist_max) -> dict:
+    """K11 and the plain overlap query on the same queries: their
+    ``overlap_gaps``."""
+    with torch.no_grad():
+        kern = overlap_mod.overlap_scene_cuda(scene, meta, queries, dist_max)
+        plain = overlap_mod.overlap_scene_plain(scene, meta, queries,
+                                                dist_max)
+    return overlap_gaps(kern, plain)
 
 
 def recorder(isect_fn, log: list):
@@ -305,27 +384,37 @@ def as_dtype(scene, dtype):
         if getattr(scene, k).is_floating_point()})
 
 
-def loss_grads(scene, ray_ids, target, amb, **kw):
-    """(loss, {leaf: d loss / d leaf}) of ``mesh.render_loss`` for every
-    float leaf of ``scene``, in the scene's dtype; ``kw`` goes to
-    ``render_loss`` (frame, ``plain``, ``intersect``)."""
+def loss_grads(scene, ray_ids, target, amb, *, width, height, samples,
+               max_depth, **kw):
+    """(loss, {leaf: d loss / d leaf}) of the MSE render loss of
+    ``mesh.render_loss``, ``mean((trace_rays(..., differentiable=True) -
+    target) ** 2)``, for every float leaf of ``scene``, in the scene's
+    dtype. ``kw`` goes to ``trace_rays``: ``plain``, ``intersect`` and the
+    stochastic modes (``stochastic``, ``seed``, ``light_sampler``), which
+    ``render_loss`` does not take, as in the JAX package."""
     leaves = {k: getattr(scene, k).detach().requires_grad_(True)
               for k in scene_lib.LEAF_NAMES
               if getattr(scene, k).is_floating_point()}
-    loss = mesh_mod.render_loss(dataclasses.replace(scene, **leaves),
-                                ray_ids, target, amb, **kw)
+    rgb = renderer_mod.trace_rays(dataclasses.replace(scene, **leaves),
+                                  ray_ids, amb, width, height, samples,
+                                  max_depth, differentiable=True, **kw)
+    loss = torch.mean((rgb - target) ** 2)
     return loss.detach(), _grads([loss], leaves, None)
 
 
 def compare_loss_grads(scene, ray_ids, target, amb, **kw) -> dict:
-    """The gradient of ``render_loss`` three ways: the kernel path (which
+    """The gradient of the render loss three ways: the kernel path (which
     records its hits), the plain path (its own walk), and the f64
     reference, the plain path in f64 on the recorded hits, so that rounding
     is all that separates the three. Returns the three losses ('loss',
     'plain_loss', 'ref_loss'), the kernel path's gradients ('grads') and
     the ``relative_errors`` reports (zeros of whole leaves) of the kernel
-    ('kernel') and the plain path ('plain') against the reference,
-    ``cam_focus`` apart: its gradient is zero up to rounding."""
+    ('kernel') and the plain path ('plain') against the reference.
+    Leaves whose gradient is zero up to rounding are left out of the
+    reports: ``cam_focus`` unless thin-lens rays (``stochastic`` and a
+    non-zero aperture) make it move the rays, and with ``stochastic`` at
+    aperture 0, ``cam_aperture``, whose first-order term averages out over
+    the symmetric lens samples."""
     hits = []
     loss, grads = loss_grads(
         scene, ray_ids, target, amb,
@@ -335,7 +424,11 @@ def compare_loss_grads(scene, ray_ids, target, amb, **kw) -> dict:
     ref_loss, ref = loss_grads(
         as_dtype(scene, torch.float64), ray_ids, target.double(),
         amb.double(), plain=True, intersect=replayer(hits), **kw)
-    ref.pop("cam_focus")
+    lens = float(scene.cam_aperture) != 0.0
+    if not (kw.get("stochastic") and lens):
+        ref.pop("cam_focus")
+    if kw.get("stochastic") and not lens:
+        ref.pop("cam_aperture")
     return dict(
         loss=float(loss), plain_loss=float(plain_loss),
         ref_loss=float(ref_loss), grads=grads,

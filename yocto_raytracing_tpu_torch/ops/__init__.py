@@ -1,1 +1,3 @@
-"""Ray-primitive math (``intersect``) and the scene hit query (``traverse``)."""
+"""Ray-primitive math (``intersect``), the scene hit query (``traverse``),
+its brute-force oracle (``brute``), the overlap query (``overlap``) and
+the samplers (``sampling``)."""

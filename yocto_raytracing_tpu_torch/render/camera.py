@@ -14,7 +14,8 @@ The stochastic mode (jittered antialiasing and thin-lens depth of field)
 is ``camera_rays_stochastic``: stateless PCG variates keyed by ray id
 (``pcg_hash``, ``per_ray_uniform``), ``pixel_uv_jittered``, a unit-disk
 lens sample and ``eval_camera_dof``; the plain chain for CPU tensors, K7
-(``kernels/csrc/stochastic.cu``) for CUDA tensors. K7 has no reverse yet.
+(``kernels/csrc/stochastic.cu``) for CUDA tensors, with K9 as its backward
+(``CameraRaysStochasticFn``).
 """
 
 from __future__ import annotations
@@ -28,9 +29,6 @@ from ..scene import TorchScene
 
 U32 = 0xFFFFFFFF
 LENS_SEED_XOR = 0x9E3779B9   # lens variates: seed ^ this (renderer.py:224)
-# the leaves K7 reads: it has no reverse, so none may require grad
-_K7_LEAVES = ("cam_axes", "cam_o", "cam_fovy", "cam_aspect", "cam_focus",
-              "cam_aperture")
 
 
 def pixel_uv(width: int, height: int, samples: int, ray_ids):
@@ -262,40 +260,96 @@ def camera_rays_stochastic_plain(scene: TorchScene, ids, width: int,
     return uv, ro, rd
 
 
-def camera_rays_stochastic_cuda(scene: TorchScene, ids, width: int,
-                                height: int, samples: int, seed: int):
-    """K7 launch: same contract as ``camera_rays_stochastic_plain``, CUDA
-    only, no host sync. K7 has no reverse: with grad enabled and a camera
-    leaf that requires grad it raises."""
-    if torch.is_grad_enabled() and any(
-            getattr(scene, k).requires_grad for k in _K7_LEAVES):
-        raise NotImplementedError("stochastic camera rays (K7) have no "
-                                  "reverse on the CUDA path")
+def _check_stochastic_args(ids, cam_axes, cam_o, h, w, focus, aperture,
+                           width, height, samples):
     dev = ids.device
-    n = ids.shape[0]
     f32 = torch.float32
     check = _build.check_tensor
-    check("ids", ids, torch.int32, (n,), dev)
-    check("cam_axes", scene.cam_axes, f32, (3, 3), dev)
-    check("cam_o", scene.cam_o, f32, (3,), dev)
-    h, w = camera_frame(scene)
-    for name, t in (("h", h), ("w", w), ("cam_focus", scene.cam_focus),
-                    ("cam_aperture", scene.cam_aperture)):
+    check("ids", ids, torch.int32, (ids.shape[0],), dev)
+    check("cam_axes", cam_axes, f32, (3, 3), dev)
+    check("cam_o", cam_o, f32, (3,), dev)
+    for name, t in (("h", h), ("w", w), ("cam_focus", focus),
+                    ("cam_aperture", aperture)):
         check(name, t, f32, (), dev)
     if min(width, height, samples) < 1:
         raise ValueError(f"bad frame {width}x{height}, samples {samples}")
-    uv = torch.empty((n, 2), dtype=f32, device=dev)
-    ro = torch.empty((n, 3), dtype=f32, device=dev)
-    rd = torch.empty((n, 3), dtype=f32, device=dev)
+
+
+class CameraRaysStochasticFn(torch.autograd.Function):
+    """K7 forward, K9 backward.
+
+    Inputs that carry gradients: ``cam_axes`` (3, 3), ``cam_o`` (3) and the
+    0-dim ``h``, ``w``, ``focus`` and ``aperture``; ``h`` and ``w`` come
+    from ``camera_frame``, so d_fovy and d_aspect follow by torch autograd.
+    The backward recomputes the uv and lens samples from the ids and the
+    seed, so it saves no per-ray tensor but the ids.
+    """
+
+    @staticmethod
+    def forward(ctx, ids, cam_axes, cam_o, h, w, focus, aperture, width,
+                height, samples, seed):
+        _check_stochastic_args(ids, cam_axes, cam_o, h, w, focus, aperture,
+                               width, height, samples)
+        dev = ids.device
+        n = ids.shape[0]
+        f32 = torch.float32
+        uv = torch.empty((n, 2), dtype=f32, device=dev)
+        ro = torch.empty((n, 3), dtype=f32, device=dev)
+        rd = torch.empty((n, 3), dtype=f32, device=dev)
+        ptr = _build.ptr
+        err = _build.library().yrt_camera_rays_stochastic(
+            ptr(ids), n, width, height, samples, seed & U32, ptr(cam_axes),
+            ptr(cam_o), ptr(h), ptr(w), ptr(focus), ptr(aperture), ptr(uv),
+            ptr(ro), ptr(rd), _build.current_stream())
+        _build.check_launch(err, "yrt_camera_rays_stochastic")
+        _build.launches["camera_rays_stochastic"] += 1
+        ctx.mark_non_differentiable(uv)
+        ctx.frame = (width, height, samples, seed)
+        ctx.save_for_backward(ids, cam_axes, cam_o, h, w, focus, aperture)
+        return uv, ro, rd
+
+    @staticmethod
+    def backward(ctx, _g_uv, g_ro, g_rd):
+        out = camera_rays_stochastic_bwd(*ctx.saved_tensors, *ctx.frame,
+                                         g_ro.contiguous(), g_rd.contiguous())
+        return (None, out[0:9].reshape(3, 3), out[9:12], out[12], out[13],
+                out[14], out[15], None, None, None, None)
+
+
+def camera_rays_stochastic_bwd(ids, cam_axes, cam_o, h, w, focus, aperture,
+                               width, height, samples, seed, g_ro, g_rd):
+    """K9 launch: (16,) f32 = [d_cam_axes (9), d_cam_o (3), d_h, d_w,
+    d_focus, d_aperture], summed over the batch in a fixed order, for the
+    cotangents of K7's (ro, rd). CUDA only."""
+    _check_stochastic_args(ids, cam_axes, cam_o, h, w, focus, aperture,
+                           width, height, samples)
+    dev = ids.device
+    n = ids.shape[0]
+    f32 = torch.float32
+    _build.check_tensor("g_ro", g_ro, f32, (n, 3), dev)
+    _build.check_tensor("g_rd", g_rd, f32, (n, 3), dev)
+    lib = _build.library()
+    partials = torch.empty(lib.yrt_camera_stochastic_bwd_scratch(n),
+                           dtype=f32, device=dev)
+    out = torch.empty(16, dtype=f32, device=dev)
     ptr = _build.ptr
-    err = _build.library().yrt_camera_rays_stochastic(
-        ptr(ids), n, width, height, samples, seed & U32, ptr(scene.cam_axes),
-        ptr(scene.cam_o), ptr(h), ptr(w), ptr(scene.cam_focus),
-        ptr(scene.cam_aperture), ptr(uv), ptr(ro), ptr(rd),
-        _build.current_stream())
-    _build.check_launch(err, "yrt_camera_rays_stochastic")
-    _build.launches["camera_rays_stochastic"] += 1
-    return uv, ro, rd
+    err = lib.yrt_camera_stochastic_bwd(
+        ptr(ids), n, width, height, samples, seed & U32, ptr(g_ro),
+        ptr(g_rd), ptr(cam_axes), ptr(cam_o), ptr(h), ptr(w), ptr(focus),
+        ptr(aperture), ptr(partials), ptr(out), _build.current_stream())
+    _build.check_launch(err, "yrt_camera_stochastic_bwd")
+    _build.launches["camera_bwd_stochastic"] += 1
+    return out
+
+
+def camera_rays_stochastic_cuda(scene: TorchScene, ids, width: int,
+                                height: int, samples: int, seed: int):
+    """K7 launch (K9 in the backward): same contract as
+    ``camera_rays_stochastic_plain``, CUDA only, no host sync."""
+    h, w = camera_frame(scene)
+    return CameraRaysStochasticFn.apply(
+        ids, scene.cam_axes, scene.cam_o, h, w, scene.cam_focus,
+        scene.cam_aperture, width, height, samples, seed)
 
 
 def camera_rays_stochastic(scene: TorchScene, ids, width: int, height: int,
@@ -303,7 +357,8 @@ def camera_rays_stochastic(scene: TorchScene, ids, width: int, height: int,
     """Jittered, thin-lens camera rays for flat ray ids: (uv, ro, rd).
 
     CPU tensors take the plain chain (differentiable by torch autograd);
-    CUDA tensors launch K7 (or raise).
+    CUDA tensors launch K7 (or raise), and K9 in the backward. ``uv``
+    carries no gradient.
     """
     if _build.device_kind(ids) == "cpu":
         return camera_rays_stochastic_plain(scene, ids, width, height,

@@ -17,8 +17,10 @@ raytrace.cpp:129-130).
 * ``build_light_sampler``: the host tables (numpy, as in JAX), as tensors
   on the scene's device;
 * ``sample_light_points``: (L, N, 3) points for a batch of ray ids; the
-  plain version for CPU tensors, K8 (``kernels/csrc/lights.cu``) for CUDA
-  tensors.
+  plain version for CPU tensors (differentiable by torch autograd), K8
+  (``kernels/csrc/lights.cu``) for CUDA tensors, with K10, its reverse, in
+  the backward (``LightPointsFn``): the points' gradient goes to ``pos``
+  and, for a light whose shape has no element, to ``light_pos``.
 """
 
 from __future__ import annotations
@@ -122,14 +124,10 @@ def sample_light_points_plain(scene, sampler, ids, seed: int):
                        scene.light_pos[:, None, :], out)
 
 
-def sample_light_points_cuda(scene, sampler, ids, seed: int):
-    """K8 launch: same contract as ``sample_light_points_plain``, CUDA
-    only. K8 has no reverse: with grad enabled and ``pos`` or
-    ``light_pos`` requiring grad it raises."""
-    if torch.is_grad_enabled() and (scene.pos.requires_grad
-                                    or scene.light_pos.requires_grad):
-        raise NotImplementedError("area-light points (K8) have no reverse "
-                                  "on the CUDA path")
+def _launch(name, scene, sampler, ids, seed, *tail):
+    """Check the tables and topology, then launch ``name`` (K8 or K10,
+    which share their leading arguments: ids, seed, the tables, prim_v,
+    prim_type); ``tail`` holds the pointers that differ."""
     dev = ids.device
     n = ids.shape[0]
     cdf = sampler["cdf"]
@@ -142,29 +140,77 @@ def sample_light_points_cuda(scene, sampler, ids, seed: int):
     check("deg", sampler["deg"], torch.bool, (nl,), dev)
     check("prim_v", scene.prim_v, torch.int32, (-1, 3), dev)
     check("prim_type", scene.prim_type, torch.int32, (-1,), dev)
-    check("pos", scene.pos, torch.float32, (-1, 3), dev)
-    check("light_pos", scene.light_pos, torch.float32, (nl, 3), dev)
     if ne < 1 or scene.prim_v.shape[0] < 1:
         raise ValueError("light sampler without elements or scene without "
                          "prims")
-    out = torch.empty((nl, n, 3), dtype=torch.float32, device=dev)
     ptr = _build.ptr
-    err = _build.library().yrt_light_points(
+    err = getattr(_build.library(), name)(
         ptr(ids), n, seed & camera_mod.U32, ptr(cdf), nl, ne,
         ptr(sampler["n"]), ptr(sampler["prim_lo"]), ptr(sampler["deg"]),
         ptr(scene.prim_v), ptr(scene.prim_type), scene.prim_v.shape[0],
-        ptr(scene.pos), ptr(scene.light_pos), ptr(out),
-        _build.current_stream())
-    _build.check_launch(err, "yrt_light_points")
-    _build.launches["light_points"] += 1
-    return out
+        *(ptr(t) for t in tail), _build.current_stream())
+    _build.check_launch(err, name)
+
+
+class LightPointsFn(torch.autograd.Function):
+    """K8 forward, K10 backward: ``forward(ctx, scene, sampler, ids, seed,
+    pos, light_pos)`` -> (L, N, 3) points, differentiable in ``pos`` and
+    ``light_pos`` (the same tensors as ``scene.pos`` / ``scene.light_pos``;
+    the tables and topology come from ``sampler`` and ``scene``)."""
+
+    @staticmethod
+    def forward(ctx, scene, sampler, ids, seed, pos, light_pos):
+        dev = ids.device
+        nl = sampler["cdf"].shape[0]
+        _build.check_tensor("pos", pos, torch.float32, (-1, 3), dev)
+        _build.check_tensor("light_pos", light_pos, torch.float32, (nl, 3),
+                            dev)
+        out = torch.empty((nl, ids.shape[0], 3), dtype=torch.float32,
+                          device=dev)
+        _launch("yrt_light_points", scene, sampler, ids, seed, pos,
+                light_pos, out)
+        _build.launches["light_points"] += 1
+        ctx.scene, ctx.sampler, ctx.seed = scene, sampler, seed
+        ctx.save_for_backward(ids, pos)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, pos = ctx.saved_tensors
+        d_pos, d_light_pos = light_points_bwd(ctx.scene, ctx.sampler, ids,
+                                              ctx.seed, g.contiguous(),
+                                              pos.shape[0])
+        return None, None, None, None, d_pos, d_light_pos
+
+
+def light_points_bwd(scene, sampler, ids, seed: int, g, num_verts: int):
+    """K10 launch: the (L, N, 3) cotangent ``g`` of the light points ->
+    (d_pos (V, 3), d_light_pos (L, 3)), f64 sums rounded to f32 once. CUDA
+    only."""
+    dev = ids.device
+    nl = sampler["cdf"].shape[0]
+    _build.check_tensor("g", g, torch.float32, (nl, ids.shape[0], 3), dev)
+    d_pos = torch.zeros((num_verts, 3), dtype=torch.float64, device=dev)
+    d_light_pos = torch.zeros((nl, 3), dtype=torch.float64, device=dev)
+    _launch("yrt_light_points_bwd", scene, sampler, ids, seed, g, d_pos,
+            d_light_pos)
+    _build.launches["light_points_bwd"] += 1
+    return d_pos.to(torch.float32), d_light_pos.to(torch.float32)
+
+
+def sample_light_points_cuda(scene, sampler, ids, seed: int):
+    """K8 launch (K10 in the backward): same contract as
+    ``sample_light_points_plain``, CUDA only."""
+    return LightPointsFn.apply(scene, sampler, ids, seed, scene.pos,
+                               scene.light_pos)
 
 
 def sample_light_points(scene, sampler, ids, seed: int):
     """Per-ray shape-space sample point on each light: (L, N, 3).
 
     CPU tensors take the plain version (differentiable by torch autograd
-    in ``pos`` and ``light_pos``); CUDA tensors launch K8 (or raise).
+    in ``pos`` and ``light_pos``); CUDA tensors launch K8 (or raise), and
+    K10 in the backward.
     """
     if _build.device_kind(ids) == "cpu":
         return sample_light_points_plain(scene, sampler, ids, seed)

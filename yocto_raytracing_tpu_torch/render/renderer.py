@@ -14,7 +14,8 @@ pixels:
   shading (``shade.shade_step``, K4) with stacked shadow rays (K1
   any-hit), mirror rays with ``kr`` throughput; it stops at ``max_depth`` or
   when no ray is active. With ``differentiable=True`` the loop keeps the
-  autograd graph (K5 and K6 in the backward);
+  autograd graph (K5 and K6 in the backward; K9 and K10 with the
+  stochastic modes);
 * per-pixel spp sums, or the tonemap to u8 (``pixel_finish``, K3).
 
 Pixels go in scanline order. Each wrapper runs its plain torch version on
@@ -148,15 +149,13 @@ def trace_rays(scene, ray_ids, ambient, width: int, height: int,
     aperture, thin-lens depth of field, from variates keyed by ray id and
     ``seed`` (so the radiance does not depend on how ids are batched).
     ``light_sampler`` (``lights.build_light_sampler``): area lights, one
-    sample point per (light, ray) under ``seed``. On CUDA neither has a
-    reverse yet: with ``differentiable`` they raise before any launch; on
-    the CPU the plain path stays differentiable.
+    sample point per (light, ray) under ``seed``. Both are differentiable,
+    as in the JAX package: through the thin-lens camera into every camera
+    leaf and ``cam_aperture`` (K9 on CUDA), and through the light points
+    into ``pos`` and ``light_pos`` (K5 with per-ray lights, then K10); the
+    per-ray light positions' gradient is summed over the bounces by
+    autograd.
     """
-    if (differentiable and (stochastic or light_sampler is not None)
-            and _build.device_kind(ray_ids) == "cuda" and not plain):
-        raise NotImplementedError(
-            "stochastic rays and area lights are forward-only on the CUDA "
-            "path (K7's reverse and K5 with per-ray lights are not ported)")
     if plain:
         cam_fn = (camera_mod.camera_rays_stochastic_plain if stochastic
                   else camera_mod.camera_rays_plain)

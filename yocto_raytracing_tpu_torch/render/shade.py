@@ -24,8 +24,8 @@ kernel K4 (``kernels/csrc/shade.cu``, around K1's any-hit) and, in the
 backward, the hand-written adjoint K5 (``kernels/csrc/shade_bwd.cu``). Like
 the JAX package's remat policy, the forward saves only the rays, the hit
 topology, the mask and the shadow visibility; K5 recomputes the bounce.
-K5 does not take per-ray light positions: on CUDA a bounce with them runs
-K4 alone and refuses a graph that would need K5.
+With per-ray light positions K5 also writes their (L, N, 3) gradient, which
+autograd carries back to the light samples (``render/lights.py``, K10).
 """
 
 from __future__ import annotations
@@ -287,10 +287,9 @@ class ShadeStepFn(torch.autograd.Function):
     rd, inst, prim, mask, amb, light_pos_ray, *leaves)`` with ``leaves`` the
     GRAD_LEAVES tensors and ``light_pos_ray`` None or the per-ray (L, N, 3)
     light positions; returns (color, kr, p, refl_dir). Saved for the
-    backward: ro, rd, inst, prim, mask and the (L, N) occlusion. Masked
-    lanes get exactly zero gradient. ``amb`` takes no gradient; a forward
-    with ``light_pos_ray`` has no backward (K5 does not take it, and
-    ``shade_step_cuda`` refuses such a graph).
+    backward: ro, rd, inst, prim, mask, the (L, N) occlusion and the
+    per-ray light positions. Masked lanes get exactly zero gradient, and
+    so do the light positions of unlit lanes. ``amb`` takes no gradient.
     """
 
     @staticmethod
@@ -335,35 +334,44 @@ class ShadeStepFn(torch.autograd.Function):
         _build.launches["shade"] += 1
         ctx.scene = scene
         ctx.tex = (has_kd_textures, has_ks_textures)
-        ctx.save_for_backward(ro, rd, inst, prim, mask, occ, amb, *leaves)
+        ctx.save_for_backward(ro, rd, inst, prim, mask, occ, amb,
+                              light_pos_ray, *leaves)
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, g_color, g_kr, g_p, g_refl):
-        ro, rd, inst, prim, mask, occ, amb, *leaves = ctx.saved_tensors
+        (ro, rd, inst, prim, mask, occ, amb, light_pos_ray,
+         *leaves) = ctx.saved_tensors
         if ctx.needs_input_grad[9]:
             raise NotImplementedError("the ambient term takes no gradient "
                                       "on the CUDA path")
         d_ro, d_rd, grads = shade_step_bwd(
             ctx.scene, dict(zip(GRAD_LEAVES, leaves)), amb, ro, rd, inst,
-            prim, mask, occ, (g_color, g_kr, g_p, g_refl), *ctx.tex)
+            prim, mask, occ, (g_color, g_kr, g_p, g_refl), *ctx.tex,
+            light_pos_ray=light_pos_ray)
         return (None, None, None, None, d_ro, d_rd, None, None, None, None,
-                None, *(grads[k] for k in GRAD_LEAVES))
+                grads.get("light_pos_ray"),
+                *(grads[k] for k in GRAD_LEAVES))
 
 
 def shade_step_bwd(scene, leaves, amb, ro, rd, inst, prim, mask, occ,
-                   cotangents, has_kd_textures=True, has_ks_textures=True):
+                   cotangents, has_kd_textures=True, has_ks_textures=True,
+                   light_pos_ray=None):
     """K5 launch: (d_ro, d_rd, {leaf name: gradient}) of one bounce for the
-    cotangents of (color, kr, p, refl_dir). CUDA only.
+    cotangents of (color, kr, p, refl_dir). CUDA only. With per-ray light
+    positions (L, N, 3) the dict also holds their dense gradient under
+    ``"light_pos_ray"`` (and ``light_pos``'s is zero).
 
     The leaf gradients are f64 atomic sums rounded to f32: the order of
     the sums varies from run to run, and with it, rarely, the last bit
-    (see ``kernels/csrc/shade_bwd.cu``).
+    (see ``kernels/csrc/shade_bwd.cu``). The per-ray gradient has no sum
+    and is deterministic.
     """
     n = ro.shape[0]
     dev = ro.device
     f32 = torch.float32
-    args = _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures)
+    args = _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
+                       light_pos_ray, n)
     cots = []
     for name, g in zip(("g_color", "g_kr", "g_p", "g_refl"), cotangents):
         g = g.contiguous()
@@ -371,7 +379,11 @@ def shade_step_bwd(scene, leaves, amb, ro, rd, inst, prim, mask, occ,
         cots.append(g)
     grads = {k: torch.zeros_like(leaves[k], dtype=torch.float64)
              for k in GRAD_LEAVES}
-    gstruct = _build.ShadeGrads(**{k: v.data_ptr() for k, v in grads.items()})
+    d_lpr = (None if light_pos_ray is None
+             else torch.empty((args.num_lights, n, 3), dtype=f32, device=dev))
+    gstruct = _build.ShadeGrads(
+        **{k: v.data_ptr() for k, v in grads.items()},
+        light_pos_ray=None if d_lpr is None else d_lpr.data_ptr())
     d_ro = torch.empty((n, 3), dtype=f32, device=dev)
     d_rd = torch.empty((n, 3), dtype=f32, device=dev)
     ptr = _build.ptr
@@ -380,21 +392,18 @@ def shade_step_bwd(scene, leaves, amb, ro, rd, inst, prim, mask, occ,
         ptr(inst), ptr(prim), ptr(mask), ptr(occ), n, *(ptr(g) for g in cots),
         ptr(d_ro), ptr(d_rd), _build.current_stream())
     _build.check_launch(err, "yrt_shade_bwd")
-    _build.launches["shade_bwd"] += 1
-    return d_ro, d_rd, {k: v.to(f32) for k, v in grads.items()}
+    _build.launches["shade_bwd" if d_lpr is None else "shade_bwd_lights"] += 1
+    grads = {k: v.to(f32) for k, v in grads.items()}
+    if d_lpr is not None:
+        grads["light_pos_ray"] = d_lpr
+    return d_ro, d_rd, grads
 
 
 def shade_step_cuda(scene, ro, rd, hits, amb, active, occluder,
                     has_kd_textures=True, has_ks_textures=True,
                     light_pos=None):
     """K4 launch (K5 in the backward): same contract as
-    ``shade_step_plain``, CUDA only. With per-ray ``light_pos`` and grad
-    enabled for any input, it raises: K5 does not take them."""
-    if light_pos is not None and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (ro, rd, light_pos, *(
-                getattr(scene, k) for k in GRAD_LEAVES))):
-        raise NotImplementedError("shading with per-ray light positions "
-                                  "has no reverse on the CUDA path")
+    ``shade_step_plain``, CUDA only."""
     mask = active & hits["hit"]
     color, kr, p, refl_dir = ShadeStepFn.apply(
         scene, occluder, has_kd_textures, has_ks_textures, ro, rd,
