@@ -9,7 +9,7 @@ backward (also with per-ray light positions), K6 camera backward, K9
 thin-lens camera backward and K10 light-points backward (relative L2 error
 <= 1e-4 per gradient leaf of torch autograd), K7 stochastic camera rays,
 K8 area-light points and K11 overlap query (bit-equal). Then it drives the
-port's five paths through their user entry points:
+port's seven paths through their user entry points:
 
 * rendering, ``render_scene_file(..., device="cuda")``: the hair scene
   (lines + triangles + two point lights; the stand-in for the reference's
@@ -38,7 +38,18 @@ port's five paths through their user entry points:
   the light vertices moved, a timed and a profiled fwd+bwd;
 * the overlap query, ``ops.overlap.overlap_scene`` on 2**20 query points
   against the hair scene (capsule radii) and a random scene (points, lines,
-  triangles), equal to the plain query on a 65,536-query subset.
+  triangles), equal to the plain query on a 65,536-query subset;
+* the ray-sharded paths, ``parallel.mesh`` in a one-rank NCCL group:
+  ``render_image_sharded`` of the hair and area hair frames (host spp sum,
+  no K3) within 1 u8 step of ``render_image`` (the f32 ULP gap printed),
+  ``train_step_sharded`` on 2**20 rays against ``train_step``, and a
+  profiled sharded step with K1, K2, K4, K5, K6 and one all_reduce for the
+  loss and one per float leaf; the all_reduce's time beside its bound;
+* the CLI, ``python -m yocto_raytracing_tpu_torch.cli`` in subprocesses:
+  the hair frame as PNG, plain, with ``--checkpoint`` (and resumed from a
+  snapshot cut to half), ``--sharded``, and ``--sharded`` under
+  ``torch.distributed.run``, each bit-equal to ``image.tonemap`` of
+  ``render_image``; a missing scene exits 1 with ``error:`` first.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails if a kernel of the path never launched.
@@ -67,6 +78,7 @@ import time
 import numpy as np
 import torch
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 FLT_MAX = np.float32(3.4028235e38)
 CHUNK_PIXELS = 1 << 15
 COMPARE_PIXELS = 1 << 18
@@ -88,9 +100,8 @@ SEED = 7
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # operations per ray (per light and ray for light_points), counted from the
-# kernel sources, integer and float alike; K1's are a floor (one slab test
-# per ray: its traversal depends on the data and is not counted)
-OPS_PER_RAY = {"hit": 30, "camera_rays": 45, "pixel_finish": 6,
+# kernel sources, integer and float alike
+OPS_PER_RAY = {"camera_rays": 45, "pixel_finish": 6,
                "shade": 360, "shade_bwd": 1100, "shade_bwd_lights": 1100,
                "camera_bwd": 110, "camera_rays_stochastic": 150,
                "camera_bwd_stochastic": 210, "light_points": 60,
@@ -100,8 +111,19 @@ OPS_PER_RAY = {"hit": 30, "camera_rays": 45, "pixel_finish": 6,
 # instance) for the move into the instance frame
 OVERLAP_OPS_PER_PAIR = {0: 15, 1: 50, 2: 100}   # point, line, triangle
 OVERLAP_OPS_PER_INSTANCE = 20
+# K1's operations per unit of the work that its walk does (the plain walk
+# counts the units on the same rays, ``intersect_scene_plain(stats=)``),
+# counted from hit.cu and common.cuh: a node visit (the slab test, 43, and
+# the next-node choice, 10), a change of the ray's frame (``local_ray``),
+# and a prim test of each kind
+HIT_OPS = {"nodes": 53, "frames": 47, "point_tests": 35, "line_tests": 80,
+           "triangle_tests": 65}
 OVERLAP_QUERIES = 1 << 20
 OVERLAP_COMPARE = 1 << 16
+# idle host seconds on each side of a profiled call, and the most sessions
+# tried for one profile (see profile_summary)
+PROFILE_PAD_S = 0.05
+PROFILE_ATTEMPTS = 3
 
 
 def log(*args):
@@ -138,29 +160,48 @@ def cuda_ms(fn, reps: int) -> float:
 def profile_summary(fn, label: str) -> dict:
     """One call of ``fn`` under torch.profiler: wall ms (host clock, ends in
     a synchronize), device busy ms (sum of the trace's device events), the
-    idle share of the wall, the number of device ops, the top ops and the
-    device microseconds of every op name (``by_name``)."""
+    idle share of the wall, the number of device ops, the top ops, the
+    device microseconds of every op name (``by_name``) and the count of
+    every host event name (``host``).
+
+    The profiled window is padded with PROFILE_PAD_S of idle host time on
+    each side of the call, so that device events whose converted timestamps
+    land just outside the call still fall inside the trace's window. A trace
+    that still holds no device event at all (not even the call's copies)
+    is a loss of the tracer, not of the call: it is reported and the call
+    is profiled again, at most PROFILE_ATTEMPTS times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not evs:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            time.sleep(PROFILE_PAD_S)
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if evs:
+            break
+        log(f"profile {label}: attempt {attempt} of {PROFILE_ATTEMPTS}: the "
+            f"trace holds no device event")
+    else:
         raise AssertionError(f"profile {label}: the trace holds no device "
-                             f"event")
+                             f"event in {PROFILE_ATTEMPTS} attempts")
+    host = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU:
+            host[e.name] = host.get(e.name, 0) + 1
     busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
     by_name = {}
     for e in evs:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out = dict(wall_ms=wall, busy_ms=busy, idle=1.0 - busy / wall,
-               ops=len(evs), by_name=by_name)
+               ops=len(evs), by_name=by_name, host=host)
     log(f"profile {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
         f"idle share {out['idle']:.3f}, device ops {len(evs)}; top: "
         + "; ".join(f"{n[:48]} {t / 1e3:.2f} ms" for n, t in top))
@@ -363,9 +404,12 @@ def phase_frame_kernels(scene, width, height, samples, device) -> dict:
     _, ro, rd = b
     tmin = torch.full((n,), 1e-4, device=device)
     tmax = torch.full((n,), float(FLT_MAX), device=device)
-    plain = traverse.intersect_scene_plain(scene, ro, rd, tmin, tmax)
+    work = {}
+    plain = traverse.intersect_scene_plain(scene, ro, rd, tmin, tmax,
+                                           stats=work)
     kern = traverse.intersect_scene(scene, ro, rd, tmin, tmax)
     exact = assert_hits_equal(plain, kern, "K1 hair primary rays")
+    ops = sum(HIT_OPS[k] * v for k, v in work.items())
     both = plain["hit"] & kern["hit"]
     err = float((plain["t"][both] - kern["t"][both]).abs().max()) \
         if bool(both.any()) else 0.0
@@ -377,9 +421,14 @@ def phase_frame_kernels(scene, width, height, samples, device) -> dict:
             scene, ro, rd, tmin, tmax), 1),
         library_ms=None,
         **bound("hit", nbytes(ro, rd, tmin, tmax, *kern.values())
-                + leaves_bytes(scene, HIT_LEAVES), n))
+                + leaves_bytes(scene, HIT_LEAVES), n, ops=ops))
     log(f"K1 hair primary rays: {n} rays, {int(kern['hit'].sum())} hits, "
         f"t bit-equal {exact}/{n} (tolerance: hit equal, t within 1 ULP)")
+    log(f"K1 work on these rays, per ray (the plain walk's counts): "
+        + ", ".join(f"{k} {v / n:.3f}" for k, v in work.items())
+        + f"; {ops / n:.1f} operations per ray at {HIT_OPS} (hit.cu, "
+        f"common.cuh); bound {rec['hit']['bound_ms'] * 1e3:.2f} us "
+        f"({rec['hit']['bound_by']})")
 
     rgb = renderer.trace_rays(scene, ids, torch.full((3,), 0.1,
                                                      device=device),
@@ -1352,6 +1401,311 @@ def phase_overlap(device, dev_info):
     return rec, path
 
 
+SHARDED_FRAME_KERNELS = {"hair": ("hit", "camera_rays", "shade"),
+                         "area hair": ("hit", "camera_rays_stochastic",
+                                       "light_points", "shade")}
+# the host event of one torch.distributed.all_reduce in torch.profiler's
+# trace (the c10d dispatcher op)
+ALL_REDUCE_EVENT = "c10d::allreduce_"
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface (bind to 0, read back)."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def frame_gaps(a: np.ndarray, b: np.ndarray):
+    """(largest f32 ULP gap of the RGB channels, largest u8 gap after
+    ``image.tonemap``) between two f32 frames."""
+    from yocto_raytracing_tpu_torch import image
+
+    ulp = int(np.abs(ordered(a[..., :3]) - ordered(b[..., :3])).max())
+    u8 = int(np.abs(image.tonemap(a).astype(np.int32)
+                    - image.tonemap(b)).max())
+    return ulp, u8
+
+
+def phase_sharded(hair_obj, area_hair_obj, device, dev_info) -> dict:
+    """The ray-sharded paths (``parallel.mesh``) in a real one-rank NCCL
+    group: the hair frame and the stochastic area hair frame (seed SEED,
+    area lights) through ``render_image_sharded`` against ``render_image``
+    (within 1 u8 step after the tonemap; the f32 ULP gap printed), each
+    with its launch counts (no K3: the spp sum runs on the host);
+    ``train_step_sharded`` on TRAIN_RAYS rays of the hair frame, every
+    float leaf trainable, against ``train_step`` (loss rtol 1e-6, leaves
+    rtol 1e-5 / atol 1e-7); a profiled sharded step, which must hold K1,
+    K2, K4, K5 and K6 and 1 + (trainable leaves) all_reduce calls, and the
+    all_reduce's time beside its bound. The group is destroyed after."""
+    import torch.distributed as dist
+
+    from yocto_raytracing_tpu_torch import kernels
+    from yocto_raytracing_tpu_torch import scene as scene_lib
+    from yocto_raytracing_tpu_torch.parallel import mesh
+    from yocto_raytracing_tpu_torch.render import lights, renderer
+
+    rank = mesh.init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0,
+                                 device=device.type)
+    try:
+        rays = mesh.make_ray_mesh(device.type)
+        backend = dist.get_backend()
+        log(f"sharded: torch.distributed group, backend {backend}, world "
+            f"size {rays.world_size}, rank {rank}, device {rays.device}")
+        if (backend != mesh.BACKENDS[device.type] or rays.group is None
+                or rays.world_size != 1):
+            raise AssertionError(f"sharded: not a one-rank "
+                                 f"{mesh.BACKENDS[device.type]} group: "
+                                 f"{backend} {rays}")
+        rec = {}
+        for name, path, kw in (
+                ("hair", hair_obj, {}),
+                ("area hair", area_hair_obj, dict(stochastic=True,
+                                                  seed=SEED))):
+            host = scene_lib.load_scene(path)
+            leaves, meta = scene_lib.build_device_scene(host)
+            scene = scene_lib.to_torch(leaves, device)
+            if kw:
+                kw["light_sampler"] = lights.build_light_sampler(
+                    host, leaves, meta, device)
+            width = renderer.image_width(host.cameras[0].aspect, RES)
+            args = (scene, meta)
+            frame = dict(width=width, height=RES, samples=SAMPLES,
+                         max_depth=DEPTH, chunk_pixels=CHUNK_PIXELS, **kw)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            sharded = mesh.render_image_sharded(*args, rays, **frame)
+            wall = time.perf_counter() - t0
+            counts = dict(kernels.launches)
+            for k in SHARDED_FRAME_KERNELS[name]:
+                if counts[k] <= 0:
+                    raise AssertionError(f"sharded frame {name}: kernel {k} "
+                                         f"never launched")
+            if counts["pixel_finish"]:
+                raise AssertionError(f"sharded frame {name}: K3 ran; the "
+                                     f"spp sum belongs to the host")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            whole = renderer.render_image(*args, **frame)
+            wall_whole = time.perf_counter() - t0
+            if sharded.shape != whole.shape or not np.isfinite(sharded).all():
+                raise AssertionError(f"sharded frame {name}: shape or "
+                                     f"non-finite pixels")
+            ulp, u8 = frame_gaps(sharded, whole)
+            rays_n = width * RES * SAMPLES * SAMPLES
+            log(f"sharded frame {name}: {width}x{RES} x "
+                f"{SAMPLES * SAMPLES} spp, depth {DEPTH}"
+                f"{', stochastic seed %d, area lights' % SEED if kw else ''}"
+                f": render_image_sharded {wall:.3f} s, render_image "
+                f"{wall_whole:.3f} s wall on {dev_info['smi']}; launches "
+                f"{counts}; against render_image: u8 gap {u8} (tolerance 1 "
+                f"step)")
+            log(f"sharded frame {name}: largest f32 ULP gap to render_image "
+                f"{ulp}")
+            if u8 > 1:
+                raise AssertionError(f"sharded frame {name}: {u8} u8 steps")
+            rec[name] = dict(wall=wall, ulp=ulp, u8=u8, rays=rays_n)
+
+        host = scene_lib.load_scene(hair_obj)
+        leaves, meta = scene_lib.build_device_scene(host)
+        scene = scene_lib.to_torch(leaves, device)
+        w = renderer.image_width(host.cameras[0].aspect, RES)
+        amb = torch.full((3,), 0.1, device=device)
+        ids = middle_ids(w, RES, SAMPLES, TRAIN_RAYS, device)
+        kw = dict(width=w, height=RES, samples=SAMPLES, max_depth=DEPTH)
+        target = renderer.trace_rays(perturbed(scene, 7), ids, amb, w, RES,
+                                     SAMPLES, DEPTH)
+        local = (mesh.shard_rays(ids, rays), mesh.shard_rays(target, rays))
+
+        def step():
+            return mesh.train_step_sharded(scene, *local, amb, TRAIN_LR,
+                                           mesh=rays, **kw)
+
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        new_s, loss_s = step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        for k in TRAIN_KERNELS:
+            if counts[k] <= 0:
+                raise AssertionError(f"sharded train: kernel {k} never "
+                                     f"launched")
+        new_1, loss_1 = mesh.train_step(scene, ids, target, amb, TRAIN_LR,
+                                        **kw)
+        worst = (0.0, "")   # |a - b| / (atol + rtol |b|), the largest
+        for k in scene_lib.LEAF_NAMES:
+            a = getattr(new_s, k).double()
+            b = getattr(new_1, k).double()
+            if a.numel():
+                share = float(((a - b).abs() / (1e-7 + 1e-5 * b.abs())).max())
+                worst = max(worst, (share, k))
+        if worst[0] > 1:
+            raise AssertionError(f"sharded train: leaf {worst[1]} off "
+                                 f"train_step's ({worst[0]:.3f} of the "
+                                 f"tolerance)")
+        loss_gap = abs(float(loss_s) - float(loss_1)) / abs(float(loss_1))
+        if not loss_gap <= 1e-6:
+            raise AssertionError(f"sharded train: loss {float(loss_s)} vs "
+                                 f"{float(loss_1)}")
+        n_leaves = sum(getattr(scene, k).is_floating_point()
+                       for k in scene_lib.LEAF_NAMES)
+        log(f"sharded train hair: {TRAIN_RAYS} rays, every float leaf "
+            f"({n_leaves}) trainable: loss {float(loss_s)!r} vs train_step "
+            f"{float(loss_1)!r} (relative gap {loss_gap:.2e}, tolerance "
+            f"1e-6); updated leaves: largest gap {worst[0]:.3f} of the "
+            f"tolerance rtol 1e-5 / atol 1e-7 ({worst[1]}); first step "
+            f"{wall:.3f} s; launches {counts}")
+
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        prof = profile_summary(step, "warm sharded train step hair")
+        for k in TRAIN_KERNELS:
+            device_ms(prof, k, counts[k])   # raises if K1/K2/K4/K5/K6 is missing
+        found = {n: c for n, c in prof["host"].items()
+                 if "allreduce" in n.lower().replace("_", "")}
+        calls = found.get(ALL_REDUCE_EVENT, 0)
+        nccl = {n: t for n, t in prof["by_name"].items()
+                if "nccl" in n.lower()}
+        log(f"sharded train hair: all_reduce host events {found}; NCCL "
+            f"device kernels {nccl or 'none'}")
+        if calls != 1 + n_leaves:
+            raise AssertionError(f"sharded train: {calls} all_reduce calls, "
+                                 f"want {1 + n_leaves}")
+        loss, grads, _ = mesh.loss_and_grads_sharded(
+            scene, *local, amb, mesh=rays, **kw)
+        bufs = [loss] + [g for g in grads if g is not None]
+        n_bytes = nbytes(*bufs)
+
+        def reduce_all():
+            for x in bufs:
+                dist.all_reduce(x)
+
+        ar_ms = cuda_ms(reduce_all, 20)
+        rec["all_reduce"] = dict(
+            calls=calls, bytes=n_bytes, ms=ar_ms,
+            device_us=sum(nccl.values()), kernels=len(nccl),
+            bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, walls=walls,
+            prof=prof, counts=counts)
+        log(f"B9 all_reduce, world of one: {calls} calls per step carrying "
+            f"{n_bytes} bytes (the loss and every float leaf's gradient); "
+            f"NCCL device time in the profiled step "
+            f"{sum(nccl.values()):.1f} us over {len(nccl)} kernel names; "
+            f"CUDA-event time of the step's {len(bufs)} all_reduce calls "
+            f"{ar_ms:.4f} ms; bound {rec['all_reduce']['bound_ms'] * 1e3:.3f}"
+            f" us (the bytes once over {HBM_BYTES_PER_S / 1e12} TB/s); "
+            f"sharded step wall {', '.join(f'{x:.4f}' for x in walls)} s on "
+            f"{dev_info['smi']}")
+        return rec
+    finally:
+        dist.destroy_process_group()
+
+
+def run_command(cmd, label, dev_info, timeout=600):
+    """Run ``cmd`` from the checkout in its own session (killed whole on a
+    timeout), log its wall time; returns (returncode, stdout, stderr)."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    log(f"cli {label}: exit {proc.returncode}, "
+        f"{time.perf_counter() - t0:.2f} s wall on {dev_info['smi']}")
+    return proc.returncode, out, err
+
+
+def phase_cli(hair_obj, tmp, device, dev_info) -> dict:
+    """The CLI as a user runs it, in subprocesses on the card: the hair
+    frame at RES, SAMPLES x SAMPLES, depth DEPTH, saved as PNG, must be
+    ``image.tonemap(render_image(...))`` of the same settings bit for bit;
+    so must the ``--checkpoint`` run, again after its snapshot is cut to
+    half its ``done``, the ``--sharded`` run in a plain process (world of
+    one, no group) and the ``--sharded`` run under torchrun (one rank,
+    ``init_distributed`` from its environment, NCCL). A missing scene
+    exits 1 with ``error:`` first on stderr."""
+    from yocto_raytracing_tpu_torch import image
+    from yocto_raytracing_tpu_torch import scene as scene_lib
+    from yocto_raytracing_tpu_torch.parallel import mesh
+    from yocto_raytracing_tpu_torch.render import renderer
+
+    host = scene_lib.load_scene(hair_obj)
+    scene, meta = scene_on(host, device)
+    width = renderer.image_width(host.cameras[0].aspect, RES)
+    want = image.tonemap(renderer.render_image(scene, meta, width, RES,
+                                               SAMPLES, max_depth=DEPTH))
+    cli = [sys.executable, "-m", "yocto_raytracing_tpu_torch.cli"]
+    args = ["-r", str(RES), "-s", str(SAMPLES), "--max-depth", str(DEPTH),
+            "--device", device.type]
+    png = os.path.join(tmp, "cli.png")
+    ck = os.path.join(tmp, "cli_ck.npz")
+    torchrun = [sys.executable, "-m", "torch.distributed.run",
+                "--nproc_per_node=1", "--master_addr=127.0.0.1",
+                f"--master_port={free_port()}", "-m",
+                "yocto_raytracing_tpu_torch.cli"]
+    runs = [("plain", cli + args), ("--checkpoint", cli + args + [
+        "--checkpoint", ck]), ("--checkpoint, resumed from half", None),
+        ("--sharded", cli + args + ["--sharded"]),
+        ("--sharded under torchrun", torchrun + args + ["--sharded"])]
+    walls = {}
+    for label, cmd in runs:
+        if cmd is None:   # the snapshot cut to half its done, then rerun
+            with np.load(ck) as snap:
+                key, acc, done = snap["key"], snap["acc"], int(snap["done"])
+            if done != width * RES:
+                raise AssertionError(f"cli: snapshot done {done}")
+            renderer._atomic_savez(ck, key=key, done=done // 2,
+                                   acc=acc[:done // 2])
+            cmd = runs[1][1]
+        if os.path.exists(png):
+            os.remove(png)
+        t0 = time.perf_counter()
+        rc, out, err = run_command(cmd + ["-o", png, hair_obj], label,
+                                   dev_info)
+        walls[label] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"cli {label}: exit {rc}\n{out}\n{err}")
+        got = image.load_image4b(png)
+        d = int(np.abs(got.astype(np.int32) - want).max())
+        log(f"cli {label}: PNG {got.shape} against image.tonemap("
+            f"render_image): bit-equal {np.array_equal(got, want)}, max "
+            f"{d} u8 steps")
+        if not np.array_equal(got, want):
+            raise AssertionError(f"cli {label}: PNG differs by {d}")
+        backend = mesh.BACKENDS[device.type]
+        if "torchrun" in label and f"backend {backend}" not in err:
+            raise AssertionError(f"cli {label}: no {backend} group\n{err}")
+        if label == "--sharded" and "no group" not in err:
+            raise AssertionError(f"cli {label}: a group was started\n{err}")
+    rc, out, err = run_command(cli + args + [os.path.join(tmp, "none.obj")],
+                               "missing scene", dev_info)
+    log(f"cli missing scene: stderr {err.strip()[:120]!r}")
+    if rc != 1 or not err.startswith("error:") or "Traceback" in err:
+        raise AssertionError(f"cli missing scene: exit {rc}\n{err}")
+    return walls
+
+
 def main() -> None:
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -1413,7 +1767,10 @@ def main() -> None:
         phase_train_stochastic("area mirror",
                                scene_lib.load_scene(area_mirror_obj), True,
                                device, dev_info)
-    rec["overlap"], overlap_path = phase_overlap(device, dev_info)
+        rec["overlap"], overlap_path = phase_overlap(device, dev_info)
+        # last: the NCCL group and the CLI's subprocesses
+        phase_sharded(hair_obj, area_hair_obj, device, dev_info)
+        phase_cli(hair_obj, tmp, device, dev_info)
 
     src = "yocto_raytracing_tpu_torch/kernels/csrc/"
     table = {  # name: (source, replaces, path that runs it)

@@ -15,7 +15,10 @@ modes, K5 with per-ray light positions, K9 (thin-lens rays, also against
 K6 at aperture 0) and K10 (light points), within 1e-4 of torch autograd of
 their plain versions, and the stochastic training gradient against its
 f64 reference; K11 (overlap query) equal to the plain query (found, inst,
-prim equal; dist and euv bit-equal).
+prim equal; dist and euv bit-equal); ``train_step_sharded`` in a one-rank
+NCCL group equal to ``train_step``, and the CLI on the card writing the
+host tonemap of ``render_image`` (also checkpointed and resumed, and
+``--sharded``).
 
 Every test here needs an NVIDIA GPU and nvcc, and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed:
@@ -25,6 +28,8 @@ file imports no JAX, so it also runs where JAX is not installed:
 
 (``--noconftest``: tests/conftest.py configures JAX for the other tests.)
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -431,3 +436,94 @@ def test_stochastic_train_gradient_matches_reference(cuda_device):
                        "stochastic train gradient")
     for leaf in ("cam_aperture", "cam_focus", "pos", "light_ke"):
         assert rep["kernel"][leaf]["norm"] > 0, leaf
+
+
+def _free_port():
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.cuda
+def test_train_step_sharded_nccl_world_of_one(cuda_device):
+    """``train_step_sharded`` in a real one-rank NCCL group: the same step
+    as ``train_step`` (loss rtol 1e-6, leaves rtol 1e-5 / atol 1e-7; K5's
+    f64 atomic sums may move the last bit), through the kernels, with one
+    all_reduce of the loss and one per trainable leaf."""
+    import torch.distributed as dist
+
+    ts, _ = _scene(testscenes.make_grad_scene(), cuda_device)
+    w = h = 32
+    ids = torch.arange(w * h, dtype=torch.int32, device=cuda_device)
+    amb = torch.full((3,), 0.1, device=cuda_device)
+    target = torch.rand((w * h, 3), device=cuda_device,
+                        generator=torch.Generator(
+                            device=cuda_device).manual_seed(1))
+    kw = dict(width=w, height=h, samples=1, max_depth=3)
+    assert mesh.init_distributed(f"tcp://127.0.0.1:{_free_port()}", 1, 0,
+                                 device="cuda") == 0
+    reduces = []
+    all_reduce = dist.all_reduce
+    try:
+        assert dist.get_backend() == "nccl"
+        rays = mesh.make_ray_mesh("cuda")
+        assert rays.group is not None and rays.world_size == 1
+
+        def counted(x, *args, **kwargs):
+            reduces.append(x.numel())
+            return all_reduce(x, *args, **kwargs)
+
+        dist.all_reduce = counted
+        kernels.reset_launches()
+        new_s, loss_s = mesh.train_step_sharded(
+            ts, mesh.shard_rays(ids, rays), mesh.shard_rays(target, rays),
+            amb, 0.1, mesh=rays, **kw)
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = all_reduce
+        dist.destroy_process_group()
+    assert all(kernels.launches[k] > 0 for k in ("camera_rays", "hit",
+                                                 "shade", "shade_bwd",
+                                                 "camera_bwd"))
+    assert reduces == [1] + [getattr(ts, n).numel()
+                             for n in scene_lib.LEAF_NAMES
+                             if getattr(ts, n).is_floating_point()]
+    new_1, loss_1 = mesh.train_step(ts, ids, target, amb, 0.1, **kw)
+    np.testing.assert_allclose(float(loss_s), float(loss_1), rtol=1e-6)
+    for name in scene_lib.LEAF_NAMES:
+        np.testing.assert_allclose(getattr(new_s, name).cpu().numpy(),
+                                   getattr(new_1, name).cpu().numpy(),
+                                   rtol=1e-5, atol=1e-7, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cli_on_the_card(cuda_device, tmp_path):
+    """``cli.main`` with ``--device cuda``: the PNG is the host tonemap of
+    ``render_image`` on the card, also with ``--checkpoint`` resumed from
+    a truncated snapshot and with ``--sharded`` (one process, no group)."""
+    from yocto_raytracing_tpu_torch import cli, image
+
+    obj = str(tmp_path / "hair.obj")
+    scene_lib.save_scene(testscenes.make_hair_scene(64), obj)
+    ts, meta = _scene(scene_lib.load_scene(obj), cuda_device)
+    want = image.tonemap(renderer.render_image(ts, meta, 171, 96, 2,
+                                               max_depth=4))
+    png = str(tmp_path / "out.png")
+    base = ["-r", "96", "-s", "2", "--max-depth", "4", "--device", "cuda",
+            "-o", png]
+    ck = str(tmp_path / "ck.npz")
+    for extra in ([], ["--checkpoint", ck, "--chunk-pixels", "4096"],
+                  ["--checkpoint", ck, "--chunk-pixels", "4096"],
+                  ["--sharded"]):
+        if "--sharded" in extra:
+            os.remove(ck)
+        if os.path.exists(ck):   # the second run resumes from half
+            with np.load(ck) as snap:
+                key, acc, done = snap["key"], snap["acc"], int(snap["done"])
+            renderer._atomic_savez(ck, key=key, done=done // 2,
+                                   acc=acc[:done // 2])
+        assert cli.main(base + extra + [obj]) == 0
+        np.testing.assert_array_equal(image.load_image4b(png), want,
+                                      err_msg=" ".join(extra))

@@ -104,3 +104,32 @@ def test_dead_rays_hit_nothing():
         assert (b["inst"] == -1).all() and (b["prim"] == -1).all()
         np.testing.assert_array_equal(b["t"], dead)
 
+
+
+def test_plain_walk_work_counts():
+    """``stats`` counts the walk's work (K1's operation bound is computed
+    from it) and leaves the answers as they were."""
+    from yocto_raytracing_tpu_torch import testscenes as tts
+
+    leaves, _ = tscene.build_device_scene(tts.make_hair_scene(16))
+    ts = tscene.to_torch(leaves, "cpu")
+    rays = [torch.from_numpy(x) for x in _rays(4, 512)]
+    counts = {}
+    for any_hit in (False, True):
+        stats = {}
+        got = ttrav.intersect_scene_plain(ts, *rays, any_hit, stats=stats)
+        want = ttrav.intersect_scene_plain(ts, *rays, any_hit)
+        for k in want:
+            np.testing.assert_array_equal(got[k].numpy(), want[k].numpy())
+        assert stats["nodes"] >= 512            # every ray tests the root
+        assert stats["line_tests"] > 0 and stats["triangle_tests"] > 0
+        assert stats["frames"] > 0
+        counts[any_hit] = stats
+    assert all(counts[True][k] <= counts[False][k] for k in counts[True])
+    # a ray that leaves the scene's box: one slab test, nothing else
+    stats = {}
+    up = [torch.tensor([[0.0, 50.0, 0.0]]), torch.tensor([[0.0, 1.0, 0.0]]),
+          torch.tensor([1e-4]), torch.tensor([float(FLT_MAX)])]
+    assert not bool(ttrav.intersect_scene_plain(ts, *up, stats=stats)["hit"])
+    assert stats == {"nodes": 1, "frames": 0, "point_tests": 0,
+                     "line_tests": 0, "triangle_tests": 0}

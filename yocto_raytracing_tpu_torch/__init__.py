@@ -18,8 +18,13 @@ Layout (module names follow the JAX package):
                  and the Monte-Carlo samplers
 * ``render``     camera rays (K2, stochastic K7), area lights (K8), texture,
                  shading (K4/K5), the depth loop and the per-pixel finish (K3)
-* ``parallel``   the training step (one device)
+* ``parallel``   ray-sharded rendering and training over torch.distributed
+                 ranks (NCCL on the card, gloo on the CPU), and the one-device
+                 training step
 * ``kernels``    CUDA sources and their nvcc/ctypes build
+* ``cli``, ``utils``
+                 the command-line renderer (``python -m
+                 yocto_raytracing_tpu_torch.cli``), its config and phase log
 
 Every kernel wrapper runs its plain torch version for CPU tensors and
 launches its kernel (or raises) for CUDA tensors.

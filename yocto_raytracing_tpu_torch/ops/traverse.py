@@ -23,9 +23,12 @@ from ..kernels import _build
 from ..scene import PRIM_LINE, PRIM_TRIANGLE, TorchScene
 from . import intersect as isect
 
+# prim kinds in PRIM_* order (point, line, triangle), as ``stats`` counts them
+PRIM_TESTS = ("point_tests", "line_tests", "triangle_tests")
+
 
 def _leaf_prims_hit(scene, lo, ld, tmin, t_best, nstart, ncount, inst,
-                    hit_inst, hit_prim):
+                    hit_inst, hit_prim, stats=None):
     """Test up to 4 prims of a shape leaf (forward order, last tie wins)."""
     got_hit = torch.zeros_like(tmin, dtype=torch.bool)
     for k in range(4):
@@ -35,6 +38,9 @@ def _leaf_prims_hit(scene, lo, ld, tmin, t_best, nstart, ncount, inst,
                            0)
         pv = scene.prim_v[prim]
         ptype = scene.prim_type[prim]
+        if stats is not None:
+            for kind, name in enumerate(PRIM_TESTS):
+                stats[name] += int((pk & (ptype == kind)).sum())
         v0 = scene.pos[pv[:, 0]]
         v1 = scene.pos[pv[:, 1]]
         v2 = scene.pos[pv[:, 2]]
@@ -60,13 +66,21 @@ def _leaf_prims_hit(scene, lo, ld, tmin, t_best, nstart, ncount, inst,
 
 
 def intersect_scene_plain(scene: TorchScene, ro, rd, tmin, tmax,
-                          any_hit: bool = False) -> dict:
+                          any_hit: bool = False, stats=None) -> dict:
     """Plain torch hit query (the reference for K1) on any device.
 
     ro, rd (N, 3) f32 world rays; tmin, tmax (N,) f32. Returns dict with
     'hit' (N,) bool, 'inst' (N,) i32, 'prim' (N,) i32 (global prim id) and
     't' (N,) f32 (= tmax where nothing was hit).
+
+    ``stats``, when given (a dict), gains the work that K1's walk does for
+    these rays: ``nodes`` (node visits, one slab test each), ``frames``
+    (changes of the ray's frame, into or out of an instance) and one count
+    of prim tests per kind in ``PRIM_TESTS``.
     """
+    if stats is not None:
+        for key in ("nodes", "frames") + PRIM_TESTS:
+            stats.setdefault(key, 0)
     n = ro.shape[0]
     dev = ro.device
     i32 = torch.int32
@@ -94,6 +108,8 @@ def intersect_scene_plain(scene: TorchScene, ro, rd, tmin, tmax,
                            scene.inst_axes[safe_inst], ident)
         io = torch.where(has_inst[:, None], scene.inst_o[safe_inst], 0.0)
         lo, ld = isect.transform_ray_inverse(axes, io, ro_l, rd_l)
+        if stats is not None:
+            stats["nodes"] += idx.numel()
 
         bhit = isect.intersect_bbox(lo, ld, tmin_l, t_l,
                                     scene.node_bbox_min[nd],
@@ -110,7 +126,8 @@ def intersect_scene_plain(scene: TorchScene, ro, rd, tmin, tmax,
         if pl.numel():
             t_pl, hi_pl, hp_pl, got_pl = _leaf_prims_hit(
                 scene, lo[pl], ld[pl], tmin_l[pl], t_l[pl], nstart[pl],
-                scene.node_count[nd[pl]], ins[pl], hi_l[pl], hp_l[pl])
+                scene.node_count[nd[pl]], ins[pl], hi_l[pl], hp_l[pl],
+                stats)
             t_l[pl] = t_pl
             hi_l[pl] = hi_pl
             hp_l[pl] = hp_pl
@@ -146,6 +163,8 @@ def intersect_scene_plain(scene: TorchScene, ro, rd, tmin, tmax,
         new_sleaf = torch.where(exhausted & ~more, -1, new_sleaf)
         if any_hit:
             nxt = torch.where(got_hit, -1, nxt)
+        if stats is not None:
+            stats["frames"] += int(((new_inst != ins) & (nxt >= 0)).sum())
 
         node[idx] = nxt.to(i32)
         inst[idx] = new_inst.to(i32)

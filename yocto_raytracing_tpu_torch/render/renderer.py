@@ -28,10 +28,12 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 
 import numpy as np
 import torch
 
+from .. import image as image_mod
 from .. import scene as scene_lib
 from ..kernels import _build
 from ..ops import intersect as isect
@@ -217,23 +219,49 @@ def render_image(scene, meta, width: int, height: int, samples: int,
                  ambient: float = 0.1, max_depth: int = 8,
                  chunk_pixels: int = 1 << 15,
                  ldr: bool = False, stochastic: bool = False, seed: int = 0,
-                 light_sampler=None) -> np.ndarray:
+                 light_sampler=None, checkpoint: str | None = None
+                 ) -> np.ndarray:
     """Full frame -> (height, width, 4) f32 linear with alpha 1, or with
-    ``ldr`` the device-tonemapped (height, width, 4) u8 with alpha 255.
+    ``ldr`` the tonemapped (height, width, 4) u8 with alpha 255.
 
     Pixels are rendered in scanline order, ``chunk_pixels`` at a time, on
     the scene's device; the tail chunk's extra lanes repeat the last ray
     and are dropped. ``stochastic``, ``seed`` and ``light_sampler`` as in
     ``trace_rays``: the frame is a function of the seed, the same for any
     ``chunk_pixels``.
+
+    ``checkpoint``: path of a snapshot of the per-pixel sums, written after
+    every chunk (write, then rename). If it exists and was written under
+    the same configuration (every knob that changes pixels), its pixels are
+    kept and the render resumes after them. With ``ldr`` the checkpointed
+    path tonemaps on the host (``image.tonemap``), so a frame resumed from
+    any snapshot is the uninterrupted one bit for bit; without a
+    checkpoint, K3 tonemaps on the device (within 1 u8 step of the host).
     """
     spp = samples * samples
     npix = width * height
     dev = scene.device
     amb = torch.full((3,), ambient, dtype=torch.float32, device=dev)
     chunk_pixels = min(chunk_pixels, npix)
-    parts = []
-    for start in range(0, npix, chunk_pixels):
+    device_ldr = ldr and not checkpoint
+    out = np.empty((npix, 3), np.uint8 if device_ldr else np.float32)
+    done = 0
+    if checkpoint:
+        # every knob that changes per-chunk pixel values is in the key, or
+        # a resume mixes chunks rendered under different settings (ambient
+        # is f32; its bit pattern keys exactly)
+        cfg_key = np.asarray(
+            [width, height, samples, max_depth, chunk_pixels,
+             int(stochastic), seed, int(light_sampler is not None),
+             int(np.float32(ambient).view(np.int32))], np.int64)
+        if os.path.exists(checkpoint):
+            with np.load(checkpoint) as snap:
+                if (snap["key"].shape == cfg_key.shape
+                        and (snap["key"] == cfg_key).all()):
+                    done = int(snap["done"])
+                    out[:done] = snap["acc"]
+    for start in range(done, npix, chunk_pixels):
+        stop = min(start + chunk_pixels, npix)
         ids = torch.arange(start * spp, (start + chunk_pixels) * spp,
                            dtype=torch.int32, device=dev)
         ids = torch.clamp(ids, max=npix * spp - 1)
@@ -242,20 +270,45 @@ def render_image(scene, meta, width: int, height: int, samples: int,
                          has_ks_textures=meta.has_ks_textures,
                          stochastic=stochastic, seed=seed,
                          light_sampler=light_sampler)
-        parts.append(pixel_finish(rgb.contiguous(), spp, ldr))
-    out = torch.cat(parts)[:npix].cpu().numpy()
-    if ldr:
+        px = pixel_finish(rgb.contiguous(), spp, device_ldr)
+        out[start:stop] = px[:stop - start].cpu().numpy()
+        if checkpoint:
+            _atomic_savez(checkpoint, key=cfg_key, done=stop, acc=out[:stop])
+    if device_ldr:
         img = np.full((npix, 4), 255, np.uint8)
         img[:, :3] = out
         return img.reshape(height, width, 4)
     img = np.ones((npix, 4), np.float32)
     img[:, :3] = out / np.float32(spp)
-    return img.reshape(height, width, 4)
+    img = img.reshape(height, width, 4)
+    if ldr:
+        return image_mod.tonemap(img)
+    return img
+
+
+def _atomic_savez(path: str, **arrays) -> None:
+    """Write-then-rename, so a killed render never leaves a torn snapshot."""
+    tmp = path + ".tmp.npz"   # the .npz suffix stops np.savez renaming it
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+INTERSECTORS = ("stream", "bvh")
+
+
+def check_intersector(name: str) -> None:
+    """Raise ValueError unless ``name`` is one of the JAX package's hit
+    queries, "stream" (its cluster scan) or "bvh" (its BVH walk). The two
+    give the same answers, and both run K1 here."""
+    if name not in INTERSECTORS:
+        raise ValueError(f"intersector must be one of {INTERSECTORS}, not "
+                         f"{name!r}")
 
 
 def render_scene_file(path: str, resolution: int = 720, samples: int = 1,
                       ambient: float = 0.1, camera: int = 0,
                       max_depth: int = 8, chunk_pixels: int = 1 << 15,
+                      intersector: str = "stream",
                       stochastic: bool = False, seed: int = 0,
                       area_lights: bool = False, *, device="cuda",
                       ldr: bool = False):
@@ -263,11 +316,14 @@ def render_scene_file(path: str, resolution: int = 720, samples: int = 1,
 
     ``device`` is where the scene lives and the frame is rendered: the card
     unless the caller asks for "cpu"; "cuda" raises when no card is
-    present. ``stochastic`` (jittered AA + thin-lens DOF), ``seed`` and
+    present. ``intersector``: "stream" or "bvh" (``check_intersector``).
+    ``stochastic`` (jittered AA + thin-lens DOF), ``seed`` and
     ``area_lights`` (soft shadows from the emissive shapes' elements) are
-    the JAX package's stochastic modes. Returns (image, host scene,
-    TorchScene, meta); the image is f32 HDR, or u8 with ``ldr``.
+    the JAX package's stochastic modes.
+    Returns (image, host scene, TorchScene, meta); the image is f32 HDR, or
+    u8 with ``ldr``.
     """
+    check_intersector(intersector)
     host = scene_lib.load_scene(path)
     leaves, meta = scene_lib.build_device_scene(host, camera=camera)
     tscene = scene_lib.to_torch(leaves, device)
