@@ -3,13 +3,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout and holds each against its
-plain torch version on the card: K1 hit, K2 camera rays, K3 pixel finish,
-K4 shading (bit-equal, also with per-ray light positions), K5 shading
-backward (also with per-ray light positions), K6 camera backward, K9
-thin-lens camera backward and K10 light-points backward (relative L2 error
-<= 1e-4 per gradient leaf of torch autograd), K7 stochastic camera rays,
-K8 area-light points and K11 overlap query (bit-equal). Then it drives the
-port's seven paths through their user entry points:
+plain torch version on the card: K1 hit (its nearest-hit and any-hit
+kernels, also against K1's first, simple kernel, on every hit query of the
+hair and area hair frames, timed in turns with it), K2 camera rays, K3
+pixel finish, K4 shading (bit-equal, also with per-ray light positions),
+K5 shading backward (also with per-ray light positions), K6 camera
+backward, K9 thin-lens camera backward and K10 light-points backward
+(relative L2 error <= 1e-4 per gradient leaf of torch autograd), K7
+stochastic camera rays, K8 area-light points and K11 overlap query
+(bit-equal). Then it drives the port's seven paths through their user
+entry points:
 
 * rendering, ``render_scene_file(..., device="cuda")``: the hair scene
   (lines + triangles + two point lights; the stand-in for the reference's
@@ -60,7 +63,9 @@ result. The line before the last is the per-kernel JSON record
 (``{"kernels": [...]}``: launches on the path that runs the kernel, largest
 difference from the plain version, kernel / plain / library-call ms, and
 the least time the card could take, ``bound_ms``, from the bytes each input
-and output needs once and the operations counted from the kernel source);
+and output needs once and the operations counted from the kernel source;
+K1's two kinds give ``ms``, ``plain_ms`` and ``bound_ms`` for one launch,
+the hair frame's middle one, and their frame averages apart);
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script imports nothing of JAX or of the JAX package, and checks it.
@@ -118,11 +123,16 @@ OVERLAP_OPS_PER_INSTANCE = 20
 # and a prim test of each kind
 HIT_OPS = {"nodes": 53, "frames": 47, "point_tests": 35, "line_tests": 80,
            "triangle_tests": 65}
+# the 10,004-instance scene's nearest-hit rays held against the plain walk:
+# every HIT_PLAIN_STRIDE-th of them
+HIT_PLAIN_STRIDE = 16
 OVERLAP_QUERIES = 1 << 20
 OVERLAP_COMPARE = 1 << 16
-# idle host seconds on each side of a profiled call, and the most sessions
-# tried for one profile (see profile_summary)
+# idle host seconds on each side of a profiled call, their growth from one
+# attempt to the next, and the most sessions tried for one profile (see
+# profile_summary)
 PROFILE_PAD_S = 0.05
+PROFILE_PAD_GROWTH = 8
 PROFILE_ATTEMPTS = 3
 
 
@@ -157,48 +167,57 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profile_summary(fn, label: str) -> dict:
+def profile_summary(fn, label: str, expect=()) -> dict:
     """One call of ``fn`` under torch.profiler: wall ms (host clock, ends in
     a synchronize), device busy ms (sum of the trace's device events), the
     idle share of the wall, the number of device ops, the top ops, the
     device microseconds of every op name (``by_name``) and the count of
     every host event name (``host``).
 
-    The profiled window is padded with PROFILE_PAD_S of idle host time on
-    each side of the call, so that device events whose converted timestamps
-    land just outside the call still fall inside the trace's window. A trace
-    that still holds no device event at all (not even the call's copies)
-    is a loss of the tracer, not of the call: it is reported and the call
-    is profiled again, at most PROFILE_ATTEMPTS times in all."""
+    The profiled window is padded with idle host time on each side of the
+    call, so that device events whose converted timestamps land outside the
+    call still fall inside the trace's window. A trace that holds no device
+    event at all (not even the call's copies), or none of a kernel in
+    ``expect`` (keys of DEVICE_FUNCTIONS) that the call launches, is a loss
+    of the tracer, not of the call (the launch counts show the call's
+    kernels): it is reported and the call is profiled again, at most
+    PROFILE_ATTEMPTS times in all, each time with PROFILE_PAD_GROWTH times
+    the pad (PROFILE_PAD_S the first time): late in a run the first kernel
+    of a call has been lost three times in a row at one pad."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        pad = PROFILE_PAD_S * PROFILE_PAD_GROWTH ** (attempt - 1)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_PAD_S)
+            time.sleep(pad)
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-            time.sleep(PROFILE_PAD_S)
+            time.sleep(pad)
         evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if evs:
+        by_name = {}
+        for e in evs:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us())
+        lost = [k for k in expect if not device_us(by_name, k)]
+        if evs and not lost:
             break
-        log(f"profile {label}: attempt {attempt} of {PROFILE_ATTEMPTS}: the "
-            f"trace holds no device event")
+        log(f"profile {label}: attempt {attempt} of {PROFILE_ATTEMPTS} "
+            f"(pad {pad} s): the trace holds "
+            + (f"none of {lost}" if evs else "no device event"))
     else:
         raise AssertionError(f"profile {label}: the trace holds no device "
-                             f"event in {PROFILE_ATTEMPTS} attempts")
+                             f"event, or not every kernel of {expect}, in "
+                             f"{PROFILE_ATTEMPTS} attempts")
     host = {}
     for e in prof.events():
         if e.device_type == DeviceType.CPU:
             host[e.name] = host.get(e.name, 0) + 1
     busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
-    by_name = {}
-    for e in evs:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out = dict(wall_ms=wall, busy_ms=busy, idle=1.0 - busy / wall,
                ops=len(evs), by_name=by_name, host=host)
@@ -210,7 +229,11 @@ def profile_summary(fn, label: str) -> dict:
 
 # the device functions of each kernel wrapper, as the profiler names them
 DEVICE_FUNCTIONS = {
-    "hit": ("hit_kernel",), "camera_rays": ("camera_rays_kernel",),
+    "hit": ("hit_nearest_kernel", "hit_any_kernel"),
+    "hit_nearest": ("hit_nearest_kernel",),
+    "hit_any": ("hit_any_kernel",),
+    "hit_simple": ("hit_simple_kernel",),
+    "camera_rays": ("camera_rays_kernel",),
     "pixel_finish": ("pixel_finish_kernel",),
     "shade": ("shade_prep_kernel", "shade_finish_kernel"),
     "shade_bwd": ("shade_bwd_kernel",),
@@ -224,13 +247,19 @@ DEVICE_FUNCTIONS = {
     "overlap": ("overlap_kernel",)}
 
 
+def device_us(by_name: dict, kernel: str) -> float:
+    """Summed device microseconds of ``kernel``'s device functions among a
+    trace's ops (named ``yrt::<function>(<arguments>)``)."""
+    return sum(t for name, t in by_name.items()
+               if name.startswith(tuple(
+                   f"yrt::{fn}(" for fn in DEVICE_FUNCTIONS[kernel])))
+
+
 def device_ms(prof: dict, kernel: str, launches: int) -> float:
     """Device milliseconds per launch of ``kernel`` in a profiled path run
     (its device functions' summed time over the wrapper's launches): the
     kernel alone, without the host work around its launch."""
-    us = sum(t for name, t in prof["by_name"].items()
-             if any(name.startswith(f"yrt::{fn}(")
-                    for fn in DEVICE_FUNCTIONS[kernel]))
+    us = device_us(prof["by_name"], kernel)
     if us == 0:
         raise AssertionError(f"the profile of {kernel}'s path holds none "
                              f"of its device functions")
@@ -275,22 +304,51 @@ def ordered(x: np.ndarray) -> np.ndarray:
     return np.where(i < 0, -(i & 0x7FFFFFFF), i)
 
 
-def assert_hits_equal(a: dict, b: dict, what: str) -> int:
-    """``hit`` equal, ``t`` within 1 ULP, ``inst``/``prim`` equal where
-    ``t`` is bit-equal. Returns the number of bit-equal t."""
-    a = {k: v.cpu().numpy() for k, v in a.items()}
-    b = {k: v.cpu().numpy() for k, v in b.items()}
-    if not np.array_equal(a["hit"], b["hit"]):
-        raise AssertionError(f"{what}: hit differs on "
-                             f"{int((a['hit'] != b['hit']).sum())} rays")
-    ulp = np.abs(ordered(a["t"]) - ordered(b["t"]))
-    if ulp.max() > 1:
-        raise AssertionError(f"{what}: t differs by {ulp.max()} ULP")
-    exact = a["t"] == b["t"]
-    for k in ("inst", "prim"):
-        if not np.array_equal(a[k][exact], b[k][exact]):
-            raise AssertionError(f"{what}: {k} differs")
-    return int(exact.sum())
+HIT_OUTPUTS = ("hit", "inst", "prim", "t")
+
+
+def assert_same_hits(a: dict, b: dict, what: str) -> None:
+    """K1's contract with the plain walk: all four outputs equal, t bit for
+    bit (NaN included)."""
+    for k in HIT_OUTPUTS:
+        x, y = a[k], b[k]
+        if k == "t":
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: {k} differs on "
+                                 f"{int((x != y).sum())} rays")
+
+
+def hit_simple(scene, ro, rd, tmin, tmax, any_hit=False) -> dict:
+    """K1's first, simple kernel (``csrc/hit_simple.cu``) on the scene's own
+    arrays: the other side of the K1 comparison. It adds to no launch
+    count, and no path of the package launches it."""
+    from yocto_raytracing_tpu_torch.kernels import _build
+
+    n, dev = ro.shape[0], ro.device
+    out = dict(hit=torch.empty(n, dtype=torch.bool, device=dev),
+               inst=torch.empty(n, dtype=torch.int32, device=dev),
+               prim=torch.empty(n, dtype=torch.int32, device=dev),
+               t=torch.empty(n, dtype=torch.float32, device=dev))
+    ptr = _build.ptr
+    err = _build.library().yrt_hit_simple(
+        *(ptr(getattr(scene, k)) for k in HIT_LEAVES), ptr(ro), ptr(rd),
+        ptr(tmin), ptr(tmax), n, int(any_hit),
+        *(ptr(out[k]) for k in HIT_OUTPUTS), _build.current_stream())
+    _build.check_launch(err, "yrt_hit_simple")
+    return out
+
+
+def timed(fn):
+    """(fn(), its CUDA-event milliseconds), one cold call."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def random_rays(seed: int, n: int, device):
@@ -340,10 +398,15 @@ def phase_build():
             log("  ptxas:", line.strip())
 
 
-def phase_hit_kernel(device):
-    """K1 against the plain walk, nearest and any-hit."""
-    from yocto_raytracing_tpu_torch import testscenes
-    from yocto_raytracing_tpu_torch.ops import traverse
+def phase_hit_kernel(device) -> dict:
+    """K1 against the plain walk and against the simple kernel, nearest and
+    any hit, on random rays; on the 10,004-instance scene, where frame
+    changes dominate, the two kernels timed in turns. There the nearest-hit
+    walk is held against the plain walk on every HIT_PLAIN_STRIDE-th ray
+    (each ray's answer is its own): the lockstep plain walk runs as many
+    steps as the batch's longest walk, and on all rays it takes 260-360 s."""
+    from yocto_raytracing_tpu_torch import scene as scene_lib, testscenes
+    from yocto_raytracing_tpu_torch.ops import hit_records, traverse
 
     cases = [(f"random seed {s}", lambda s=s: testscenes.make_random_scene(
         seed=s), 1 << 16, 100 + s) for s in range(4)]
@@ -351,30 +414,53 @@ def phase_hit_kernel(device):
                   1 << 16, 200))
     cases.append(("random 10004 instances", lambda: testscenes.
                   make_random_scene(n_instances=10004), 1 << 16, 300))
+    out = {}
     for name, make, n, seed in cases:
         scene, _ = scene_on(make(), device)
         rays = random_rays(seed, n, device)
-        n = rays[0].shape[0]
+        big = "10004" in name
         for any_hit in (False, True):
+            what = f"K1 {name} {'any' if any_hit else 'nearest'}-hit"
             t0 = time.perf_counter()
-            plain = traverse.intersect_scene_plain(scene, *rays, any_hit)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
             kern = traverse.intersect_scene(scene, *rays, any_hit)
             torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            what = f"K1 {name} {'any' if any_hit else 'nearest'}-hit"
-            exact = assert_hits_equal(plain, kern, what)
-            log(f"{what}: {n} rays, {int(kern['hit'].sum())} hits, "
-                f"t bit-equal {exact}/{n} (tolerance: hit equal, t within "
-                f"1 ULP); plain {t1 - t0:.2f} s, kernel {t2 - t1:.4f} s")
+            kern_s = time.perf_counter() - t0
+            assert_same_hits(kern, hit_simple(scene, *rays, any_hit),
+                             what + " (simple kernel)")
+            step = HIT_PLAIN_STRIDE if big and not any_hit else 1
+            sub = [x[::step].contiguous() for x in rays]
+            t1 = time.perf_counter()
+            plain = traverse.intersect_scene_plain(scene, *sub, any_hit)
+            torch.cuda.synchronize()
+            assert_same_hits(plain, {k: v[::step] for k, v in kern.items()},
+                             what)
+            against = (f"the plain walk ({time.perf_counter() - t1:.2f} s"
+                       + (f", on every {step}th ray, {sub[0].shape[0]} rays"
+                          if step > 1 else "")
+                       + ") and the simple kernel")
+            log(f"{what}: {n} rays, {int(kern['hit'].sum())} hits, equal "
+                f"to {against} (tolerance: bit-equal); kernel "
+                f"{kern_s:.4f} s")
+            if not big:
+                continue
+            fixed = scene_lib.detached(scene)
+            recs = hit_records.pack(fixed)
+            new = lambda: traverse.intersect_scene_cuda(  # noqa: E731
+                fixed, *rays, any_hit, records=recs)
+            old = lambda: hit_simple(fixed, *rays, any_hit)  # noqa: E731
+            ms = [cuda_ms(f, 5) for f in (old, new, new, old)]
+            kind = "hit_any" if any_hit else "hit_nearest"
+            out[kind] = dict(simple_ms=(ms[0] + ms[3]) / 2,
+                             ms=(ms[1] + ms[2]) / 2)
+            log(f"{what}: timed in turns (simple, new, new, simple) "
+                + ", ".join(f"{m:.4f}" for m in ms) + " ms; simple / new "
+                f"{out[kind]['simple_ms'] / out[kind]['ms']:.2f}x")
+    return out
 
 
 def phase_frame_kernels(scene, width, height, samples, device) -> dict:
-    """K2, K1 and K3 on the middle chunk of the hair frame (the rows that
-    cross the hair ball): kernel against plain, values and CUDA-event
-    times."""
-    from yocto_raytracing_tpu_torch.ops import traverse
+    """K2 and K3 on the middle chunk of the hair frame (the rows that cross
+    the hair ball): kernel against plain, values and CUDA-event times."""
     from yocto_raytracing_tpu_torch.render import camera, renderer
 
     spp = samples * samples
@@ -400,35 +486,6 @@ def phase_frame_kernels(scene, width, height, samples, device) -> dict:
         library_ms=None, **bound("camera_rays", nbytes(ids, *b), n))
     log(f"K2 camera rays: {n} rays, max |kernel - plain| {err} "
         f"(tolerance 1 ULP)")
-
-    _, ro, rd = b
-    tmin = torch.full((n,), 1e-4, device=device)
-    tmax = torch.full((n,), float(FLT_MAX), device=device)
-    work = {}
-    plain = traverse.intersect_scene_plain(scene, ro, rd, tmin, tmax,
-                                           stats=work)
-    kern = traverse.intersect_scene(scene, ro, rd, tmin, tmax)
-    exact = assert_hits_equal(plain, kern, "K1 hair primary rays")
-    ops = sum(HIT_OPS[k] * v for k, v in work.items())
-    both = plain["hit"] & kern["hit"]
-    err = float((plain["t"][both] - kern["t"][both]).abs().max()) \
-        if bool(both.any()) else 0.0
-    rec["hit"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: traverse.intersect_scene(scene, ro, rd, tmin,
-                                                     tmax), 10),
-        plain_ms=cuda_ms(lambda: traverse.intersect_scene_plain(
-            scene, ro, rd, tmin, tmax), 1),
-        library_ms=None,
-        **bound("hit", nbytes(ro, rd, tmin, tmax, *kern.values())
-                + leaves_bytes(scene, HIT_LEAVES), n, ops=ops))
-    log(f"K1 hair primary rays: {n} rays, {int(kern['hit'].sum())} hits, "
-        f"t bit-equal {exact}/{n} (tolerance: hit equal, t within 1 ULP)")
-    log(f"K1 work on these rays, per ray (the plain walk's counts): "
-        + ", ".join(f"{k} {v / n:.3f}" for k, v in work.items())
-        + f"; {ops / n:.1f} operations per ray at {HIT_OPS} (hit.cu, "
-        f"common.cuh); bound {rec['hit']['bound_ms'] * 1e3:.2f} us "
-        f"({rec['hit']['bound_by']})")
 
     rgb = renderer.trace_rays(scene, ids, torch.full((3,), 0.1,
                                                      device=device),
@@ -463,7 +520,152 @@ def phase_frame_kernels(scene, width, height, samples, device) -> dict:
     return rec
 
 
-FRAME_KERNELS = ("hit", "camera_rays", "pixel_finish", "shade")
+def record_hit_queries(scene, meta, width, **trace_kw) -> list:
+    """The inputs of every K1 query of one frame (910x512-class: RES rows,
+    SAMPLES x SAMPLES, depth DEPTH, CHUNK_PIXELS a chunk, as render_image
+    cuts it): [(any_hit, (ro, rd, tmin, tmax))], through trace_rays' hit
+    hook."""
+    from yocto_raytracing_tpu_torch.ops import traverse
+    from yocto_raytracing_tpu_torch.render import renderer
+
+    queries = []
+
+    def record(sc, ro, rd, tmin, tmax, any_hit=False):
+        queries.append((any_hit, (ro, rd, tmin, tmax)))
+        return traverse.intersect_scene(sc, ro, rd, tmin, tmax, any_hit)
+
+    spp = SAMPLES * SAMPLES
+    npix = width * RES
+    amb = torch.full((3,), 0.1, device=scene.device)
+    for start in range(0, npix, CHUNK_PIXELS):
+        ids = torch.arange(start * spp, (start + CHUNK_PIXELS) * spp,
+                           dtype=torch.int32, device=scene.device)
+        renderer.trace_rays(scene, ids.clamp(max=npix * spp - 1), amb, width,
+                            RES, SAMPLES, DEPTH, meta.has_kd_textures,
+                            meta.has_ks_textures, intersect=record,
+                            **trace_kw)
+    return queries
+
+
+def phase_hit_frame(name, scene, meta, width, **trace_kw) -> dict:
+    """K1 on every query of one frame, each launch kind apart (nearest hit:
+    the camera rays; any hit: the stacked shadow rays):
+
+    * the new kernel equal to the simple one on every launch, and both
+      equal to the plain walk on the middle launch;
+    * the live-lane share (tmax >= tmin) and the share of 32-lane groups
+      that mix live and dead lanes;
+    * the middle launch (the chunk that crosses the hair ball) held against
+      its own bound: HIT_OPS over the plain walk's counts on its live lanes
+      (a dead lane needs no test), beside the two kernels' times on that
+      launch alone (CUDA events in turns, simple, new, new, simple; and
+      the profiler's device time of that one launch);
+    * the simple and the new kernel over the frame's launches of the kind,
+      timed in turns the same way and profiled: time per launch."""
+    from yocto_raytracing_tpu_torch import scene as scene_lib
+    from yocto_raytracing_tpu_torch.ops import hit_records, traverse
+
+    fixed = scene_lib.detached(scene)
+    queries = record_hit_queries(fixed, meta, width, **trace_kw)
+    recs = hit_records.pack(fixed)
+    out = {}
+    for kind, any_hit in (("hit_nearest", False), ("hit_any", True)):
+        qs = [args for a, args in queries if a == any_hit]
+        if not qs:
+            raise AssertionError(f"{name}: no {kind} query")
+
+        def new(args):
+            return traverse.intersect_scene_cuda(fixed, *args, any_hit,
+                                                 records=recs)
+
+        def old(args):
+            return hit_simple(fixed, *args, any_hit)
+
+        for k, args in enumerate(qs):
+            assert_same_hits(old(args), new(args),
+                             f"K1 {kind} {name} launch {k}: simple vs new")
+        live = [args[3] >= args[2] for args in qs]
+        lanes = sum(x.numel() for x in live)
+        n_live = sum(int(x.sum()) for x in live)
+        groups = [x[:x.numel() // 32 * 32].view(-1, 32) for x in live]
+        n_groups = sum(g.shape[0] for g in groups)
+        mixed = sum(int((g.any(1) & ~g.all(1)).sum()) for g in groups)
+
+        mid = qs[len(qs) // 2]
+        plain, plain_ms = timed(lambda: traverse.intersect_scene_plain(
+            fixed, *mid, any_hit))
+        variants = {"simple": (old, "hit_simple"), "new": (new, kind)}
+        for v, (fn, _) in variants.items():
+            assert_same_hits(plain, fn(mid), f"K1 {kind} {name}: {v}")
+        mid_live = live[len(qs) // 2]
+        work = {}
+        traverse.intersect_scene_plain(
+            fixed, *(x[mid_live] for x in mid), any_hit, stats=work)
+        ops = sum(HIT_OPS[k] * v for k, v in work.items())
+        b = bound(kind, nbytes(*mid, *plain.values())
+                  + leaves_bytes(fixed, HIT_LEAVES), 0, ops=ops)
+
+        def frame_pass(fn):
+            for args in qs:
+                fn(args)
+
+        mid_turns = [cuda_ms(lambda f=f: f(mid), 5)
+                     for f in (old, new, new, old)]
+        turns = [cuda_ms(lambda f=f: frame_pass(f), 3) / len(qs)
+                 for f in (old, new, new, old)]
+        mid_us, dev_us = {}, {}
+        for v, (fn, dkind) in variants.items():
+            prof = profile_summary(lambda fn=fn: fn(mid),
+                                   f"K1 {kind} {name} middle launch: {v}",
+                                   (dkind,))
+            mid_us[v] = device_us(prof["by_name"], dkind)
+            prof = profile_summary(lambda fn=fn: frame_pass(fn),
+                                   f"K1 {kind} {name} frame: {v}", (dkind,))
+            dev_us[v] = device_us(prof["by_name"], dkind) / len(qs)
+        both = plain["hit"]
+        t_new = new(mid)["t"]
+        err = float((plain["t"][both] - t_new[both]).abs().max()) \
+            if bool(both.any()) else 0.0
+        out[kind] = dict(
+            max_abs_err=err, ms=(mid_turns[1] + mid_turns[2]) / 2,
+            plain_ms=plain_ms, library_ms=None,
+            simple_ms=(mid_turns[0] + mid_turns[3]) / 2,
+            mid_device_ms=mid_us["new"] / 1e3,
+            simple_mid_device_ms=mid_us["simple"] / 1e3,
+            frame_ms=(turns[1] + turns[2]) / 2,
+            simple_frame_ms=(turns[0] + turns[3]) / 2,
+            frame_device_ms=dev_us["new"] / 1e3,
+            simple_frame_device_ms=dev_us["simple"] / 1e3,
+            live_share=n_live / lanes, mixed_group_share=mixed / n_groups,
+            **b)
+        log(f"K1 {kind} {name} frame: {len(qs)} launches, {lanes} lanes, "
+            f"live share {n_live / lanes:.4f}, 32-lane groups that mix live "
+            f"and dead lanes {mixed / n_groups:.4f}; the new kernel equal to "
+            f"the simple one on every launch, and both equal to the plain "
+            f"walk on the middle launch (tolerance: bit-equal)")
+        log(f"K1 {kind} {name} middle launch: work per live lane (the plain "
+            f"walk's counts) " + ", ".join(
+                f"{k} {v / max(int(mid_live.sum()), 1):.3f}"
+                for k, v in work.items())
+            + f"; bound {b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}); "
+            f"device us (profiler) simple {mid_us['simple']:.1f}, new "
+            f"{mid_us['new']:.1f}: new / bound "
+            f"{mid_us['new'] / (b['bound_ms'] * 1e3):.2f}x, simple / new "
+            f"{mid_us['simple'] / mid_us['new']:.2f}x; timed in turns "
+            f"(simple, new, new, simple) "
+            + ", ".join(f"{m * 1e3:.1f}" for m in mid_turns)
+            + f" us; plain walk {plain_ms:.1f} ms")
+        log(f"K1 {kind} {name} frame, device us per launch (profiler): "
+            f"simple {dev_us['simple']:.1f}, new {dev_us['new']:.1f}; simple "
+            f"/ new {dev_us['simple'] / dev_us['new']:.2f}x; timed per launch "
+            f"in turns (simple, new, new, simple): "
+            + ", ".join(f"{m * 1e3:.1f}" for m in turns)
+            + f" us; simple / new "
+            f"{out[kind]['simple_frame_ms'] / out[kind]['frame_ms']:.2f}x")
+    return out
+
+
+FRAME_KERNELS = ("hit", "hit_any", "camera_rays", "pixel_finish", "shade")
 TRAIN_KERNELS = ("hit", "camera_rays", "shade", "shade_bwd", "camera_bwd")
 
 
@@ -500,7 +702,8 @@ def phase_frame(path, resolution, samples, max_depth, device, dev_info,
     prof = profile_summary(lambda: renderer.render_scene_file(
         path, resolution, samples, max_depth=max_depth,
         chunk_pixels=CHUNK_PIXELS, device=device, ldr=True),
-        f"warm frame {name}")
+        f"warm frame {name}",
+        ("hit_nearest", "hit_any", "camera_rays", "pixel_finish", "shade"))
 
     # all-plain path on the card, first COMPARE_PIXELS pixels
     npix = min(COMPARE_PIXELS, width * height)
@@ -526,8 +729,8 @@ def phase_frame(path, resolution, samples, max_depth, device, dev_info,
     return dict(counts=counts, wall=wall, rays=rays, image=img, prof=prof)
 
 
-STOCHASTIC_KERNELS = ("hit", "camera_rays_stochastic", "light_points",
-                      "shade", "pixel_finish")
+STOCHASTIC_KERNELS = ("hit", "hit_any", "camera_rays_stochastic",
+                      "light_points", "shade", "pixel_finish")
 
 
 def set_geometry(shp, pos, lines=(), triangles=()):
@@ -721,7 +924,8 @@ def phase_area_frame(path, device, dev_info, name) -> dict:
     if counts["camera_rays"]:
         raise AssertionError(f"frame {name}: the pinhole kernel K2 ran")
     prof = profile_summary(lambda: render_stochastic(path, RES, device),
-                           f"warm stochastic frame {name}")
+                           f"warm stochastic frame {name}",
+                           ("camera_rays_stochastic", "light_points"))
 
     again = render_stochastic(path, RES, device)[0]
     rechunked = render_stochastic(path, RES, device, chunk_pixels=1 << 13)[0]
@@ -1068,7 +1272,8 @@ def phase_train(name, scene, w, h, last, device, dev_info) -> dict:
     # reverse K6 runs only when a camera leaf is trainable)
     prof = profile_summary(lambda: mesh.train_step(
         cur, ids, target, amb, TRAIN_LR, **kw),
-        f"warm train step {name}, every float leaf trainable")
+        f"warm train step {name}, every float leaf trainable",
+        ("shade_bwd", "camera_bwd"))
     return dict(counts=counts, walls=walls, peak=peak, prof=prof)
 
 
@@ -1314,7 +1519,9 @@ def phase_train_stochastic(name, host, last, device, dev_info) -> dict:
         f"{', '.join(f'{x:.4f}' for x in walls)} s = "
         f"{', '.join(f'{TRAIN_RAYS / x / 1e6:.2f}' for x in walls)} Mrays/s "
         f"on {dev_info['smi']}; peak memory {peak / 2**30:.2f} GiB")
-    prof = profile_summary(step, f"warm stochastic fwd+bwd {name}")
+    prof = profile_summary(step, f"warm stochastic fwd+bwd {name}",
+                           ("shade_bwd_lights", "camera_bwd_stochastic",
+                            "light_points_bwd"))
     for k in ("shade_bwd_lights", "camera_bwd_stochastic",
               "light_points_bwd"):
         device_ms(prof, k, counts[k])   # raises if K5, K9 or K10 is missing
@@ -1370,7 +1577,7 @@ def phase_overlap(device, dev_info):
         if path is not None:
             continue
         prof = profile_summary(lambda: overlap.overlap_scene(
-            scene, meta, q, dist_max), f"overlap {name}")
+            scene, meta, q, dist_max), f"overlap {name}", ("overlap",))
         path = dict(counts=counts, prof=prof)
         lo, hi = overlap.instance_prim_ranges(scene, meta)
         ptype = scene.prim_type.cpu().numpy()
@@ -1568,7 +1775,8 @@ def phase_sharded(hair_obj, area_hair_obj, device, dev_info) -> dict:
             step()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        prof = profile_summary(step, "warm sharded train step hair")
+        prof = profile_summary(step, "warm sharded train step hair",
+                               TRAIN_KERNELS)
         for k in TRAIN_KERNELS:
             device_ms(prof, k, counts[k])   # raises if K1/K2/K4/K5/K6 is missing
         found = {n: c for n, c in prof["host"].items()
@@ -1714,10 +1922,13 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from yocto_raytracing_tpu_torch import scene as scene_lib, testscenes
-    from yocto_raytracing_tpu_torch.render import renderer
+    from yocto_raytracing_tpu_torch.render import lights, renderer
 
     phase_build()
-    phase_hit_kernel(device)
+    hit_10004 = phase_hit_kernel(device)
+    # first of the profiled phases: the tracer has lost this call's few
+    # device events late in a run
+    overlap_rec, overlap_path = phase_overlap(device, dev_info)
 
     with tempfile.TemporaryDirectory() as tmp:
         hair_obj = os.path.join(tmp, "hair.obj")
@@ -1732,6 +1943,7 @@ def main() -> None:
                                  device)
         width = renderer.image_width(hair.cameras[0].aspect, RES)
         rec = phase_frame_kernels(hscene, width, RES, SAMPLES, device)
+        rec.update(phase_hit_frame("hair", hscene, hmeta, width))
         # (name, scene, meta, width, height, bounce, rays from the end)
         cases = [("hair", hscene, hmeta, width, RES, 1, False),
                  ("mirror", mscene, mmeta, RES, RES, 2, True),
@@ -1755,6 +1967,14 @@ def main() -> None:
         scene_lib.save_scene(area_mirror_scene(), area_mirror_obj)
         rec.update(phase_stochastic(scene_lib.load_scene(area_hair_obj),
                                     device))
+        area_host = scene_lib.load_scene(area_hair_obj)
+        ascene, ameta = scene_on(area_host, device)
+        hit_area = phase_hit_frame(
+            "area hair", ascene, ameta,
+            renderer.image_width(area_host.cameras[0].aspect, RES),
+            stochastic=True, seed=SEED,
+            light_sampler=lights.build_light_sampler(area_host, None, ameta,
+                                                     device))
         stochastic_frame = phase_area_frame(area_hair_obj, device, dev_info,
                                             "area hair")
         phase_area_frame(area_mirror_obj, device, dev_info, "area mirror")
@@ -1767,15 +1987,19 @@ def main() -> None:
         phase_train_stochastic("area mirror",
                                scene_lib.load_scene(area_mirror_obj), True,
                                device, dev_info)
-        rec["overlap"], overlap_path = phase_overlap(device, dev_info)
+        rec["overlap"] = overlap_rec
         # last: the NCCL group and the CLI's subprocesses
         phase_sharded(hair_obj, area_hair_obj, device, dev_info)
         phase_cli(hair_obj, tmp, device, dev_info)
 
     src = "yocto_raytracing_tpu_torch/kernels/csrc/"
+    counts = main_frame["counts"]
+    counts["hit_nearest"] = counts["hit"] - counts["hit_any"]
     table = {  # name: (source, replaces, path that runs it)
-        "hit": ("hit.cu", "yocto_raytracing_tpu/ops/traverse.py:82",
-                main_frame),
+        "hit_nearest": ("hit.cu", "yocto_raytracing_tpu/ops/traverse.py:82",
+                        main_frame),
+        "hit_any": ("hit.cu", "yocto_raytracing_tpu/ops/traverse.py:82",
+                    main_frame),
         "camera_rays": ("camera.cu",
                         "yocto_raytracing_tpu/render/camera.py:124",
                         main_frame),
@@ -1813,6 +2037,23 @@ def main() -> None:
                         device_ms=device_ms(path["prof"], k,
                                             path["counts"][k]))
                    for k, (f, r, path) in table.items()]
+    by_name = {r["name"]: r for r in kernels_rec}
+    for kind in ("hit_nearest", "hit_any"):
+        r, a = by_name[kind], hit_area[kind]
+        log(f"K1 {kind}, device us, simple / new: hair frame per launch "
+            f"{r['simple_frame_device_ms'] * 1e3:.1f} / "
+            f"{r['frame_device_ms'] * 1e3:.1f} (in the frame's own profile "
+            f"{r['device_ms'] * 1e3:.1f}), its middle launch "
+            f"{r['simple_mid_device_ms'] * 1e3:.1f} / "
+            f"{r['mid_device_ms'] * 1e3:.1f} against a bound of "
+            f"{r['bound_ms'] * 1e3:.2f}; area hair frame per launch "
+            f"{a['simple_frame_device_ms'] * 1e3:.1f} / "
+            f"{a['frame_device_ms'] * 1e3:.1f}, its middle launch "
+            f"{a['simple_mid_device_ms'] * 1e3:.1f} / "
+            f"{a['mid_device_ms'] * 1e3:.1f} against a bound of "
+            f"{a['bound_ms'] * 1e3:.2f}; 10,004-instance scene, timed ms: "
+            f"{hit_10004[kind]['simple_ms']:.4f} / "
+            f"{hit_10004[kind]['ms']:.4f}")
     for r in kernels_rec:
         log(f"{r['name']}: {r['launches']} launches on its path; per "
             f"launch there, device {r['device_ms'] * 1e3:.1f} us (profiler) "

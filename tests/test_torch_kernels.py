@@ -1,24 +1,26 @@
 """The port's CUDA kernels against their plain torch versions, on a card.
 
-K1-K3 bit-equal (K3's u8 within 1 step); K4 (shading) bit-equal to the
-plain shading on the same K1 hits and shadow query; K5 (shading backward)
-and K6 (camera backward) within relative L2 error 1e-4 per leaf of torch
-autograd of the plain versions (the leaf gradients are atomic or
-reordered sums); a training step through the kernels: loss equal to the
-plain path's (rtol 1e-5), gradient within 1e-4 of the f64 reference (the
-plain path in f64 on the same hits; 1.25x the plain f32 path's own error
-where that is larger), update ``d - lr * g``; K7 (stochastic camera
-rays), K8 (area-light points) and K4 with per-ray light positions bit-equal
-to their plain versions, and a stochastic area-light frame through them
-within 1 u8 step of the all-plain path; the reverses of the stochastic
-modes, K5 with per-ray light positions, K9 (thin-lens rays, also against
-K6 at aperture 0) and K10 (light points), within 1e-4 of torch autograd of
-their plain versions, and the stochastic training gradient against its
-f64 reference; K11 (overlap query) equal to the plain query (found, inst,
-prim equal; dist and euv bit-equal); ``train_step_sharded`` in a one-rank
-NCCL group equal to ``train_step``, and the CLI on the card writing the
-host tonemap of ``render_image`` (also checkpointed and resumed, and
-``--sharded``).
+K1-K3 bit-equal (K3's u8 within 1 step; K1 also on dead, NaN-tmax and
+partial batches, the 10,004-instance scene, equal-t ties, axis-parallel and
+NaN directions, and after a training step); K4 (shading)
+bit-equal to the plain shading on the same K1 hits and shadow query; K5
+(shading backward) and K6 (camera backward) within relative L2 error 1e-4
+per leaf of torch autograd of the plain versions (the leaf gradients are
+atomic or reordered sums); a training step through the kernels: loss equal
+to the plain path's (rtol 1e-5), gradient within 1e-4 of the f64 reference
+(the plain path in f64 on the same hits; 1.25x the plain f32 path's own
+error where that is larger), update ``d - lr * g``; K7 (stochastic camera
+rays), K8 (area-light points) and K4 with per-ray light positions
+bit-equal to their plain versions, and a stochastic area-light frame
+through them within 1 u8 step of the all-plain path; the reverses of the
+stochastic modes, K5 with per-ray light positions, K9 (thin-lens rays,
+also against K6 at aperture 0) and K10 (light points), within 1e-4 of
+torch autograd of their plain versions, and the stochastic training
+gradient against its f64 reference; K11 (overlap query) equal to the plain
+query (found, inst, prim equal; dist and euv bit-equal);
+``train_step_sharded`` in a one-rank NCCL group equal to ``train_step``,
+and the CLI on the card writing the host tonemap of ``render_image`` (also
+checkpointed and resumed, and ``--sharded``).
 
 Every test here needs an NVIDIA GPU and nvcc, and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed:
@@ -62,26 +64,95 @@ def _rays(seed, n, device):
              np.full(n, FLT_MAX, np.float32))]
 
 
+def _tie_rays(ts, seed, n, device):
+    """Rays aimed exactly at vertices and edge midpoints of the scene's
+    triangles (identity instances), where neighbouring triangles accept
+    the same t and the last accepted one must win."""
+    rng = np.random.default_rng(seed)
+    pos = ts.pos.cpu().numpy()
+    tri = ts.prim_v.cpu().numpy()[ts.prim_type.cpu().numpy() == 2]
+    pick = tri[rng.integers(0, len(tri), n)]
+    k = rng.integers(0, 3, n)
+    a = pos[pick[np.arange(n), k]]
+    b = pos[pick[np.arange(n), (k + 1) % 3]]
+    aim = np.where((np.arange(n) % 2 == 0)[:, None], a,
+                   (a + b) * np.float32(0.5)).astype(np.float32)
+    ro = (aim + rng.normal(size=(n, 3)) * 3).astype(np.float32)
+    rd = aim - ro
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    return [torch.from_numpy(x).to(device) for x in
+            (ro, rd, np.full(n, 1e-4, np.float32),
+             np.full(n, FLT_MAX, np.float32))]
+
+
+def _axis_rays(ts, seed, n, device):
+    """Axis-parallel rays from points on node bounding planes (a slab bound
+    of 0 * inf = NaN) aimed at the scene, and every 16th ray with a NaN
+    direction component."""
+    rng = np.random.default_rng(seed)
+    lo = ts.node_bbox_min.cpu().numpy()
+    hi = ts.node_bbox_max.cpu().numpy()
+    node = rng.integers(0, len(lo), n)
+    ro = np.where(rng.random((n, 3)) < 0.5, lo[node], hi[node])
+    axis = rng.integers(0, 3, n)
+    rd = np.zeros((n, 3), np.float32)
+    rd[np.arange(n), axis] = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    rd[::16, 1] = np.nan
+    return [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+            for x in (ro, rd, np.full(n, 1e-4), np.full(n, FLT_MAX))]
+
+
+# (scene, rays): the scenes of the CPU traversal tests and the 10,004-
+# instance scene on 8,192 random rays; half the lanes dead, interleaved;
+# batches that fill no warp or block; every third lane with a NaN tmax;
+# rays on shared edges and vertices; axis-parallel rays on slab planes and
+# NaN directions
+HIT_CASES = {
+    "random0": (lambda: testscenes.make_random_scene(seed=0), 8192),
+    "hair64": (lambda: testscenes.make_hair_scene(64), 8192),
+    "inst300": (lambda: testscenes.make_random_scene(
+        seed=21, n_shapes=2, n_tris=10, n_lines=0, n_points=2,
+        n_instances=300), 8192),
+    "inst10004": (lambda: testscenes.make_random_scene(n_instances=10004),
+                  8192),
+    "half_dead": (lambda: testscenes.make_hair_scene(64), "half_dead"),
+    "n1": (lambda: testscenes.make_random_scene(seed=0), 1),
+    "n33": (lambda: testscenes.make_random_scene(seed=0), 33),
+    "n8191": (lambda: testscenes.make_random_scene(seed=0), 8191),
+    "nan_tmax": (lambda: testscenes.make_hair_scene(64), "nan_tmax"),
+    "ties": (lambda: testscenes.make_hair_scene(64), "ties"),
+    "axis_nan": (lambda: testscenes.make_hair_scene(64), "axis_nan"),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("any_hit", [False, True])
-@pytest.mark.parametrize("make", [
-    lambda: testscenes.make_random_scene(seed=0),
-    lambda: testscenes.make_hair_scene(64),
-    lambda: testscenes.make_random_scene(seed=21, n_shapes=2, n_tris=10,
-                                         n_lines=0, n_points=2,
-                                         n_instances=300),
-], ids=["random0", "hair64", "inst300"])
-def test_hit_kernel_matches_plain(cuda_device, make, any_hit):
+@pytest.mark.parametrize("case", list(HIT_CASES))
+def test_hit_kernel_matches_plain(cuda_device, case, any_hit):
+    make, rays = HIT_CASES[case]
     ts, _ = _scene(make(), cuda_device)
-    rays = _rays(5, 8192, cuda_device)
-    before = kernels.launches["hit"]
+    if rays == "ties":
+        rays = _tie_rays(ts, 6, 8192, cuda_device)
+    elif rays == "axis_nan":
+        rays = _axis_rays(ts, 7, 8192, cuda_device)
+    elif rays == "half_dead":
+        rays = _rays(5, 8192, cuda_device)
+        rays[3][1::2] = -float(FLT_MAX)
+    elif rays == "nan_tmax":
+        rays = _rays(7, 8191, cuda_device)
+        rays[3][::3] = float("nan")
+    else:
+        rays = _rays(5, rays, cuda_device)
+    before = dict(kernels.launches)
     a = traverse.intersect_scene_plain(ts, *rays, any_hit=any_hit)
     b = traverse.intersect_scene(ts, *rays, any_hit=any_hit)
-    assert kernels.launches["hit"] == before + 1
+    assert kernels.launches["hit"] == before["hit"] + 1
+    assert kernels.launches["hit_any"] == before["hit_any"] + int(any_hit)
     for k in ("hit", "inst", "prim", "t"):
         np.testing.assert_array_equal(a[k].cpu().numpy(), b[k].cpu().numpy(),
                                       err_msg=k)
-    assert int(b["hit"].sum()) > 100
+    if rays[0].shape[0] >= 8191:
+        assert int(b["hit"].sum()) > 100
 
 
 @pytest.mark.cuda
@@ -92,6 +163,34 @@ def test_hit_kernel_dead_rays(cuda_device):
     out = traverse.intersect_scene(ts, ro, rd, tmin, dead)
     assert not bool(out["hit"].any())
     assert bool((out["prim"] == -1).all())
+
+
+@pytest.mark.cuda
+def test_hit_kernel_after_train_step(cuda_device):
+    """K1 on the scene that ``train_step`` returns equals the plain walk on
+    it: the records are packed from the new leaves, never stale ones."""
+    ts, _ = _scene(testscenes.make_hair_scene(64), cuda_device)
+    w, h, samples = 64, 48, 1
+    ids = torch.arange(w * h, dtype=torch.int32, device=cuda_device)
+    amb = torch.full((3,), 0.1, device=cuda_device)
+    target = renderer.trace_rays(ts, ids, amb, w, h, samples, 2) * 0.5
+    new, _ = mesh.train_step(ts, ids, target, amb, 10.0, width=w, height=h,
+                             samples=samples, max_depth=2,
+                             trainable=("pos",))
+    assert not torch.equal(new.pos, ts.pos)
+    rays = _rays(8, 8192, cuda_device)
+    for any_hit in (False, True):
+        a = traverse.intersect_scene_plain(new, *rays, any_hit=any_hit)
+        b = traverse.intersect_scene(new, *rays, any_hit=any_hit)
+        for k in ("hit", "inst", "prim", "t"):
+            np.testing.assert_array_equal(
+                a[k].cpu().numpy(), b[k].cpu().numpy(), err_msg=k)
+    # and the frame after the step within 1 u8 step of the all-plain path
+    x = renderer.trace_rays(new, ids, amb, w, h, samples, 2)
+    y = renderer.trace_rays(new, ids, amb, w, h, samples, 2, plain=True)
+    x, y = (renderer.pixel_finish_plain(v, 1, True).cpu().numpy().astype(
+        np.int32) for v in (x, y))
+    assert np.abs(x - y).max() <= 1
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels of the port (sources in ``csrc/``).
 
-* K1 ``hit.cu``     two-level BVH nearest/any hit  (ops/traverse.py)
+* K1 ``hit.cu``     two-level BVH nearest/any hit on packed records
+                                                   (ops/traverse.py,
+                                                   ops/hit_records.py)
 * K2 ``camera.cu``  ray id -> uv -> camera ray     (render/camera.py)
 * K3 ``pixel.cu``   per-pixel spp sum and tonemap  (render/renderer.py)
 * K4 ``shade.cu``   one shading bounce, forward    (render/shade.py)
@@ -14,6 +16,8 @@
 * K11 ``overlap.cu``  closest element within a distance, per query point
                                                    (ops/overlap.py)
 
+``hit_simple.cu`` is K1's first, simple form, on the scene's own arrays: only
+``chip_smoke.py`` launches it, to time the two in turns on one card.
 ``host/yrt_native.cpp`` is the host-side OBJ parser and BVH builder (g++,
 ``native.py``). Nothing is compiled at import: ``build()`` runs nvcc on
 first use.

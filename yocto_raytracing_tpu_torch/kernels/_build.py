@@ -32,17 +32,18 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("hit.cu", "camera.cu", "pixel.cu", "shade.cu", "shade_bwd.cu",
-           "stochastic.cu", "lights.cu", "overlap.cu")
+SOURCES = ("hit.cu", "hit_simple.cu", "camera.cu", "pixel.cu", "shade.cu",
+           "shade_bwd.cu", "stochastic.cu", "lights.cu", "overlap.cu")
 HEADERS = ("common.cuh", "shade.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
 
-# launches of each kernel since the last reset_launches(); K5 with per-ray
-# light positions counts apart from K5 with the fixed ones
-launches = {"hit": 0, "camera_rays": 0, "pixel_finish": 0, "shade": 0,
-            "shade_bwd": 0, "shade_bwd_lights": 0, "camera_bwd": 0,
+# launches of each kernel since the last reset_launches(); "hit" counts K1's
+# nearest and any-hit launches, "hit_any" its any-hit launches alone; K5
+# with per-ray light positions counts apart from K5 with the fixed ones
+launches = {"hit": 0, "hit_any": 0, "camera_rays": 0, "pixel_finish": 0,
+            "shade": 0, "shade_bwd": 0, "shade_bwd_lights": 0, "camera_bwd": 0,
             "camera_rays_stochastic": 0, "camera_bwd_stochastic": 0,
             "light_points": 0, "light_points_bwd": 0, "overlap": 0}
 
@@ -132,7 +133,11 @@ def library() -> ctypes.CDLL:
     lib.yrt_error_string.restype = ctypes.c_char_p
     lib.yrt_error_string.argtypes = [i32]
     lib.yrt_hit.restype = i32
-    lib.yrt_hit.argtypes = [vp] * 15 + [vp] * 4 + [i32, i32] + [vp] * 4 + [vp]
+    lib.yrt_hit.argtypes = ([vp] * 4 + [i32] + [vp] * 4 + [i32] * 2
+                            + [vp] * 5)
+    lib.yrt_hit_simple.restype = i32
+    lib.yrt_hit_simple.argtypes = ([vp] * 15 + [vp] * 4 + [i32, i32]
+                                   + [vp] * 4 + [vp])
     lib.yrt_camera_rays.restype = i32
     lib.yrt_camera_rays.argtypes = [vp, i32, i32, i32, i32] + [vp] * 9
     lib.yrt_camera_bwd_scratch.restype = i32

@@ -10,9 +10,10 @@ forward order. Equal-t ties go to the last accepted hit (acceptance is
 ``t <= best``). ``any_hit`` retires a ray after the leaf where it first hit.
 
 ``intersect_scene`` runs ``intersect_scene_plain`` for CPU tensors and
-launches K1 (``kernels/csrc/hit.cu``, one thread per ray, the same state
-machine) for CUDA tensors. The plain version loops over the batch in
-lockstep and works only on the rays still walking.
+launches K1 (``kernels/csrc/hit.cu``: one thread per ray, the same walk,
+reading the packed records of ``hit_records``) for CUDA tensors. The plain
+version loops over the batch in lockstep and works only on the rays still
+walking.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from ..kernels import _build
 from ..scene import PRIM_LINE, PRIM_TRIANGLE, TorchScene
+from . import hit_records
 from . import intersect as isect
 
 # prim kinds in PRIM_* order (point, line, triangle), as ``stats`` counts them
@@ -178,8 +180,12 @@ def intersect_scene_plain(scene: TorchScene, ro, rd, tmin, tmax,
 
 
 def intersect_scene_cuda(scene: TorchScene, ro, rd, tmin, tmax,
-                         any_hit: bool = False) -> dict:
-    """K1 launch: same contract as ``intersect_scene_plain``, CUDA only."""
+                         any_hit: bool = False, *,
+                         records: hit_records.HitRecords | None = None
+                         ) -> dict:
+    """K1 launch: same contract as ``intersect_scene_plain``, CUDA only.
+
+    ``records``: ``hit_records.pack(scene)``, packed here when not given."""
     dev = ro.device
     n = ro.shape[0]
     f32, i32 = torch.float32, torch.int32
@@ -188,40 +194,43 @@ def intersect_scene_cuda(scene: TorchScene, ro, rd, tmin, tmax,
     check("rd", rd, f32, (n, 3), dev)
     check("tmin", tmin, f32, (n,), dev)
     check("tmax", tmax, f32, (n,), dev)
-    leaves = (
-        ("node_bbox_min", f32, (-1, 3)), ("node_bbox_max", f32, (-1, 3)),
-        ("node_start", i32, (-1,)), ("node_count", i32, (-1,)),
-        ("node_isleaf", i32, (-1,)), ("node_kind", i32, (-1,)),
-        ("node_skip", i32, (-1,)), ("leaf_items", i32, (-1,)),
-        ("inst_axes", f32, (-1, 3, 3)), ("inst_o", f32, (-1, 3)),
-        ("inst_shape_root", i32, (-1,)), ("prim_v", i32, (-1, 3)),
-        ("prim_type", i32, (-1,)), ("pos", f32, (-1, 3)),
-        ("radius", f32, (-1,)),
-    )
-    for name, dtype, shape in leaves:
-        check(name, getattr(scene, name), dtype, shape, dev)
+    if records is None:
+        records = hit_records.pack(scene)
+    ni = records.insts.shape[0]
+    check("nodes", records.nodes, f32, (-1, hit_records.NODE_WORDS), dev)
+    check("prims", records.prims, f32, (-1, hit_records.PRIM_WORDS), dev)
+    check("insts", records.insts, f32, (ni, hit_records.INST_WORDS), dev)
+    check("node_count", records.node_count, i32,
+          (records.nodes.shape[0],), dev)
+    if any(x.data_ptr() % 16 for x in records[:3]):
+        raise ValueError("records: not 16-byte aligned")
 
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     inst = torch.empty(n, dtype=i32, device=dev)
     prim = torch.empty(n, dtype=i32, device=dev)
     t = torch.empty(n, dtype=f32, device=dev)
-    lib = _build.library()
     ptr = _build.ptr
-    err = lib.yrt_hit(
-        *(ptr(getattr(scene, name)) for name, _, _ in leaves),
-        ptr(ro), ptr(rd), ptr(tmin), ptr(tmax), n, int(any_hit),
+    err = _build.library().yrt_hit(
+        ptr(records.nodes), ptr(records.prims), ptr(records.insts),
+        ptr(records.node_count), ni, ptr(ro), ptr(rd), ptr(tmin), ptr(tmax),
+        n, int(any_hit),
         ptr(hit), ptr(inst), ptr(prim), ptr(t), _build.current_stream())
     _build.check_launch(err, "yrt_hit")
     _build.launches["hit"] += 1
+    _build.launches["hit_any"] += int(any_hit)
     return dict(hit=hit, inst=inst, prim=prim, t=t)
 
 
 def intersect_scene(scene: TorchScene, ro, rd, tmin, tmax,
-                    any_hit: bool = False) -> dict:
+                    any_hit: bool = False, *,
+                    records: hit_records.HitRecords | None = None) -> dict:
     """Nearest-hit (or any-hit) query of a ray batch.
 
-    CPU tensors take the plain version; CUDA tensors launch K1 (or raise).
+    CPU tensors take the plain version; CUDA tensors launch K1 (or raise),
+    on ``records`` (``hit_records.pack(scene)``, packed here when not
+    given).
     """
     if _build.device_kind(ro) == "cpu":
         return intersect_scene_plain(scene, ro, rd, tmin, tmax, any_hit)
-    return intersect_scene_cuda(scene, ro, rd, tmin, tmax, any_hit)
+    return intersect_scene_cuda(scene, ro, rd, tmin, tmax, any_hit,
+                                records=records)

@@ -36,6 +36,7 @@ import torch
 from .. import image as image_mod
 from .. import scene as scene_lib
 from ..kernels import _build
+from ..ops import hit_records
 from ..ops import intersect as isect
 from ..ops import traverse
 from . import camera as camera_mod
@@ -145,7 +146,9 @@ def trace_rays(scene, ray_ids, ambient, width: int, height: int,
     ``intersect``, when given, replaces the path's hit query for both the
     nearest and the shadow rays (the signature of
     ``traverse.intersect_scene``): ``kernels.parity`` replays recorded hits
-    through it, so that an f64 reference shades the same topology.
+    through it, so that an f64 reference shades the same topology. Without
+    it, the CUDA path packs K1's records (``hit_records.pack``) once per
+    call, from the leaves as they are now, for both queries.
 
     ``stochastic``: jittered antialiasing and, where the camera has an
     aperture, thin-lens depth of field, from variates keyed by ray id and
@@ -175,9 +178,13 @@ def trace_rays(scene, ray_ids, ambient, width: int, height: int,
     # under no_grad unless differentiable (and grad mode is on)
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
         _, ro, rd = cam_fn(scene, ray_ids, width, height, samples)
+        fixed = scene_lib.detached(scene)
         if intersect is not None:
             isect_fn = intersect
-        fixed = scene_lib.detached(scene)
+        elif not plain and _build.device_kind(ro) == "cuda":
+            # K1's packed records, once for the nearest and shadow queries
+            isect_fn = functools.partial(traverse.intersect_scene,
+                                         records=hit_records.pack(fixed))
         occluder = make_occluder(fixed, isect_fn)
         n = ro.shape[0]
         dev = ro.device
@@ -244,6 +251,12 @@ def render_image(scene, meta, width: int, height: int, samples: int,
     amb = torch.full((3,), ambient, dtype=torch.float32, device=dev)
     chunk_pixels = min(chunk_pixels, npix)
     device_ldr = ldr and not checkpoint
+    # the scene does not change during the frame: K1's records once for all
+    # its chunks (trace_rays would pack them per chunk)
+    isect = (functools.partial(
+        traverse.intersect_scene,
+        records=hit_records.pack(scene_lib.detached(scene)))
+        if dev.type == "cuda" else None)
     out = np.empty((npix, 3), np.uint8 if device_ldr else np.float32)
     done = 0
     if checkpoint:
@@ -268,7 +281,7 @@ def render_image(scene, meta, width: int, height: int, samples: int,
         rgb = trace_rays(scene, ids, amb, width, height, samples, max_depth,
                          has_kd_textures=meta.has_kd_textures,
                          has_ks_textures=meta.has_ks_textures,
-                         stochastic=stochastic, seed=seed,
+                         intersect=isect, stochastic=stochastic, seed=seed,
                          light_sampler=light_sampler)
         px = pixel_finish(rgb.contiguous(), spp, device_ldr)
         out[start:stop] = px[:stop - start].cpu().numpy()
