@@ -5,9 +5,14 @@
 Builds the port's CUDA kernels from this checkout and holds each against its
 plain torch version on the card: K1 hit (its nearest-hit and any-hit
 kernels, also against K1's first, simple kernel, on every hit query of the
-hair and area hair frames, timed in turns with it), K2 camera rays, K3
-pixel finish, K4 shading (bit-equal, also with per-ray light positions),
-K5 shading backward (also with per-ray light positions), K6 camera
+hair and area hair frames, timed in turns with it; the 10,004-instance
+scene's nearest hits against the plain walk run on the host CPU by worker
+processes beside the card's phases), K2 camera rays, K3 pixel finish, K4
+shading (bit-equal, also with per-ray light positions, and to its first
+form, ``shade_simple.cu``, timed in turns with it; the four frames
+bit-equal through either), K5 shading backward (also with per-ray light
+positions; against its first form, ``shade_bwd_simple.cu``, too, timed in
+turns with it, its light gradients bit-identical over two runs), K6 camera
 backward, K9 thin-lens camera backward and K10 light-points backward
 (relative L2 error <= 1e-4 per gradient leaf of torch autograd), K7
 stochastic camera rays, K8 area-light points and K11 overlap query
@@ -74,7 +79,9 @@ The script imports nothing of JAX or of the JAX package, and checks it.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -124,8 +131,13 @@ OVERLAP_OPS_PER_INSTANCE = 20
 HIT_OPS = {"nodes": 53, "frames": 47, "point_tests": 35, "line_tests": 80,
            "triangle_tests": 65}
 # the 10,004-instance scene's nearest-hit rays held against the plain walk:
-# every HIT_PLAIN_STRIDE-th of them
+# every HIT_PLAIN_STRIDE-th of them, walked on the host CPU by
+# HIT_PLAIN_WORKERS processes (one torch thread each) while the card runs
+# the other phases; the rays are random_rays(HIT_BIG_SEED, HIT_BIG_RAYS)
 HIT_PLAIN_STRIDE = 16
+HIT_PLAIN_WORKERS = 4
+HIT_BIG_SEED = 300
+HIT_BIG_RAYS = 1 << 16
 OVERLAP_QUERIES = 1 << 20
 OVERLAP_COMPARE = 1 << 16
 # idle host seconds on each side of a profiled call, their growth from one
@@ -236,11 +248,16 @@ DEVICE_FUNCTIONS = {
     "camera_rays": ("camera_rays_kernel",),
     "pixel_finish": ("pixel_finish_kernel",),
     "shade": ("shade_prep_kernel", "shade_finish_kernel"),
-    "shade_bwd": ("shade_bwd_kernel",),
+    "shade_prep": ("shade_prep_kernel",),
+    "shade_finish": ("shade_finish_kernel",),
+    "shade_prep_simple": ("simple::shade_prep_kernel",),
+    "shade_finish_simple": ("simple::shade_finish_kernel",),
+    "shade_bwd": ("shade_bwd_kernel", "light_sum_kernel"),
+    "shade_bwd_simple": ("simple::shade_bwd_kernel",),
     "camera_bwd": ("camera_bwd_partial_kernel", "camera_bwd_sum_kernel"),
     "camera_rays_stochastic": ("camera_rays_stochastic_kernel",),
     "light_points": ("light_points_kernel",),
-    "shade_bwd_lights": ("shade_bwd_kernel",),
+    "shade_bwd_lights": ("shade_bwd_kernel", "light_sum_kernel"),
     "camera_bwd_stochastic": ("camera_stochastic_bwd_partial_kernel",
                               "camera_stochastic_bwd_sum_kernel"),
     "light_points_bwd": ("light_points_bwd_kernel",),
@@ -387,7 +404,38 @@ def phase_device() -> dict:
     return dict(kind=kind, count=count, smi=smi)
 
 
-def phase_build():
+# the shading kernels whose registers and spills the build reports apart:
+# K4's two launches and K5's, new and first form
+SHADE_ENTRIES = ("shade_prep_kernel", "shade_finish_kernel",
+                 "shade_bwd_kernel", "light_sum_kernel")
+
+
+def ptxas_entries(log_text: str) -> dict:
+    """{mangled entry name: (registers, spill store bytes, spill load
+    bytes)} from nvcc's ``-Xptxas -v`` output."""
+    import re
+
+    out, name, spill = {}, None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), *spill)
+            name = None
+    return out
+
+
+def phase_build() -> dict:
+    """Build the kernels; log ptxas's lines, and the registers and spills
+    of K4's and K5's kernels, new and first form."""
     from yocto_raytracing_tpu_torch import kernels
 
     info = kernels.build()
@@ -396,6 +444,69 @@ def phase_build():
         if ("registers" in line or "spill" in line
                 or "Compiling entry" in line):
             log("  ptxas:", line.strip())
+    regs = {}
+    for mangled, (r, st, ld) in ptxas_entries(info.log).items():
+        for entry in SHADE_ENTRIES:
+            if entry in mangled:
+                which = ("simple::" if "6simple" in mangled else "") + entry
+                regs[which] = dict(registers=r, spill_stores=st,
+                                   spill_loads=ld)
+    log("ptxas, shading kernels: " + "; ".join(
+        f"{k} {v['registers']} registers, spill stores/loads "
+        f"{v['spill_stores']}/{v['spill_loads']} bytes"
+        for k, v in sorted(regs.items())))
+    if len(regs) != 7:
+        raise AssertionError(f"ptxas reported {sorted(regs)}")
+    return regs
+
+
+def plain_walk_part(part: int):
+    """Worker of ``start_plain_walk`` (a spawned process, CPU only): the
+    plain walk on the host CPU over the 10,004-instance scene's rays
+    ``part``, ``part + HIT_PLAIN_WORKERS``, ... of every HIT_PLAIN_STRIDE-th
+    of ``random_rays(HIT_BIG_SEED, HIT_BIG_RAYS)``: ({output: array},
+    seconds)."""
+    from yocto_raytracing_tpu_torch import testscenes
+    from yocto_raytracing_tpu_torch.ops import traverse
+
+    torch.set_num_threads(1)
+    scene, _ = scene_on(testscenes.make_random_scene(n_instances=10004),
+                        "cpu")
+    rays = random_rays(HIT_BIG_SEED, HIT_BIG_RAYS, "cpu")
+    sub = [x[::HIT_PLAIN_STRIDE][part::HIT_PLAIN_WORKERS].contiguous()
+           for x in rays]
+    t0 = time.perf_counter()
+    out = traverse.intersect_scene_plain(scene, *sub, False)
+    return {k: v.numpy() for k, v in out.items()}, time.perf_counter() - t0
+
+
+def start_plain_walk(pool):
+    """Start the host CPU's plain walk of the 10,004-instance scene's
+    nearest-hit rays (``plain_walk_part`` in ``pool``); ``phase_hit_kernel``
+    gives the kernel's answers, ``check_plain_walk`` holds the two."""
+    return pool.map_async(plain_walk_part, range(HIT_PLAIN_WORKERS))
+
+
+def check_plain_walk(pending, kern: dict) -> None:
+    """The kernel's nearest hits on the 10,004-instance scene (every
+    HIT_PLAIN_STRIDE-th ray, on the host) bit-equal to the plain walk on the
+    host CPU. The CPU tests hold that walk to the JAX package's; the card
+    holds the kernel to the same walk on the card on the other scenes."""
+    t0 = time.perf_counter()
+    parts = pending.get(timeout=900)
+    waited = time.perf_counter() - t0
+    n = kern["hit"].shape[0]
+    plain = {k: torch.empty_like(v) for k, v in kern.items()}
+    for p, (res, _) in enumerate(parts):
+        for k in HIT_OUTPUTS:
+            plain[k][p::HIT_PLAIN_WORKERS] = torch.from_numpy(res[k])
+    assert_same_hits(plain, kern, "K1 random 10004 instances nearest-hit "
+                     "(the plain walk on the host CPU)")
+    log(f"K1 random 10004 instances nearest-hit: {n} rays (every "
+        f"{HIT_PLAIN_STRIDE}th) equal to the plain walk on the host CPU "
+        f"({HIT_PLAIN_WORKERS} processes of one thread, "
+        f"{max(sec for _, sec in parts):.1f} s the longest, waited "
+        f"{waited:.1f} s at the end; tolerance: bit-equal)")
 
 
 def phase_hit_kernel(device) -> dict:
@@ -403,8 +514,10 @@ def phase_hit_kernel(device) -> dict:
     any hit, on random rays; on the 10,004-instance scene, where frame
     changes dominate, the two kernels timed in turns. There the nearest-hit
     walk is held against the plain walk on every HIT_PLAIN_STRIDE-th ray
-    (each ray's answer is its own): the lockstep plain walk runs as many
-    steps as the batch's longest walk, and on all rays it takes 260-360 s."""
+    (each ray's answer is its own) on the host CPU (``check_plain_walk``,
+    later): the lockstep plain walk runs as many steps as the batch's
+    longest walk, ~22,500 here, 243 s on the card. The kernel's answers on
+    those rays are returned under "big_nearest"."""
     from yocto_raytracing_tpu_torch import scene as scene_lib, testscenes
     from yocto_raytracing_tpu_torch.ops import hit_records, traverse
 
@@ -413,7 +526,8 @@ def phase_hit_kernel(device) -> dict:
     cases.append(("hair 256", lambda: testscenes.make_hair_scene(256),
                   1 << 16, 200))
     cases.append(("random 10004 instances", lambda: testscenes.
-                  make_random_scene(n_instances=10004), 1 << 16, 300))
+                  make_random_scene(n_instances=10004), HIT_BIG_RAYS,
+                  HIT_BIG_SEED))
     out = {}
     for name, make, n, seed in cases:
         scene, _ = scene_on(make(), device)
@@ -427,17 +541,19 @@ def phase_hit_kernel(device) -> dict:
             kern_s = time.perf_counter() - t0
             assert_same_hits(kern, hit_simple(scene, *rays, any_hit),
                              what + " (simple kernel)")
-            step = HIT_PLAIN_STRIDE if big and not any_hit else 1
-            sub = [x[::step].contiguous() for x in rays]
-            t1 = time.perf_counter()
-            plain = traverse.intersect_scene_plain(scene, *sub, any_hit)
-            torch.cuda.synchronize()
-            assert_same_hits(plain, {k: v[::step] for k, v in kern.items()},
-                             what)
-            against = (f"the plain walk ({time.perf_counter() - t1:.2f} s"
-                       + (f", on every {step}th ray, {sub[0].shape[0]} rays"
-                          if step > 1 else "")
-                       + ") and the simple kernel")
+            if big and not any_hit:
+                # held against the host CPU's plain walk later
+                out["big_nearest"] = {k: v[::HIT_PLAIN_STRIDE].cpu()
+                                      for k, v in kern.items()}
+                against = "the simple kernel"
+            else:
+                t1 = time.perf_counter()
+                plain = traverse.intersect_scene_plain(scene, *rays,
+                                                       any_hit)
+                torch.cuda.synchronize()
+                assert_same_hits(plain, kern, what)
+                against = (f"the plain walk ({time.perf_counter() - t1:.2f} "
+                           f"s) and the simple kernel")
             log(f"{what}: {n} rays, {int(kern['hit'].sum())} hits, equal "
                 f"to {against} (tolerance: bit-equal); kernel "
                 f"{kern_s:.4f} s")
@@ -665,6 +781,41 @@ def phase_hit_frame(name, scene, meta, width, **trace_kw) -> dict:
     return out
 
 
+def check_simple_k4_frame(name, scene, meta, width, height, **kw) -> None:
+    """The f32 frame of ``render_image`` (RES rows, SAMPLES, DEPTH,
+    CHUNK_PIXELS; ``kw`` for the stochastic modes) through K4 and through
+    its first form, the renderer's ``shade.shade_step`` swapped for
+    ``parity.shade_step_simple`` for the call: equal bit for bit."""
+    from yocto_raytracing_tpu_torch.kernels import parity
+    from yocto_raytracing_tpu_torch.render import renderer, shade
+
+    def frame():
+        return renderer.render_image(scene, meta, width, height, SAMPLES,
+                                     max_depth=DEPTH,
+                                     chunk_pixels=CHUNK_PIXELS, **kw)
+
+    def simple(scene_, ro, rd, hits, amb, active, occluder,
+               has_kd_textures=True, has_ks_textures=True, light_pos=None,
+               records=None):
+        return parity.shade_step_simple(scene_, ro, rd, hits, amb, active,
+                                        occluder, has_kd_textures,
+                                        has_ks_textures, light_pos)
+
+    new = frame()
+    shade_step = shade.shade_step
+    shade.shade_step = simple
+    try:
+        old = frame()
+    finally:
+        shade.shade_step = shade_step
+    same = np.array_equal(new.view(np.int32), old.view(np.int32))
+    log(f"frame {name}: the f32 frame through K4 bit-equal to the one "
+        f"through its first form: {same}")
+    if not same:
+        raise AssertionError(f"frame {name}: K4 and its first form differ "
+                             f"on {int((new != old).any(-1).sum())} pixels")
+
+
 FRAME_KERNELS = ("hit", "hit_any", "camera_rays", "pixel_finish", "shade")
 TRAIN_KERNELS = ("hit", "camera_rays", "shade", "shade_bwd", "camera_bwd")
 
@@ -726,6 +877,7 @@ def phase_frame(path, resolution, samples, max_depth, device, dev_info,
         f"differ ({time.perf_counter() - t0:.1f} s)")
     if d.max() > 1:
         raise AssertionError(f"frame {name}: {d.max()} u8 steps off plain")
+    check_simple_k4_frame(name, scene, meta, width, height)
     return dict(counts=counts, wall=wall, rays=rays, image=img, prof=prof)
 
 
@@ -852,9 +1004,11 @@ def phase_stochastic(host, device) -> dict:
                                meta.has_ks_textures, light_pos=lpos)
     gaps = {k: rep[k] for k in parity.SHADE_OUTPUTS}
     log(f"K4 shade with per-ray lights: {n} rays, {rep['hits']} hits; ULP "
-        f"gap kernel vs plain {gaps}, mask equal {rep['mask_equal']} "
-        f"(tolerance: bit-equal)")
-    if not rep["mask_equal"] or any(gaps.values()):
+        f"gap kernel vs plain {gaps}, kernel vs its first form "
+        f"{rep['simple']}, masks equal {rep['mask_equal']} (tolerance: "
+        f"bit-equal)")
+    if (not rep["mask_equal"] or any(gaps.values())
+            or any(rep["simple"].values())):
         raise AssertionError(f"K4 with per-ray lights: {rep}")
     occ = parity.occluder(scene)
 
@@ -864,13 +1018,15 @@ def phase_stochastic(host, device) -> dict:
                meta.has_ks_textures, light_pos)
 
     rec["shade_lights"] = dict(
-        ms=cuda_ms(lambda: run(shade.shade_step_cuda, lpos), 10),
+        **k4_in_turns("shade with per-ray lights, area hair", scene, meta,
+                      inputs, amb, lpos),
         plain_ms=cuda_ms(lambda: run(shade.shade_step_plain, lpos), 3),
         fixed_ms=cuda_ms(lambda: run(shade.shade_step_cuda, None), 10),
         **bound("shade", n * (24 + 8 + 1 + 48) + nbytes(lpos)
                 + leaves_bytes(scene, SHADE_LEAVES), n))
     log(f"K4 shade with per-ray lights: kernel "
-        f"{rec['shade_lights']['ms']:.3f} ms (the same rays with the fixed "
+        f"{rec['shade_lights']['ms']:.3f} ms (first form "
+        f"{rec['shade_lights']['simple_ms']:.3f} ms; the same rays with the fixed "
         f"lights {rec['shade_lights']['fixed_ms']:.3f} ms), plain "
         f"{rec['shade_lights']['plain_ms']:.3f} ms per bounce (with the K1 "
         f"shadow query), bound {rec['shade_lights']['bound_ms'] * 1e3:.1f} "
@@ -959,6 +1115,8 @@ def phase_area_frame(path, device, dev_info, name) -> dict:
         f"differ ({time.perf_counter() - t0:.1f} s)")
     if d.max() > 1:
         raise AssertionError(f"frame {name}: {d.max()} u8 steps off plain")
+    check_simple_k4_frame(name, scene, meta, width, height, stochastic=True,
+                          seed=SEED, light_sampler=sampler)
     return dict(counts=counts, wall=wall, rays=rays, prof=prof)
 
 
@@ -1003,10 +1161,68 @@ def middle_ids(width, height, samples, n, device, last=False):
     return torch.arange(first, first + n, dtype=torch.int32, device=device)
 
 
+def k4_in_turns(label, scene, meta, inputs, amb, light_pos=None) -> dict:
+    """K4 and its first form on one bounce, each with the K1 shadow query,
+    through the same host path (``shade.forward_launches`` with one
+    argument struct, records packed once; the first form ignores them):
+    timed calls in turns (simple, new, new, simple; CUDA events around the
+    call), and the device time of the prep and finish kernels apart, from
+    one profiled call of each in the same turns. Returns ms and us per
+    launch."""
+    from yocto_raytracing_tpu_torch.kernels import _build, parity
+    from yocto_raytracing_tpu_torch.ops import shade_records
+    from yocto_raytracing_tpu_torch.render import shade
+
+    ro, rd, hits, active = inputs
+    occ = parity.occluder(scene)
+    mask = active & hits["hit"]
+    leaves = {k: getattr(scene, k) for k in shade.GRAD_LEAVES}
+    recs = shade_records.pack(scene)
+    args = shade._shade_args(scene, leaves, amb, meta.has_kd_textures,
+                             meta.has_ks_textures, light_pos, ro.shape[0],
+                             recs)
+    lib = _build.library()
+
+    def launches(prep, finish):
+        def run():
+            with torch.no_grad():
+                shade.forward_launches(prep, finish, args, ro, rd,
+                                       hits["inst"], hits["prim"], mask, occ)
+        return run
+
+    variants = {"simple": (launches(lib.yrt_shade_prep_simple,
+                                    lib.yrt_shade_finish_simple),
+                           ("shade_prep_simple", "shade_finish_simple")),
+                "new": (launches(lib.yrt_shade_prep, lib.yrt_shade_finish),
+                        ("shade_prep", "shade_finish"))}
+    turns = [cuda_ms(variants[v][0], 10)
+             for v in ("simple", "new", "new", "simple")]
+    dev = {v: [0.0, 0.0] for v in variants}
+    for v in ("simple", "new", "new", "simple"):
+        fn, kinds = variants[v]
+        prof = profile_summary(fn, f"K4 {label}: {v}", kinds)
+        for j, k in enumerate(kinds):
+            dev[v][j] += device_us(prof["by_name"], k) / 2
+    out = dict(ms=(turns[1] + turns[2]) / 2,
+               simple_ms=(turns[0] + turns[3]) / 2,
+               prep_us=dev["new"][0], finish_us=dev["new"][1],
+               simple_prep_us=dev["simple"][0],
+               simple_finish_us=dev["simple"][1])
+    log(f"K4 {label}: {ro.shape[0]} rays, device us per launch (profiler, "
+        f"in turns) prep simple / new {out['simple_prep_us']:.1f} / "
+        f"{out['prep_us']:.1f}, finish {out['simple_finish_us']:.1f} / "
+        f"{out['finish_us']:.1f}; simple / new "
+        f"{(out['simple_prep_us'] + out['simple_finish_us']) / (out['prep_us'] + out['finish_us']):.2f}x; "
+        f"timed launches with the K1 shadow query in turns (simple, new, "
+        f"new, simple) " + ", ".join(f"{m:.3f}" for m in turns) + " ms")
+    return out
+
+
 def phase_shade_kernel(cases, device) -> dict:
-    """K4 against the plain shading on the same K1 hits and the same K1
-    shadow query: bit-equal outputs (ULP gap 0) and equal masks. The first
-    case is timed (CUDA events, both with the K1 shadow query)."""
+    """K4 against its first form and the plain shading on the same K1 hits
+    and the same K1 shadow query: bit-equal outputs (ULP gap 0) and equal
+    masks. The first case is timed (CUDA events, both with the K1 shadow
+    query), in turns with the first form (``k4_in_turns``)."""
     from yocto_raytracing_tpu_torch.kernels import parity
     from yocto_raytracing_tpu_torch.render import shade
 
@@ -1020,9 +1236,11 @@ def phase_shade_kernel(cases, device) -> dict:
                                    meta.has_ks_textures)
         gaps = {k: rep[k] for k in parity.SHADE_OUTPUTS}
         log(f"K4 shade {name}: {ids.shape[0]} rays, bounce {bounce}, "
-            f"{rep['hits']} hits; ULP gap kernel vs plain {gaps}, mask equal "
+            f"{rep['hits']} hits; ULP gap kernel vs plain {gaps}, kernel vs "
+            f"its first form {rep['simple']}, masks equal "
             f"{rep['mask_equal']} (tolerance: bit-equal)")
-        if not rep["mask_equal"] or any(gaps.values()):
+        if (not rep["mask_equal"] or any(gaps.values())
+                or any(rep["simple"].values())):
             raise AssertionError(f"K4 {name}: {rep}")
         if rec is None:
             occ = parity.occluder(scene)
@@ -1035,17 +1253,77 @@ def phase_shade_kernel(cases, device) -> dict:
 
             n = ro.shape[0]
             rec = dict(max_abs_err=rep["max_abs_err"],
-                       ms=cuda_ms(lambda: run(shade.shade_step_cuda), 10),
                        plain_ms=cuda_ms(lambda: run(shade.shade_step_plain),
                                         3),
                        library_ms=None,
+                       wrapper_ms=cuda_ms(lambda: run(shade.shade_step_cuda),
+                                          10),
+                       **k4_in_turns(f"shade {name}", scene, meta, inputs,
+                                     amb),
                        # ro, rd, inst, prim, mask in; color, kr, p, refl out
                        **bound("shade", n * (24 + 8 + 1 + 48)
                                + leaves_bytes(scene, SHADE_LEAVES), n))
-            log(f"K4 shade {name}: kernel {rec['ms']:.3f} ms, plain "
-                f"{rec['plain_ms']:.3f} ms per bounce (both with the K1 "
-                f"shadow query)")
+            log(f"K4 shade {name}: kernel {rec['ms']:.3f} ms, first form "
+                f"{rec['simple_ms']:.3f} ms (launched alike), through "
+                f"shade_step_cuda {rec['wrapper_ms']:.3f} ms, plain "
+                f"{rec['plain_ms']:.3f} ms per bounce (each with the K1 "
+                f"shadow query); bound {rec['bound_ms'] * 1e3:.2f} us")
     return rec
+
+
+def k5_in_turns(label, scene, meta, inputs, amb, gen, light_pos=None) -> dict:
+    """K5 against its first form (``parity.shade_bwd_simple``) on one saved
+    bounce: every leaf, d_ro and d_rd within GRAD_RTOL relative L2 of each
+    other; the light leaves bit-identical over two runs of K5 (their sums
+    run in a fixed order); the two timed in turns (simple, new, new,
+    simple; CUDA events around the wrapper, its buffers included) and
+    profiled in the same turns (device us per launch: K5's two kernels,
+    the first form's one)."""
+    from yocto_raytracing_tpu_torch.kernels import parity
+    from yocto_raytracing_tpu_torch.render import shade
+
+    saved = parity.shade_bwd_inputs(scene, inputs, amb, meta.has_kd_textures,
+                                    meta.has_ks_textures, light_pos)
+    rep = parity.compare_shade_bwd_simple(scene, saved, gen)
+    worst = parity.check_grads(rep, GRAD_RTOL, f"K5 {label} vs first form")
+    cots = parity.shade_bwd_cotangents(saved, gen)
+
+    def new():
+        return parity.bwd_grads(shade.shade_step_bwd, scene, saved, cots)
+
+    def old():
+        return parity.bwd_grads(parity.shade_bwd_simple, scene, saved, cots)
+
+    a, b = new(), new()
+    lights_same = all(torch.equal(a[k], b[k]) for k in
+                      ("light_pos", "light_axes", "light_o", "light_ke"))
+    if not lights_same:
+        raise AssertionError(f"K5 {label}: light gradients differ between "
+                             f"two runs")
+    kind = "shade_bwd" if light_pos is None else "shade_bwd_lights"
+    variants = {"simple": (old, "shade_bwd_simple"), "new": (new, kind)}
+    turns = [cuda_ms(variants[v][0], 10)
+             for v in ("simple", "new", "new", "simple")]
+    dev = {v: 0.0 for v in variants}
+    for v in ("simple", "new", "new", "simple"):
+        fn, dk = variants[v]
+        prof = profile_summary(fn, f"K5 {label}: {v}", (dk,))
+        dev[v] += device_us(prof["by_name"], dk) / 2
+    live = saved["mask"][: saved["mask"].numel() // 32 * 32].view(-1, 32)
+    out = dict(ms=(turns[1] + turns[2]) / 2,
+               simple_ms=(turns[0] + turns[3]) / 2, device_us=dev["new"],
+               simple_device_us=dev["simple"], rel_vs_simple=worst,
+               dead_warp_share=float(1 - live.any(1).float().mean()))
+    log(f"K5 {label}: {saved['ro'].shape[0]} rays, dead-warp share "
+        f"{out['dead_warp_share']:.4f}: against its first form, largest "
+        f"relative L2 error {worst:.3e} over ro, rd and the leaves "
+        f"(tolerance {GRAD_RTOL}); light leaves bit-identical over two "
+        f"runs; device us per launch (profiler, in turns) simple / new "
+        f"{dev['simple']:.1f} / {dev['new']:.1f} = "
+        f"{dev['simple'] / dev['new']:.2f}x; timed calls in turns (simple, "
+        f"new, new, simple) " + ", ".join(f"{m:.3f}" for m in turns)
+        + " ms")
+    return out
 
 
 def _backward_ms(outs, wrt, cots, reps):
@@ -1057,7 +1335,9 @@ def _backward_ms(outs, wrt, cots, reps):
 def phase_grad_kernels(cases, device) -> dict:
     """K5 and K6 against torch autograd of the plain versions for seeded
     cotangents: GRAD_RAYS rays per scene, then the training batch
-    (TRAIN_RAYS) of the first case, which is also timed."""
+    (TRAIN_RAYS) of the first case, which is also timed. At the training
+    batch of the first two cases (hair, mirror) K5 is also held against
+    its first form and timed in turns with it (``k5_in_turns``)."""
     from yocto_raytracing_tpu_torch.kernels import parity
     from yocto_raytracing_tpu_torch.render import camera, shade
 
@@ -1065,10 +1345,18 @@ def phase_grad_kernels(cases, device) -> dict:
     gen = torch.Generator(device=device)
     rec = {}
     for k, (name, scene, meta, w, h, bounce, last) in enumerate(cases):
-        for n in ((GRAD_RAYS, TRAIN_RAYS) if k == 0 else (GRAD_RAYS,)):
+        for n in ((GRAD_RAYS, TRAIN_RAYS) if k < 2 else (GRAD_RAYS,)):
             ids = middle_ids(w, h, SAMPLES, n, device, last)
             inputs = parity.shade_inputs(scene, ids, w, h, SAMPLES, bounce,
                                          amb)
+            if n == TRAIN_RAYS:
+                gen.manual_seed(400 + k)
+                turns = k5_in_turns(f"shade_bwd {name}", scene, meta,
+                                    inputs, amb, gen)
+                if k == 1:
+                    rec["shade_bwd"].update(
+                        {f"mirror_{x}": v for x, v in turns.items()})
+                    continue
             gen.manual_seed(100 + k)
             rep = parity.compare_shade_grads(
                 scene, inputs, amb, gen, meta.has_kd_textures,
@@ -1097,7 +1385,8 @@ def phase_grad_kernels(cases, device) -> dict:
             cots = [torch.randn(ro.shape, device=device, generator=gen)
                     * (active & hits["hit"])[:, None] for _ in range(4)]
             times = {}
-            for which, fn, reps in (("ms", shade.shade_step_cuda, 10),
+            for which, fn, reps in (("autograd_ms", shade.shade_step_cuda,
+                                     10),
                                     ("plain_ms", shade.shade_step_plain, 3)):
                 outs, wrt = parity.shade_graph(fn, scene, inputs, amb,
                                                meta.has_kd_textures,
@@ -1108,7 +1397,7 @@ def phase_grad_kernels(cases, device) -> dict:
             leaves = list(shade.GRAD_LEAVES)
             rec["shade_bwd"] = dict(
                 max_abs_err=max(r["max_abs"] for r in rep.values()),
-                library_ms=None, **times,
+                library_ms=None, **times, **turns,
                 # ro, rd, inst, prim, mask, occlusion, 4 cotangents in;
                 # d_ro, d_rd and the leaf gradients out
                 **bound("shade_bwd", n * (24 + 8 + 1 + 48 + 24)
@@ -1116,7 +1405,9 @@ def phase_grad_kernels(cases, device) -> dict:
                         + leaves_bytes(scene, SHADE_LEAVES)
                         + n * scene.light_ke.shape[0], n))
             log(f"K5 shade_bwd {name}: backward of one bounce at {n} rays: "
-                f"kernel {times['ms']:.3f} ms, plain autograd "
+                f"kernel {turns['ms']:.3f} ms (through autograd "
+                f"{times['autograd_ms']:.3f} ms), first form "
+                f"{turns['simple_ms']:.3f} ms, plain autograd "
                 f"{times['plain_ms']:.3f} ms")
             cam_cots = [torch.randn((n, 3), device=device, generator=gen)
                         for _ in range(2)]
@@ -1333,11 +1624,14 @@ def phase_reverse_kernels(host, device) -> dict:
                 f"plain zeros kept (unlit lanes' light positions included)")
             k5_err = max(r["max_abs"] for r in rep.values())
             continue
+        gen.manual_seed(402)
+        turns = k5_in_turns("shade_bwd with per-ray lights, area hair",
+                            scene, meta, inputs, amb, gen, lpos)
         ro, _, hits, active = inputs
         cots = [torch.randn(ro.shape, device=device, generator=gen)
                 * (active & hits["hit"])[:, None] for _ in range(4)]
         times = {}
-        for which, fn, reps in (("ms", shade.shade_step_cuda, 10),
+        for which, fn, reps in (("autograd_ms", shade.shade_step_cuda, 10),
                                 ("plain_ms", shade.shade_step_plain, 1)):
             outs, wrt = parity.shade_graph(fn, scene, inputs, amb,
                                            meta.has_kd_textures,
@@ -1345,7 +1639,7 @@ def phase_reverse_kernels(host, device) -> dict:
             times[which] = _backward_ms(outs, list(wrt.values()), cots, reps)
             del outs
         rec["shade_bwd_lights"] = dict(
-            max_abs_err=k5_err, library_ms=None, **times,
+            max_abs_err=k5_err, library_ms=None, **times, **turns,
             # as K5, plus the per-ray light positions in and their
             # gradient out
             **bound("shade_bwd_lights", n * (24 + 8 + 1 + 48 + 24)
@@ -1353,7 +1647,9 @@ def phase_reverse_kernels(host, device) -> dict:
                     + nbytes(*(getattr(scene, k) for k in shade.GRAD_LEAVES))
                     + leaves_bytes(scene, SHADE_LEAVES) + n * nl, n))
         log(f"K5 shade_bwd with per-ray lights: backward of one bounce at "
-            f"{n} rays: kernel {times['ms']:.3f} ms, plain autograd "
+            f"{n} rays: kernel {turns['ms']:.3f} ms (through autograd "
+            f"{times['autograd_ms']:.3f} ms), first form "
+            f"{turns['simple_ms']:.3f} ms, plain autograd "
             f"{times['plain_ms']:.3f} ms")
 
     n = TRAIN_RAYS
@@ -1921,10 +2217,26 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    shade_regs = phase_build()
+    # the host CPU's plain walk for K1 on the 10,004-instance scene runs in
+    # worker processes beside the card's phases (the native BVH builder is
+    # built first, once)
+    from yocto_raytracing_tpu_torch import native
+
+    native.get_lib()
+    pool = multiprocessing.get_context("spawn").Pool(HIT_PLAIN_WORKERS)
+    try:
+        run_phases(dev_info, device, shade_regs, start_plain_walk(pool),
+                   t_start)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def run_phases(dev_info, device, shade_regs, plain_walk, t_start) -> None:
     from yocto_raytracing_tpu_torch import scene as scene_lib, testscenes
     from yocto_raytracing_tpu_torch.render import lights, renderer
 
-    phase_build()
     hit_10004 = phase_hit_kernel(device)
     # first of the profiled phases: the tracer has lost this call's few
     # device events late in a run
@@ -1991,6 +2303,7 @@ def main() -> None:
         # last: the NCCL group and the CLI's subprocesses
         phase_sharded(hair_obj, area_hair_obj, device, dev_info)
         phase_cli(hair_obj, tmp, device, dev_info)
+    check_plain_walk(plain_walk, hit_10004["big_nearest"])
 
     src = "yocto_raytracing_tpu_torch/kernels/csrc/"
     counts = main_frame["counts"]
@@ -2038,6 +2351,32 @@ def main() -> None:
                                             path["counts"][k]))
                    for k, (f, r, path) in table.items()]
     by_name = {r["name"]: r for r in kernels_rec}
+    k4_regs = {k: v for k, v in shade_regs.items() if "bwd" not in k
+               and "light_sum" not in k}
+    k5_regs = {k: v for k, v in shade_regs.items() if k not in k4_regs}
+    by_name["shade"]["ptxas"] = k4_regs
+    by_name["shade"]["lights"] = rec["shade_lights"]
+    for k in ("shade_bwd", "shade_bwd_lights"):
+        by_name[k]["ptxas"] = k5_regs
+    r, a = by_name["shade"], rec["shade_lights"]
+    log(f"K4 shade, device us per launch, first form / new: hair chunk prep "
+        f"{r['simple_prep_us']:.1f} / {r['prep_us']:.1f}, finish "
+        f"{r['simple_finish_us']:.1f} / {r['finish_us']:.1f}; per-ray "
+        f"lights, area hair chunk prep {a['simple_prep_us']:.1f} / "
+        f"{a['prep_us']:.1f}, finish {a['simple_finish_us']:.1f} / "
+        f"{a['finish_us']:.1f}; bound {r['bound_ms'] * 1e3:.2f} us (per-ray "
+        f"lights {a['bound_ms'] * 1e3:.2f}); on {dev_info['smi']}")
+    b, bl = by_name["shade_bwd"], by_name["shade_bwd_lights"]
+    log(f"K5 shade_bwd, device us per launch at {TRAIN_RAYS} rays, first "
+        f"form / new: hair {b['simple_device_us']:.1f} / "
+        f"{b['device_us']:.1f}, mirror {b['mirror_simple_device_us']:.1f} / "
+        f"{b['mirror_device_us']:.1f}, per-ray lights (area hair) "
+        f"{bl['simple_device_us']:.1f} / {bl['device_us']:.1f}; bounds "
+        f"{b['bound_ms'] * 1e3:.2f} and {bl['bound_ms'] * 1e3:.2f} us; "
+        f"ptxas " + "; ".join(f"{k} {v['registers']} registers, "
+                              f"{v['spill_stores']} B spilled"
+                              for k, v in sorted(k5_regs.items()))
+        + f"; on {dev_info['smi']}")
     for kind in ("hit_nearest", "hit_any"):
         r, a = by_name[kind], hit_area[kind]
         log(f"K1 {kind}, device us, simple / new: hair frame per launch "

@@ -3,10 +3,13 @@
 K1-K3 bit-equal (K3's u8 within 1 step; K1 also on dead, NaN-tmax and
 partial batches, the 10,004-instance scene, equal-t ties, axis-parallel and
 NaN directions, and after a training step); K4 (shading)
-bit-equal to the plain shading on the same K1 hits and shadow query; K5
-(shading backward) and K6 (camera backward) within relative L2 error 1e-4
-per leaf of torch autograd of the plain versions (the leaf gradients are
-atomic or reordered sums); a training step through the kernels: loss equal
+bit-equal to the plain shading and to its first form (``shade_simple.cu``)
+on the same K1 hits and shadow query; K5 (shading backward) and K6 (camera
+backward) within relative L2 error 1e-4 per leaf of torch autograd of the
+plain versions (the leaf gradients are atomic or reordered sums), K5 also
+of its first form (``shade_bwd_simple.cu``), with every lane of a warp on
+one prim, 4 prims in runs and 3 interleaved, with dead warps, dead blocks
+and a ragged tail, and with light gradients bit-identical over two runs; a training step through the kernels: loss equal
 to the plain path's (rtol 1e-5), gradient within 1e-4 of the f64 reference
 (the plain path in f64 on the same hits; 1.25x the plain f32 path's own
 error where that is larger), update ``d - lr * g``; K7 (stochastic camera
@@ -280,6 +283,178 @@ def test_shade_bwd_matches_autograd(cuda_device, name):
         assert rep[leaf]["norm"] > 0, leaf
     if name == "textured":
         assert rep["texcoord"]["norm"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SHADE_CASES))
+def test_shade_kernel_matches_simple(cuda_device, name):
+    """K4 on the shade records bit-equal to its first form on the scene's
+    arrays (``shade_simple.cu``) and to the plain shading."""
+    ts, meta, amb, inputs = _shade_case(name, cuda_device)
+    rep = parity.compare_shade(ts, inputs, amb, meta.has_kd_textures,
+                               meta.has_ks_textures)
+    assert rep["mask_equal"] and rep["hits"] > 100
+    for out in parity.SHADE_OUTPUTS:
+        assert rep["simple"][out] == 0 and rep[out] == 0, (out, rep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SHADE_CASES))
+def test_shade_bwd_matches_simple(cuda_device, name):
+    """K5 within 1e-4 relative L2 of its first form
+    (``shade_bwd_simple.cu``) on every leaf, d_ro and d_rd."""
+    ts, meta, amb, inputs = _shade_case(name, cuda_device)
+    saved = parity.shade_bwd_inputs(ts, inputs, amb, meta.has_kd_textures,
+                                    meta.has_ks_textures)
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    rep = parity.compare_shade_bwd_simple(ts, saved, gen)
+    parity.check_grads(rep, GRAD_RTOL, f"K5 {name} vs first form")
+    for leaf in ("ro", "rd", "pos", "inst_axes", "mat_kd", "light_ke"):
+        assert rep[leaf]["norm"] > 0, leaf
+
+
+def _retopologized(inputs, pairs):
+    """``inputs`` with every ray live and lane i of each warp given the hit
+    topology ``pairs[i % 32]`` ((inst, prim) from the bounce's own hits):
+    the sums of K5 then fall on the rows those pairs name."""
+    ro, rd, hits, active = inputs
+    n = ro.shape[0]
+    lane = torch.arange(n, device=ro.device) % 32
+    inst = torch.tensor([p[0] for p in pairs], dtype=torch.int32,
+                        device=ro.device)[lane]
+    prim = torch.tensor([p[1] for p in pairs], dtype=torch.int32,
+                        device=ro.device)[lane]
+    hits = dict(hits, hit=torch.ones_like(hits["hit"]), inst=inst, prim=prim)
+    return ro, rd, hits, torch.ones_like(active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["one_prim", "four_runs", "interleaved"])
+def test_shade_bwd_contention(cuda_device, pattern):
+    """Every lane of every warp on one prim, then 4 prims a warp in runs of
+    8 lanes, then 3 prims interleaved lane by lane (runs of one): K5
+    within 1e-4 of torch autograd of the plain version and of its first
+    form."""
+    ts, meta, amb, inputs = _shade_case("hair64", cuda_device)
+    _, _, hits, active = inputs
+    live = (active & hits["hit"]).nonzero().flatten()
+    pairs = {(int(hits["inst"][i]), int(hits["prim"][i]))
+             for i in live[:: max(1, live.numel() // 64)].tolist()}
+    pairs = sorted(pairs)
+    assert len(pairs) >= 4
+    lanes = {"one_prim": [pairs[0]] * 32,
+             "four_runs": [pairs[k // 8] for k in range(32)],
+             "interleaved": [pairs[k % 3] for k in range(32)]}[pattern]
+    inputs = _retopologized(inputs, lanes)
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    rep = parity.compare_shade_grads(ts, inputs, amb, gen,
+                                     meta.has_kd_textures,
+                                     meta.has_ks_textures)
+    parity.check_grads(rep, GRAD_RTOL, f"K5 {pattern}")
+    assert rep["pos"]["norm"] > 0 and rep["inst_axes"]["norm"] > 0
+    saved = parity.shade_bwd_inputs(ts, inputs, amb, meta.has_kd_textures,
+                                    meta.has_ks_textures)
+    parity.check_grads(parity.compare_shade_bwd_simple(ts, saved, gen),
+                       GRAD_RTOL, f"K5 {pattern} vs first form")
+
+
+@pytest.mark.cuda
+def test_shade_bwd_dead_warps(cuda_device):
+    """Whole dead warps, whole dead blocks of 128 rays, partly dead warps
+    and a ragged tail (n not a multiple of 32): K5 within 1e-4 of torch
+    autograd of the plain version, exact zeros on every dead lane; a batch
+    with no live ray gives zeros everywhere."""
+    ts, meta, amb, inputs = _shade_case("hair64", cuda_device)
+    ro, rd, hits, active = inputs
+    n = ro.shape[0] - 37
+    i = torch.arange(n, device=cuda_device)
+    keep = ~(((i // 32) % 3 == 0) | ((i // 128) % 5 == 1)
+             | (((i // 32) % 7 == 2) & (i % 32 < 11)))
+    cut = (ro[:n].contiguous(), rd[:n].contiguous(),
+           {k: v[:n].contiguous() for k, v in hits.items()},
+           (active[:n] & keep).contiguous())
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    rep = parity.compare_shade_grads(ts, cut, amb, gen,
+                                     meta.has_kd_textures,
+                                     meta.has_ks_textures)
+    parity.check_grads(rep, GRAD_RTOL, "K5 dead warps")
+    dead = (cut[3] & cut[2]["hit"]).logical_not()
+    saved = parity.shade_bwd_inputs(ts, cut, amb, meta.has_kd_textures,
+                                    meta.has_ks_textures)
+    got = parity.bwd_grads(shade.shade_step_bwd, ts, saved,
+                           parity.shade_bwd_cotangents(saved, gen))
+    assert bool(dead.any())
+    for k in ("ro", "rd"):
+        assert bool((got[k][dead] == 0).all()), k
+    none = dict(saved, mask=torch.zeros_like(saved["mask"]))
+    got = parity.bwd_grads(shade.shade_step_bwd, ts, none,
+                           parity.shade_bwd_cotangents(none, gen))
+    for k, v in got.items():
+        assert not bool(v.any()), k
+
+
+@pytest.mark.cuda
+def test_shade_bwd_many_instances(cuda_device):
+    """300 instances (3,600 instance values, past the rows that K5 sums
+    per block into its scratch: it adds them with atomics) and no light:
+    K5 within 1e-4 of torch autograd of the plain version and of its first
+    form."""
+    ts, meta = _scene(testscenes.make_random_scene(
+        seed=21, n_shapes=2, n_tris=10, n_lines=0, n_points=2,
+        n_instances=300), cuda_device)
+    assert ts.inst_axes.shape[0] * 12 > 1024 and ts.light_ke.shape[0] == 0
+    ids = torch.arange(128 * 128, dtype=torch.int32, device=cuda_device)
+    amb = torch.full((3,), 0.1, device=cuda_device)
+    inputs = parity.shade_inputs(ts, ids, 128, 128, 1, 1, amb)
+    gen = torch.Generator(device=cuda_device).manual_seed(25)
+    rep = parity.compare_shade_grads(ts, inputs, amb, gen,
+                                     meta.has_kd_textures,
+                                     meta.has_ks_textures)
+    parity.check_grads(rep, GRAD_RTOL, "K5 300 instances")
+    assert rep["inst_axes"]["norm"] > 0 and rep["pos"]["norm"] > 0
+    saved = parity.shade_bwd_inputs(ts, inputs, amb, meta.has_kd_textures,
+                                    meta.has_ks_textures)
+    parity.check_grads(parity.compare_shade_bwd_simple(ts, saved, gen),
+                       GRAD_RTOL, "K5 300 instances vs first form")
+
+
+@pytest.mark.cuda
+def test_shade_bwd_per_ray_lights_matches_simple(cuda_device):
+    """K5 with per-ray light positions within 1e-4 of its first form,
+    the (L, N, 3) light positions' gradient included."""
+    ts, meta, sampler = _area_case(cuda_device)
+    ids = torch.arange(64 * 64 * 4, dtype=torch.int32, device=cuda_device)
+    amb = torch.full((3,), 0.1, device=cuda_device)
+    inputs = parity.shade_inputs(ts, ids, 64, 64, 2, 1, amb)
+    lpos = lights.sample_light_points(ts, sampler, ids, 3)
+    saved = parity.shade_bwd_inputs(ts, inputs, amb, meta.has_kd_textures,
+                                    meta.has_ks_textures, lpos)
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    rep = parity.compare_shade_bwd_simple(ts, saved, gen)
+    parity.check_grads(rep, GRAD_RTOL, "K5 per-ray lights vs first form")
+    assert rep["light_pos_ray"]["norm"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_ray", [False, True], ids=["fixed", "per_ray"])
+def test_shade_bwd_light_grads_deterministic(cuda_device, per_ray):
+    """The light leaves' gradients are summed per block, then in a fixed
+    order: two runs give the same bits."""
+    ts, meta, sampler = _area_case(cuda_device)
+    ids = torch.arange(64 * 64 * 4, dtype=torch.int32, device=cuda_device)
+    amb = torch.full((3,), 0.1, device=cuda_device)
+    inputs = parity.shade_inputs(ts, ids, 64, 64, 2, 1, amb)
+    lpos = lights.sample_light_points(ts, sampler, ids, 3) if per_ray \
+        else None
+    saved = parity.shade_bwd_inputs(ts, inputs, amb, meta.has_kd_textures,
+                                    meta.has_ks_textures, lpos)
+    gen = torch.Generator(device=cuda_device).manual_seed(24)
+    cots = parity.shade_bwd_cotangents(saved, gen)
+    a, b = (parity.bwd_grads(shade.shade_step_bwd, ts, saved, cots)
+            for _ in range(2))
+    for k in ("light_pos", "light_axes", "light_o", "light_ke"):
+        assert torch.equal(a[k], b[k]), k
+    assert a["light_ke"].abs().sum() > 0
 
 
 @pytest.mark.cuda

@@ -5,7 +5,8 @@
                                                    ops/hit_records.py)
 * K2 ``camera.cu``  ray id -> uv -> camera ray     (render/camera.py)
 * K3 ``pixel.cu``   per-pixel spp sum and tonemap  (render/renderer.py)
-* K4 ``shade.cu``   one shading bounce, forward    (render/shade.py)
+* K4 ``shade.cu``   one shading bounce, forward    (render/shade.py,
+                                                   ops/shade_records.py)
 * K5 ``shade_bwd.cu``  its reverse                 (render/shade.py)
 * K6 ``camera.cu``  reverse of the camera rays     (render/camera.py)
 * K7 ``stochastic.cu``  ray id -> jittered uv -> thin-lens ray
@@ -16,8 +17,10 @@
 * K11 ``overlap.cu``  closest element within a distance, per query point
                                                    (ops/overlap.py)
 
-``hit_simple.cu`` is K1's first, simple form, on the scene's own arrays: only
-``chip_smoke.py`` launches it, to time the two in turns on one card.
+``hit_simple.cu``, ``shade_simple.cu`` and ``shade_bwd_simple.cu`` are the
+first, simple forms of K1, K4 and K5, on the scene's own arrays: only
+``chip_smoke.py`` and the card tests launch them (K4's and K5's through
+``parity.py``), to hold and time old and new in turns on one card.
 ``host/yrt_native.cpp`` is the host-side OBJ parser and BVH builder (g++,
 ``native.py``). Nothing is compiled at import: ``build()`` runs nvcc on
 first use.

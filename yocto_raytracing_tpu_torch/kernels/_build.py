@@ -10,7 +10,10 @@ and a finished build is reused.
 Numerics: ``--fmad=false`` (no a*b+c contraction, like eager torch) and no
 fast-math, so division and sqrt are IEEE-rounded. The kernels are held
 bit-equal (K1, K2, K4, K7, K8, K11) or within a stated tolerance (K3, K5,
-K6, K9, K10) to their plain torch versions.
+K6, K9, K10) to their plain torch versions. ``hit_simple.cu``,
+``shade_simple.cu`` and ``shade_bwd_simple.cu`` are the first forms of K1,
+K4 and K5, built for the same-card comparisons of ``chip_smoke.py`` and
+the card tests only.
 
 Each wrapper counts its launches in ``launches``; a run resets the counts
 with ``reset_launches`` and reads them afterwards to show which kernels it
@@ -33,7 +36,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("hit.cu", "hit_simple.cu", "camera.cu", "pixel.cu", "shade.cu",
-           "shade_bwd.cu", "stochastic.cu", "lights.cu", "overlap.cu")
+           "shade_simple.cu", "shade_bwd.cu", "shade_bwd_simple.cu",
+           "stochastic.cu", "lights.cu", "overlap.cu")
 HEADERS = ("common.cuh", "shade.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
@@ -57,7 +61,8 @@ def reset_launches() -> None:
 class BuildInfo:
     path: Path
     seconds: float    # 0.0 when an earlier build was reused
-    log: str          # nvcc's output (ptxas register/spill lines)
+    log: str          # nvcc's output (ptxas register/spill lines), also
+                      # of a reused build
 
 
 _build_info: BuildInfo | None = None
@@ -84,8 +89,10 @@ def build() -> BuildInfo:
     for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     so = BUILD_DIR / f"libyrt_kernels_{h.hexdigest()[:16]}.so"
+    log_path = so.with_suffix(".log")   # nvcc's output, kept with the build
     if so.exists():
-        _build_info = BuildInfo(so, 0.0, "reused " + so.name)
+        log = log_path.read_text() if log_path.exists() else ""
+        _build_info = BuildInfo(so, 0.0, "reused " + so.name + "\n" + log)
         return _build_info
     objdir = BUILD_DIR / f"obj_{so.stem}.{os.getpid()}"
     objdir.mkdir(parents=True, exist_ok=True)
@@ -116,10 +123,13 @@ def build() -> BuildInfo:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    text = "".join(log) + proc.stdout + proc.stderr
+    log_tmp = log_path.with_name(f"{log_path.name}.{os.getpid()}.tmp")
+    log_tmp.write_text(text)
+    os.replace(log_tmp, log_path)
     os.replace(tmp, so)
     shutil.rmtree(objdir, ignore_errors=True)
-    _build_info = BuildInfo(so, seconds, "".join(log) + proc.stdout
-                            + proc.stderr)
+    _build_info = BuildInfo(so, seconds, text)
     return _build_info
 
 
@@ -149,9 +159,19 @@ def library() -> ctypes.CDLL:
     lib.yrt_shade_prep.argtypes = [shade_p] + [vp] * 5 + [i32] + [vp] * 5
     lib.yrt_shade_finish.restype = i32
     lib.yrt_shade_finish.argtypes = [shade_p] + [vp] * 6 + [i32] + [vp] * 5
+    lib.yrt_shade_prep_simple.restype = i32
+    lib.yrt_shade_prep_simple.argtypes = lib.yrt_shade_prep.argtypes
+    lib.yrt_shade_finish_simple.restype = i32
+    lib.yrt_shade_finish_simple.argtypes = lib.yrt_shade_finish.argtypes
+    grads_p = ctypes.POINTER(ShadeGrads)
     lib.yrt_shade_bwd.restype = i32
-    lib.yrt_shade_bwd.argtypes = ([shade_p, ctypes.POINTER(ShadeGrads)]
-                                  + [vp] * 6 + [i32] + [vp] * 7)
+    lib.yrt_shade_bwd.argtypes = ([shade_p, grads_p] + [vp] * 6 + [i32]
+                                  + [vp] * 8)
+    lib.yrt_shade_bwd_scratch.restype = ctypes.c_longlong
+    lib.yrt_shade_bwd_scratch.argtypes = [i32, i32]
+    lib.yrt_shade_bwd_simple.restype = i32
+    lib.yrt_shade_bwd_simple.argtypes = ([shade_p, grads_p] + [vp] * 6
+                                         + [i32] + [vp] * 7)
     lib.yrt_pixel_finish.restype = i32
     lib.yrt_pixel_finish.argtypes = [vp, i32, i32, i32, vp, vp, vp]
     u32 = ctypes.c_uint32
@@ -176,15 +196,16 @@ def library() -> ctypes.CDLL:
 
 
 class ShadeScene(ctypes.Structure):
-    """Scene arrays and constants of a shading launch: the C struct
-    ``yrt::ShadeScene`` of ``csrc/shade.cuh``, field for field."""
+    """Scene arrays, shade records (``ops/shade_records.py``) and constants
+    of a shading launch: the C struct ``yrt::ShadeScene`` of
+    ``csrc/shade.cuh``, field for field."""
 
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "pos", "norm", "texcoord", "prim_v", "prim_type", "inst_axes",
         "inst_o", "inst_mat", "inst_is_lines", "mat_kd", "mat_ks", "mat_kr",
         "mat_rs", "mat_kd_txt", "mat_ks_txt", "tex_quad", "tex_w", "tex_h",
         "light_pos", "light_axes", "light_o", "light_ke", "amb",
-        "light_pos_ray")]
+        "light_pos_ray", "prim_rec", "inst_rec", "mat_rec")]
         + [(name, ctypes.c_int) for name in (
             "tex_th", "tex_tw", "num_lights", "has_kd_tex", "has_ks_tex")]
         + [(name, ctypes.c_float) for name in (

@@ -10,6 +10,15 @@
 // adjoint, so forward and backward see the same bits. Exponents and the
 // texel scale arrive at run time (ShadeScene), as they do in torch's kernels,
 // so no powf or division is specialised for a literal.
+//
+// Two readers feed the same math. K4 (shade.cu) and K5 (shade_bwd.cu) read
+// the packed shade records of ops/shade_records.py (ShadeScene::prim_rec,
+// inst_rec, mat_rec) with 16-byte loads: load_hit_record and
+// load_material_record. K4's and K5's first forms (shade_simple.cu,
+// shade_bwd_simple.cu, kept for comparison) read the scene's own arrays with
+// scalar loads: eval_hit and eval_material. The records are bit copies of
+// the arrays, so both readers give hit_geometry and material_eval the same
+// bits.
 #pragma once
 
 #include <cstdint>
@@ -47,6 +56,11 @@ struct ShadeScene {
   // (L, N, 3) per-ray light positions (row l * N + i), replacing light_pos
   // (area-light samples, render/lights.py); null on the point-light path
   const float* light_pos_ray;
+  // ops/shade_records.py: (P, 7), (I, 4) and (Mt, 3) float4 records; null
+  // for the first forms, which read the arrays above
+  const float4* prim_rec;
+  const float4* inst_rec;
+  const float4* mat_rec;
   int tex_th, tex_tw, num_lights, has_kd_tex, has_ks_tex;
   float gamma;        // 2.2: texel sRGB decode exponent
   float rs_exp;       // 4.0: ns = 2 / rs^4 - 2
@@ -101,17 +115,23 @@ struct HitGeom {
   bool is_lines;
 };
 
-__device__ __forceinline__ void eval_hit(const ShadeScene& s, V3 ro, V3 rd,
-                                         int inst, int prim, HitGeom& g) {
+// The same pointer, hidden from the compiler: a load through it after a
+// stretch of code is made again instead of being kept in registers across
+// it (K5 reloads its records after the light loop, an L1/L2 hit).
+template <typename T>
+__device__ __forceinline__ const T* opaque(const T* p) {
+  unsigned long long a = reinterpret_cast<unsigned long long>(p);
+  asm volatile("" : "+l"(a));
+  return reinterpret_cast<const T*>(a);
+}
+
+// The scalar reads of a hit from the scene's arrays (the first forms).
+__device__ __forceinline__ void load_hit_arrays(const ShadeScene& s, int inst,
+                                                int prim, HitGeom& g) {
   g.a0 = load3(s.inst_axes, 3 * inst);
   g.a1 = load3(s.inst_axes, 3 * inst + 1);
   g.a2 = load3(s.inst_axes, 3 * inst + 2);
   g.io = load3(s.inst_o, inst);
-  const V3 q = sub(ro, g.io);
-  g.lo = make(dot(g.a0, q), dot(g.a1, q), dot(g.a2, q));
-  g.dm = make(dot(g.a0, rd), dot(g.a1, rd), dot(g.a2, rd));
-  g.ld = safe_normalize(g.dm);
-
   g.vi0 = __ldg(s.prim_v + 3 * prim);
   g.vi1 = __ldg(s.prim_v + 3 * prim + 1);
   g.vi2 = __ldg(s.prim_v + 3 * prim + 2);
@@ -128,7 +148,55 @@ __device__ __forceinline__ void eval_hit(const ShadeScene& s, V3 ro, V3 rd,
   g.t1v = __ldg(s.texcoord + 2 * g.vi1 + 1);
   g.t2u = __ldg(s.texcoord + 2 * g.vi2);
   g.t2v = __ldg(s.texcoord + 2 * g.vi2 + 1);
+  g.mat = __ldg(s.inst_mat + inst);
+  g.is_lines = __ldg(s.inst_is_lines + inst) == 1;
+}
 
+// The same fields from one 64-byte instance record and one 112-byte prim
+// record (ops/shade_records.py), eleven 16-byte loads with no dependent
+// chain: [a0 a1.x] [a1.yz a2.xy] [a2.z io] [mat lines - -]; [vi0 vi1 vi2
+// type], then per vertex [pos n.x] [n.yz uv].
+__device__ __forceinline__ void load_hit_record(const float4* __restrict__ ir,
+                                                const float4* __restrict__ pr,
+                                                HitGeom& g) {
+  const float4 i0 = __ldg(ir), i1 = __ldg(ir + 1), i2 = __ldg(ir + 2),
+               i3 = __ldg(ir + 3);
+  g.a0 = make(i0.x, i0.y, i0.z);
+  g.a1 = make(i0.w, i1.x, i1.y);
+  g.a2 = make(i1.z, i1.w, i2.x);
+  g.io = make(i2.y, i2.z, i2.w);
+  g.mat = __float_as_int(i3.x);
+  g.is_lines = __float_as_int(i3.y) == 1;
+  const float4 h = __ldg(pr);
+  g.vi0 = __float_as_int(h.x);
+  g.vi1 = __float_as_int(h.y);
+  g.vi2 = __float_as_int(h.z);
+  g.ptype = __float_as_int(h.w);
+  float4 a = __ldg(pr + 1), b = __ldg(pr + 2);
+  g.v0 = make(a.x, a.y, a.z);
+  g.n0 = make(a.w, b.x, b.y);
+  g.t0u = b.z;
+  g.t0v = b.w;
+  a = __ldg(pr + 3);
+  b = __ldg(pr + 4);
+  g.v1 = make(a.x, a.y, a.z);
+  g.n1 = make(a.w, b.x, b.y);
+  g.t1u = b.z;
+  g.t1v = b.w;
+  a = __ldg(pr + 5);
+  b = __ldg(pr + 6);
+  g.v2 = make(a.x, a.y, a.z);
+  g.n2 = make(a.w, b.x, b.y);
+  g.t2u = b.z;
+  g.t2v = b.w;
+}
+
+// The arithmetic of eval_hit on the loaded fields of g.
+__device__ __forceinline__ void hit_geometry(V3 ro, V3 rd, HitGeom& g) {
+  const V3 q = sub(ro, g.io);
+  g.lo = make(dot(g.a0, q), dot(g.a1, q), dot(g.a2, q));
+  g.dm = make(dot(g.a0, rd), dot(g.a1, rd), dot(g.a2, rd));
+  g.ld = safe_normalize(g.dm);
   // triangle barycentrics (Möller-Trumbore solve, scene.cpp:229-263)
   const V3 e1 = sub(g.v1, g.v0);
   const V3 e2 = sub(g.v2, g.v0);
@@ -166,8 +234,22 @@ __device__ __forceinline__ void eval_hit(const ShadeScene& s, V3 ro, V3 rd,
   g.p = add(xform(g.a0, g.a1, g.a2, g.pl), g.io);
   g.nv = xform(g.a0, g.a1, g.a2, g.nl);
   g.n = safe_normalize(g.nv);
-  g.mat = __ldg(s.inst_mat + inst);
-  g.is_lines = __ldg(s.inst_is_lines + inst) == 1;
+}
+
+__device__ __forceinline__ void eval_hit(const ShadeScene& s, V3 ro, V3 rd,
+                                         int inst, int prim, HitGeom& g) {
+  load_hit_arrays(s, inst, prim, g);
+  hit_geometry(ro, rd, g);
+}
+
+// eval_hit on the records: ShadeScene::inst_rec and prim_rec (through
+// opaque() where a kernel reloads them).
+__device__ __forceinline__ void eval_hit_record(const float4* inst_rec,
+                                                const float4* prim_rec,
+                                                V3 ro, V3 rd, int inst,
+                                                int prim, HitGeom& g) {
+  load_hit_record(inst_rec + 4 * inst, prim_rec + 7 * prim, g);
+  hit_geometry(ro, rd, g);
 }
 
 // One bilinear sRGB texture sample (render/texture.py::eval_texture).
@@ -235,32 +317,58 @@ __device__ __forceinline__ void sample_texture(const ShadeScene& s, int tid,
 struct MatEval {
   V3 kd, ks, kr, kd_eff, ks_eff;
   float rs, ns;
+  int kd_txt, ks_txt;   // texture ids of the row (-1: none)
   bool kd_tex, ks_tex;  // texture slot used
   TexSample tkd, tks;
 };
 
-__device__ __forceinline__ void eval_material(const ShadeScene& s,
-                                              const HitGeom& g, MatEval& m) {
-  m.kd = load3(s.mat_kd, g.mat);
-  m.ks = load3(s.mat_ks, g.mat);
-  m.kr = load3(s.mat_kr, g.mat);
-  m.rs = __ldg(s.mat_rs + g.mat);
-  const int kd_txt = __ldg(s.mat_kd_txt + g.mat);
-  const int ks_txt = __ldg(s.mat_ks_txt + g.mat);
-  m.kd_tex = s.has_kd_tex && kd_txt >= 0;
-  m.ks_tex = s.has_ks_tex && ks_txt >= 0;
+// The material row from the scene's arrays (the first forms).
+__device__ __forceinline__ void load_material_arrays(const ShadeScene& s,
+                                                     int mat, MatEval& m) {
+  m.kd = load3(s.mat_kd, mat);
+  m.ks = load3(s.mat_ks, mat);
+  m.kr = load3(s.mat_kr, mat);
+  m.rs = __ldg(s.mat_rs + mat);
+  m.kd_txt = __ldg(s.mat_kd_txt + mat);
+  m.ks_txt = __ldg(s.mat_ks_txt + mat);
+}
+
+// The same row from one 48-byte material record, three 16-byte loads:
+// [kd ks.x] [ks.yz kr.xy] [kr.z rs kd_txt ks_txt].
+__device__ __forceinline__ void load_material_record(
+    const float4* __restrict__ mr, MatEval& m) {
+  const float4 a = __ldg(mr), b = __ldg(mr + 1), c = __ldg(mr + 2);
+  m.kd = make(a.x, a.y, a.z);
+  m.ks = make(a.w, b.x, b.y);
+  m.kr = make(b.z, b.w, c.x);
+  m.rs = c.y;
+  m.kd_txt = __float_as_int(c.z);
+  m.ks_txt = __float_as_int(c.w);
+}
+
+// Textures at (u, v) and the exponent of a loaded row.
+__device__ __forceinline__ void material_eval(const ShadeScene& s, float u,
+                                              float v, MatEval& m) {
+  m.kd_tex = s.has_kd_tex && m.kd_txt >= 0;
+  m.ks_tex = s.has_ks_tex && m.ks_txt >= 0;
   m.kd_eff = m.kd;
   m.ks_eff = m.ks;
   if (m.kd_tex) {
-    sample_texture(s, kd_txt, g.u, g.v, m.tkd);
+    sample_texture(s, m.kd_txt, u, v, m.tkd);
     m.kd_eff = vmul(m.kd, m.tkd.val);
   }
   if (m.ks_tex) {
-    sample_texture(s, ks_txt, g.u, g.v, m.tks);
+    sample_texture(s, m.ks_txt, u, v, m.tks);
     m.ks_eff = vmul(m.ks, m.tks.val);
   }
   const float two = 2.0f;
   m.ns = m.rs != 0.0f ? two / powf(m.rs, s.rs_exp) - 2.0f : kNsNoRoughness;
+}
+
+__device__ __forceinline__ void eval_material(const ShadeScene& s,
+                                              const HitGeom& g, MatEval& m) {
+  load_material_arrays(s, g.mat, m);
+  material_eval(s, g.u, g.v, m);
 }
 
 // Shape-space position of light l for ray i of n: the per-ray sample
@@ -314,6 +422,50 @@ __device__ __forceinline__ V3 light_contrib(const ShadeScene& s, int l,
     sw = safe_pow(max0(ndh), m.ns);
   }
   return add(mul(vmul(m.kd_eff, ke_r2), dw), mul(vmul(m.ks_eff, ke_r2), sw));
+}
+
+// One V3 per lane into rows [base, base + 32) of an (n, 3) f32 array, the
+// rows of the calling warp's 32 rays. Where the 32 rows are whole
+// (warp_whole) and the destination 16-byte aligned, the warp stages them
+// in its 96-float shared buffer `buf` (16-byte aligned; stage3) and writes
+// them with 24 16-byte stores (flush3, which can write one staging to
+// several arrays); else each lane stores its own row with 3 scalar
+// stores. Every lane of the warp calls these. The bits stored are the same
+// either way.
+__device__ __forceinline__ bool warp_whole(long long base, int n) {
+  return base + 32 <= n;
+}
+
+__device__ __forceinline__ void stage3(float* __restrict__ buf, V3 v) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();  // the last flush's reads of buf are done
+  buf[3 * lane] = v.x;
+  buf[3 * lane + 1] = v.y;
+  buf[3 * lane + 2] = v.z;
+  __syncwarp();
+}
+
+__device__ __forceinline__ void flush3(float* __restrict__ out,
+                                       long long base, int n, V3 v,
+                                       const float* __restrict__ buf) {
+  const int lane = threadIdx.x & 31;
+  float* dst = out + 3 * base;
+  if (warp_whole(base, n) && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    if (lane < 24)
+      reinterpret_cast<float4*>(dst)[lane] =
+          reinterpret_cast<const float4*>(buf)[lane];
+  } else if (base + lane < n) {
+    dst[3 * lane] = v.x;
+    dst[3 * lane + 1] = v.y;
+    dst[3 * lane + 2] = v.z;
+  }
+}
+
+__device__ __forceinline__ void store3_warp(float* __restrict__ out,
+                                            long long base, int n, V3 v,
+                                            float* __restrict__ buf) {
+  if (warp_whole(base, n)) stage3(buf, v);
+  flush3(out, base, n, v, buf);
 }
 
 }  // namespace yrt

@@ -5,16 +5,22 @@ The comparisons that ``chip_smoke.py`` and the card tests
 
 * ``shade_inputs``: the rays, hits and active mask of a given bounce of a
   batch of camera rays, from the kernel path (K2, K1, K4);
-* ``compare_shade``: K4 and the plain ``shade_step`` on the same inputs and
-  the same K1 shadow query, optionally with per-ray light positions; per
-  output the largest ULP gap;
+* ``compare_shade``: K4, its first form (``shade_step_simple``) and the
+  plain ``shade_step`` on the same inputs and the same K1 shadow query,
+  optionally with per-ray light positions; per output the largest ULP gap;
 * ``compare_camera_stochastic``: K7 and the plain stochastic ray chain;
   ``compare_light_points``: K8 and the plain light sampling; per output
   the largest ULP gap;
 * ``compare_shade_grads``: K5 and torch autograd of the plain version, for
   the same seeded cotangents (zero on masked lanes, whose gradient K5
   defines as zero), optionally with per-ray light positions; per leaf the
-  relative L2 error;
+  relative L2 error; ``compare_shade_bwd_simple``: K5 and its first form
+  (``shade_bwd_simple``) on the same saved bounce (``shade_bwd_inputs``);
+* ``shade_step_simple`` / ``shade_bwd_simple``: K4's and K5's first forms
+  (``csrc/shade_simple.cu``, ``csrc/shade_bwd_simple.cu``), which read the
+  scene's arrays without records: the other side of the same-card
+  comparisons. They count no launch, and no path of the package calls
+  them;
 * ``compare_camera_grads``: K6 and torch autograd of ``camera_rays_plain``;
   ``compare_camera_stochastic_grads``: K9 and torch autograd of the plain
   stochastic chain; ``compare_light_points_grads``: K10 and torch autograd
@@ -35,13 +41,16 @@ that reads the counts of a main path resets them after these comparisons.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
 import numpy as np
 import torch
 
+from . import _build
 from ..ops import overlap as overlap_mod
+from ..ops import shade_records
 from ..ops import traverse
 from ..render import camera as camera_mod
 from ..render import lights as lights_mod
@@ -109,22 +118,44 @@ def _gaps(names, kern, plain) -> dict:
     return out
 
 
+def shade_step_simple(scene, ro, rd, hits, amb, active, occluder,
+                      has_kd_textures=True, has_ks_textures=True,
+                      light_pos=None):
+    """K4's first form on the scene's arrays, forward only: the outputs
+    of ``shade_step`` (color, kr, p, refl_dir, mask)."""
+    mask = active & hits["hit"]
+    inst, prim = hits["inst"], hits["prim"]
+    shade_mod.check_rays(ro, rd, inst, prim, mask)
+    leaves = {k: getattr(scene, k) for k in shade_mod.GRAD_LEAVES}
+    args = shade_mod._shade_args(scene, leaves, amb, has_kd_textures,
+                                 has_ks_textures, light_pos, ro.shape[0])
+    lib = _build.library()
+    _, outs = shade_mod.forward_launches(
+        lib.yrt_shade_prep_simple, lib.yrt_shade_finish_simple, args, ro, rd,
+        inst, prim, mask, occluder)
+    return (*outs, mask)
+
+
 def compare_shade(scene, inputs, amb, has_kd_textures=True,
                   has_ks_textures=True, light_pos=None) -> dict:
-    """K4 and plain shading on the same inputs (and the same per-ray light
-    positions, if given): {output: ULP gap}, plus 'mask_equal',
-    'max_abs_err' (over the four float outputs) and 'hits'."""
+    """K4, its first form and plain shading on the same inputs (and the
+    same per-ray light positions, if given): {output: ULP gap} of K4 against
+    plain, plus 'simple' ({output: ULP gap} of K4 against the first form),
+    'mask_equal', 'max_abs_err' (over the four float outputs) and
+    'hits'."""
     ro, rd, hits, active = inputs
     occ = occluder(scene)
+    args = (scene, ro, rd, hits, amb, active, occ, has_kd_textures,
+            has_ks_textures, light_pos)
     with torch.no_grad():
-        kern = shade_mod.shade_step_cuda(scene, ro, rd, hits, amb, active,
-                                         occ, has_kd_textures,
-                                         has_ks_textures, light_pos)
-        plain = shade_mod.shade_step_plain(scene, ro, rd, hits, amb, active,
-                                           occ, has_kd_textures,
-                                           has_ks_textures, light_pos)
+        kern = shade_mod.shade_step_cuda(*args)
+        plain = shade_mod.shade_step_plain(*args)
+        simple = shade_step_simple(*args)
     out = _gaps(SHADE_OUTPUTS, kern[:4], plain[:4])
-    out["mask_equal"] = bool(torch.equal(kern[4], plain[4]))
+    out["simple"] = {k: ulp_gap(a, b)
+                     for k, a, b in zip(SHADE_OUTPUTS, kern, simple)}
+    out["mask_equal"] = bool(torch.equal(kern[4], plain[4])
+                             and torch.equal(kern[4], simple[4]))
     out["hits"] = int(kern[4].sum())
     return out
 
@@ -283,6 +314,89 @@ def compare_shade_grads(scene, inputs, amb, generator,
     for k in ("ro", "rd"):
         plain[k] = torch.where(mask[:, None], plain[k], 0.0)
     return relative_errors(kern, plain)
+
+
+def shade_bwd_inputs(scene, inputs, amb, has_kd_textures=True,
+                     has_ks_textures=True, light_pos=None) -> dict:
+    """What K4's forward saves for K5 on ``inputs``: the keyword arguments
+    of ``shade_step_bwd`` but the cotangents (the rays, hit topology, mask,
+    the (L, N) occlusion of its K1 shadow query, the per-ray light
+    positions, the shade records); ``shade_bwd_simple`` takes them without
+    the records."""
+    ro, rd, hits, active = inputs
+    saved = {}
+    occ_fn = occluder(scene)
+
+    def capture(*a):
+        saved["occ"] = occ_fn(*a)
+        return saved["occ"]
+
+    with torch.no_grad():
+        mask = shade_mod.shade_step_cuda(
+            scene, ro, rd, hits, amb, active, capture, has_kd_textures,
+            has_ks_textures, light_pos)[4]
+    nl = scene.light_ke.shape[0]
+    occ = saved.get("occ", torch.zeros((nl, ro.shape[0]), dtype=torch.bool,
+                                       device=ro.device)).contiguous()
+    return dict(amb=amb, ro=ro, rd=rd, inst=hits["inst"], prim=hits["prim"],
+                mask=mask, occ=occ, has_kd_textures=has_kd_textures,
+                has_ks_textures=has_ks_textures, light_pos_ray=light_pos,
+                records=shade_records.pack(scene))
+
+
+def shade_bwd_simple(scene, amb, ro, rd, inst, prim, mask, occ, cotangents,
+                     has_kd_textures=True, has_ks_textures=True,
+                     light_pos_ray=None):
+    """K5's first form on the scene's arrays: ``shade_step_bwd``'s result
+    for the scene's own leaves."""
+    n, dev = ro.shape[0], ro.device
+    leaves = {k: getattr(scene, k) for k in shade_mod.GRAD_LEAVES}
+    args = shade_mod._shade_args(scene, leaves, amb, has_kd_textures,
+                                 has_ks_textures, light_pos_ray, n)
+    cots, sums, d_lpr, gstruct, d_ro, d_rd = shade_mod.bwd_buffers(
+        args, leaves, cotangents, n, dev, light_pos_ray is not None)
+    ptr = _build.ptr
+    err = _build.library().yrt_shade_bwd_simple(
+        ctypes.byref(args), ctypes.byref(gstruct), ptr(ro), ptr(rd),
+        ptr(inst), ptr(prim), ptr(mask), ptr(occ), n, *(ptr(g) for g in cots),
+        ptr(d_ro), ptr(d_rd), _build.current_stream())
+    _build.check_launch(err, "yrt_shade_bwd_simple")
+    return d_ro, d_rd, shade_mod.bwd_results(sums, leaves, d_lpr)
+
+
+def shade_bwd_cotangents(saved: dict, generator) -> list:
+    """Seeded cotangents of (color, kr, p, refl_dir), zero on masked
+    lanes."""
+    ro, mask = saved["ro"], saved["mask"]
+    return [torch.randn(ro.shape, device=ro.device, generator=generator)
+            * mask[:, None] for _ in SHADE_OUTPUTS]
+
+
+def bwd_grads(fn, scene, saved: dict, cots) -> dict:
+    """{name: gradient} of one K5 launch (``shade_mod.shade_step_bwd`` or
+    ``shade_bwd_simple``): ro, rd, the leaves and, with per-ray light
+    positions, ``light_pos_ray``."""
+    if fn is shade_mod.shade_step_bwd:
+        leaves = {k: getattr(scene, k) for k in shade_mod.GRAD_LEAVES}
+        d_ro, d_rd, grads = fn(
+            scene, leaves, saved["amb"], saved["ro"], saved["rd"],
+            saved["inst"], saved["prim"], saved["mask"], saved["occ"], cots,
+            saved["has_kd_textures"], saved["has_ks_textures"],
+            light_pos_ray=saved["light_pos_ray"], records=saved["records"])
+    else:
+        d_ro, d_rd, grads = fn(scene, cotangents=cots, **{
+            k: v for k, v in saved.items() if k != "records"})
+    return dict(ro=d_ro, rd=d_rd, **grads)
+
+
+def compare_shade_bwd_simple(scene, saved: dict, generator) -> dict:
+    """K5 against its first form on the same saved bounce and seeded
+    cotangents: a ``relative_errors`` report per leaf, ro, rd (and
+    ``light_pos_ray``)."""
+    cots = shade_bwd_cotangents(saved, generator)
+    return relative_errors(bwd_grads(shade_mod.shade_step_bwd, scene, saved,
+                                     cots),
+                           bwd_grads(shade_bwd_simple, scene, saved, cots))
 
 
 def compare_camera_grads(scene, ids, width, height, samples,

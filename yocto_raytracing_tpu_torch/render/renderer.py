@@ -38,6 +38,7 @@ from .. import scene as scene_lib
 from ..kernels import _build
 from ..ops import hit_records
 from ..ops import intersect as isect
+from ..ops import shade_records as shade_records_lib
 from ..ops import traverse
 from . import camera as camera_mod
 from . import lights as lights_mod
@@ -129,7 +130,7 @@ def trace_rays(scene, ray_ids, ambient, width: int, height: int,
                has_ks_textures: bool = True, plain: bool = False,
                differentiable: bool = False, intersect=None,
                stochastic: bool = False, seed: int = 0,
-               light_sampler=None):
+               light_sampler=None, shade_records=None):
     """Radiance (N, 3) for a batch of flat ray ids (N,) i32; f32, or the
     scene's float dtype on the plain path.
 
@@ -148,7 +149,9 @@ def trace_rays(scene, ray_ids, ambient, width: int, height: int,
     ``traverse.intersect_scene``): ``kernels.parity`` replays recorded hits
     through it, so that an f64 reference shades the same topology. Without
     it, the CUDA path packs K1's records (``hit_records.pack``) once per
-    call, from the leaves as they are now, for both queries.
+    call, from the leaves as they are now, for both queries. Likewise the
+    shading's records (``shade_records.pack``, K4 and K5), unless the caller
+    gives ``shade_records`` packed from the same leaves.
 
     ``stochastic``: jittered antialiasing and, where the camera has an
     aperture, thin-lens depth of field, from variates keyed by ray id and
@@ -185,6 +188,12 @@ def trace_rays(scene, ray_ids, ambient, width: int, height: int,
             # K1's packed records, once for the nearest and shadow queries
             isect_fn = functools.partial(traverse.intersect_scene,
                                          records=hit_records.pack(fixed))
+        if not plain and _build.device_kind(ro) == "cuda":
+            # K4's and K5's records, once for every bounce
+            shade_fn = functools.partial(
+                shade_fn, records=(shade_records_lib.pack(scene)
+                                   if shade_records is None
+                                   else shade_records))
         occluder = make_occluder(fixed, isect_fn)
         n = ro.shape[0]
         dev = ro.device
@@ -251,12 +260,13 @@ def render_image(scene, meta, width: int, height: int, samples: int,
     amb = torch.full((3,), ambient, dtype=torch.float32, device=dev)
     chunk_pixels = min(chunk_pixels, npix)
     device_ldr = ldr and not checkpoint
-    # the scene does not change during the frame: K1's records once for all
-    # its chunks (trace_rays would pack them per chunk)
+    # the scene does not change during the frame: K1's and K4's records once
+    # for all its chunks (trace_rays would pack them per chunk)
     isect = (functools.partial(
         traverse.intersect_scene,
         records=hit_records.pack(scene_lib.detached(scene)))
         if dev.type == "cuda" else None)
+    srec = shade_records_lib.pack(scene) if dev.type == "cuda" else None
     out = np.empty((npix, 3), np.uint8 if device_ldr else np.float32)
     done = 0
     if checkpoint:
@@ -282,7 +292,7 @@ def render_image(scene, meta, width: int, height: int, samples: int,
                          has_kd_textures=meta.has_kd_textures,
                          has_ks_textures=meta.has_ks_textures,
                          intersect=isect, stochastic=stochastic, seed=seed,
-                         light_sampler=light_sampler)
+                         light_sampler=light_sampler, shade_records=srec)
         px = pixel_finish(rgb.contiguous(), spp, device_ldr)
         out[start:stop] = px[:stop - start].cpu().numpy()
         if checkpoint:

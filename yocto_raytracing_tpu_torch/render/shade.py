@@ -26,16 +26,21 @@ the JAX package's remat policy, the forward saves only the rays, the hit
 topology, the mask and the shadow visibility; K5 recomputes the bounce.
 With per-ray light positions K5 also writes their (L, N, 3) gradient, which
 autograd carries back to the light samples (``render/lights.py``, K10).
+K4 and K5 read the hit, material and vertex leaves through the packed shade
+records (``ops/shade_records.py``), which ``shade_step`` takes from its
+caller or packs itself.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from ..kernels import _build
 from ..ops import intersect as isect
+from ..ops import shade_records
 from ..scene import PRIM_LINE, PRIM_TRIANGLE
 from . import texture as texture_mod
 
@@ -242,12 +247,14 @@ _INT_LEAVES = ("prim_v", "prim_type", "inst_mat", "inst_is_lines",
 
 
 def _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
-                light_pos_ray=None, n=0):
+                light_pos_ray=None, n=0, records=None):
     """The ``ShadeScene`` struct of a launch, after checking every array.
 
     ``leaves`` maps the GRAD_LEAVES names to the tensors to shade with (the
     autograd inputs); the integer leaves come from ``scene``.
     ``light_pos_ray`` is the optional per-ray (L, n, 3) light position.
+    ``records`` (``shade_records.pack`` of those leaves) is what K4 and K5
+    read; without it the struct serves the first forms only.
     """
     dev = amb.device
     f32, i32 = torch.float32, torch.int32
@@ -269,10 +276,25 @@ def _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
     if light_pos_ray is not None:
         check("light_pos (per ray)", light_pos_ray, f32,
               (leaves["light_ke"].shape[0], n, 3), dev)
+    rec_ptrs = {}
+    if records is not None:
+        for name, t, rows, words in (
+                ("prim records", records.prims, arrays["prim_v"].shape[0],
+                 shade_records.PRIM_WORDS),
+                ("instance records", records.insts,
+                 arrays["inst_axes"].shape[0], shade_records.INST_WORDS),
+                ("material records", records.mats,
+                 arrays["mat_kd"].shape[0], shade_records.MAT_WORDS)):
+            check(name, t, f32, (rows, words), dev)
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: not 16-byte aligned")
+        rec_ptrs = dict(prim_rec=records.prims.data_ptr(),
+                        inst_rec=records.insts.data_ptr(),
+                        mat_rec=records.mats.data_ptr())
     args = _build.ShadeScene(
         **{k: t.data_ptr() for k, t in arrays.items()}, amb=amb.data_ptr(),
         light_pos_ray=(None if light_pos_ray is None
-                       else light_pos_ray.data_ptr()),
+                       else light_pos_ray.data_ptr()), **rec_ptrs,
         tex_th=scene.tex_quad.shape[1], tex_tw=scene.tex_quad.shape[2],
         num_lights=leaves["light_ke"].shape[0],
         has_kd_tex=int(has_kd_textures), has_ks_tex=int(has_ks_textures),
@@ -280,59 +302,84 @@ def _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
     return args
 
 
+def forward_launches(prep, finish, args, ro, rd, inst, prim, mask,
+                     occluder):
+    """One bounce's forward on the card: ``prep`` (the shadow rays), the
+    ``occluder``'s any-hit query (K1), ``finish``; ``prep`` and ``finish``
+    are the library's K4 entry points (or its first form's, which
+    ``kernels.parity`` passes). Returns (the (L, N) occlusion, [color, kr,
+    p, refl_dir])."""
+    n = ro.shape[0]
+    dev = ro.device
+    f32 = torch.float32
+    ptr = _build.ptr
+    stream = _build.current_stream()
+    nl = args.num_lights
+    if not (nl and n):
+        occ = torch.zeros((nl, n), dtype=torch.bool, device=dev)
+    else:
+        sh_o = torch.empty((nl, n, 3), dtype=f32, device=dev)
+        sh_d = torch.empty((nl, n, 3), dtype=f32, device=dev)
+        sh_tmin = torch.empty((nl, n), dtype=f32, device=dev)
+        sh_tmax = torch.empty((nl, n), dtype=f32, device=dev)
+        err = prep(ctypes.byref(args), ptr(ro), ptr(rd), ptr(inst), ptr(prim),
+                   ptr(mask), n, ptr(sh_o), ptr(sh_d), ptr(sh_tmin),
+                   ptr(sh_tmax), stream)
+        _build.check_launch(err, prep.__name__)
+        occ = occluder(sh_o, sh_d, sh_tmin, sh_tmax,
+                       mask[None].expand(nl, n)).contiguous()
+        _build.check_tensor("occluder result", occ, torch.bool, (nl, n), dev)
+    outs = [torch.empty((n, 3), dtype=f32, device=dev) for _ in range(4)]
+    err = finish(ctypes.byref(args), ptr(ro), ptr(rd), ptr(inst), ptr(prim),
+                 ptr(mask), ptr(occ), n, *(ptr(o) for o in outs), stream)
+    _build.check_launch(err, finish.__name__)
+    return occ, outs
+
+
+def check_rays(ro, rd, inst, prim, mask):
+    """Validate one bounce's rays, hit topology and mask (n rays)."""
+    n = ro.shape[0]
+    dev = ro.device
+    check = _build.check_tensor
+    check("ro", ro, torch.float32, (n, 3), dev)
+    check("rd", rd, torch.float32, (n, 3), dev)
+    check("inst", inst, torch.int32, (n,), dev)
+    check("prim", prim, torch.int32, (n,), dev)
+    check("mask", mask, torch.bool, (n,), dev)
+
+
 class ShadeStepFn(torch.autograd.Function):
     """One bounce on the card: K4 forward, K5 backward.
 
-    ``forward(ctx, scene, occluder, has_kd_textures, has_ks_textures, ro,
-    rd, inst, prim, mask, amb, light_pos_ray, *leaves)`` with ``leaves`` the
-    GRAD_LEAVES tensors and ``light_pos_ray`` None or the per-ray (L, N, 3)
-    light positions; returns (color, kr, p, refl_dir). Saved for the
-    backward: ro, rd, inst, prim, mask, the (L, N) occlusion and the
-    per-ray light positions. Masked lanes get exactly zero gradient, and
-    so do the light positions of unlit lanes. ``amb`` takes no gradient.
+    ``forward(ctx, scene, occluder, has_kd_textures, has_ks_textures,
+    records, ro, rd, inst, prim, mask, amb, light_pos_ray, *leaves)`` with
+    ``leaves`` the GRAD_LEAVES tensors, ``records`` None or
+    ``shade_records.pack`` of those leaves (packed here when None) and
+    ``light_pos_ray`` None or the per-ray (L, N, 3) light positions;
+    returns (color, kr, p, refl_dir). Saved for the backward: ro, rd, inst,
+    prim, mask, the (L, N) occlusion, the per-ray light positions and the
+    records. Masked lanes get exactly zero gradient, and so do the light
+    positions of unlit lanes. ``amb`` takes no gradient.
     """
 
     @staticmethod
-    def forward(ctx, scene, occluder, has_kd_textures, has_ks_textures, ro,
-                rd, inst, prim, mask, amb, light_pos_ray, *leaves):
-        n = ro.shape[0]
-        dev = ro.device
-        f32 = torch.float32
-        check = _build.check_tensor
-        check("ro", ro, f32, (n, 3), dev)
-        check("rd", rd, f32, (n, 3), dev)
-        check("inst", inst, torch.int32, (n,), dev)
-        check("prim", prim, torch.int32, (n,), dev)
-        check("mask", mask, torch.bool, (n,), dev)
+    def forward(ctx, scene, occluder, has_kd_textures, has_ks_textures,
+                records, ro, rd, inst, prim, mask, amb, light_pos_ray,
+                *leaves):
+        check_rays(ro, rd, inst, prim, mask)
         named = dict(zip(GRAD_LEAVES, leaves))
+        if records is None:
+            records = shade_records.pack(dataclasses.replace(scene, **named))
         args = _shade_args(scene, named, amb, has_kd_textures,
-                           has_ks_textures, light_pos_ray, n)
+                           has_ks_textures, light_pos_ray, ro.shape[0],
+                           records)
         lib = _build.library()
-        ptr = _build.ptr
-        stream = _build.current_stream()
-        nl = args.num_lights
-        if not (nl and n):
-            occ = torch.zeros((nl, n), dtype=torch.bool, device=dev)
-        else:
-            sh_o = torch.empty((nl, n, 3), dtype=f32, device=dev)
-            sh_d = torch.empty((nl, n, 3), dtype=f32, device=dev)
-            sh_tmin = torch.empty((nl, n), dtype=f32, device=dev)
-            sh_tmax = torch.empty((nl, n), dtype=f32, device=dev)
-            err = lib.yrt_shade_prep(
-                ctypes.byref(args), ptr(ro), ptr(rd), ptr(inst), ptr(prim),
-                ptr(mask), n, ptr(sh_o), ptr(sh_d), ptr(sh_tmin),
-                ptr(sh_tmax), stream)
-            _build.check_launch(err, "yrt_shade_prep")
-            occ = occluder(sh_o, sh_d, sh_tmin, sh_tmax,
-                           mask[None].expand(nl, n)).contiguous()
-            check("occluder result", occ, torch.bool, (nl, n), dev)
-        outs = [torch.empty((n, 3), dtype=f32, device=dev) for _ in range(4)]
-        err = lib.yrt_shade_finish(
-            ctypes.byref(args), ptr(ro), ptr(rd), ptr(inst), ptr(prim),
-            ptr(mask), ptr(occ), n, *(ptr(o) for o in outs), stream)
-        _build.check_launch(err, "yrt_shade_finish")
+        occ, outs = forward_launches(lib.yrt_shade_prep,
+                                     lib.yrt_shade_finish, args, ro, rd,
+                                     inst, prim, mask, occluder)
         _build.launches["shade"] += 1
         ctx.scene = scene
+        ctx.records = records
         ctx.tex = (has_kd_textures, has_ks_textures)
         ctx.save_for_backward(ro, rd, inst, prim, mask, occ, amb,
                               light_pos_ray, *leaves)
@@ -342,86 +389,120 @@ class ShadeStepFn(torch.autograd.Function):
     def backward(ctx, g_color, g_kr, g_p, g_refl):
         (ro, rd, inst, prim, mask, occ, amb, light_pos_ray,
          *leaves) = ctx.saved_tensors
-        if ctx.needs_input_grad[9]:
+        if ctx.needs_input_grad[10]:
             raise NotImplementedError("the ambient term takes no gradient "
                                       "on the CUDA path")
         d_ro, d_rd, grads = shade_step_bwd(
             ctx.scene, dict(zip(GRAD_LEAVES, leaves)), amb, ro, rd, inst,
             prim, mask, occ, (g_color, g_kr, g_p, g_refl), *ctx.tex,
-            light_pos_ray=light_pos_ray)
-        return (None, None, None, None, d_ro, d_rd, None, None, None, None,
-                grads.get("light_pos_ray"),
+            light_pos_ray=light_pos_ray, records=ctx.records)
+        return (None, None, None, None, None, d_ro, d_rd, None, None, None,
+                None, grads.get("light_pos_ray"),
                 *(grads[k] for k in GRAD_LEAVES))
 
 
-def shade_step_bwd(scene, leaves, amb, ro, rd, inst, prim, mask, occ,
-                   cotangents, has_kd_textures=True, has_ks_textures=True,
-                   light_pos_ray=None):
-    """K5 launch: (d_ro, d_rd, {leaf name: gradient}) of one bounce for the
-    cotangents of (color, kr, p, refl_dir). CUDA only. With per-ray light
-    positions (L, N, 3) the dict also holds their dense gradient under
-    ``"light_pos_ray"`` (and ``light_pos``'s is zero).
-
-    The leaf gradients are f64 atomic sums rounded to f32: the order of
-    the sums varies from run to run, and with it, rarely, the last bit
-    (see ``kernels/csrc/shade_bwd.cu``). The per-ray gradient has no sum
-    and is deterministic.
-    """
-    n = ro.shape[0]
-    dev = ro.device
+def bwd_buffers(args, leaves, cotangents, n, dev, per_ray):
+    """A K5 launch's checked cotangents, its f64 leaf sums (one zeroed
+    buffer, every leaf's a slice: one memset, not 13), the dense per-ray
+    light-position gradient (or None), their ``ShadeGrads`` struct, and
+    d_ro / d_rd."""
     f32 = torch.float32
-    args = _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
-                       light_pos_ray, n)
     cots = []
     for name, g in zip(("g_color", "g_kr", "g_p", "g_refl"), cotangents):
         g = g.contiguous()
         _build.check_tensor(name, g, f32, (n, 3), dev)
         cots.append(g)
-    grads = {k: torch.zeros_like(leaves[k], dtype=torch.float64)
-             for k in GRAD_LEAVES}
-    d_lpr = (None if light_pos_ray is None
-             else torch.empty((args.num_lights, n, 3), dtype=f32, device=dev))
+    sums = torch.zeros(sum(leaves[k].numel() for k in GRAD_LEAVES),
+                       dtype=torch.float64, device=dev)
+    d_lpr = (torch.empty((args.num_lights, n, 3), dtype=f32, device=dev)
+             if per_ray else None)
     gstruct = _build.ShadeGrads(
-        **{k: v.data_ptr() for k, v in grads.items()},
+        **{k: v.data_ptr() for k, v in _leaf_views(sums, leaves).items()},
         light_pos_ray=None if d_lpr is None else d_lpr.data_ptr())
     d_ro = torch.empty((n, 3), dtype=f32, device=dev)
     d_rd = torch.empty((n, 3), dtype=f32, device=dev)
-    ptr = _build.ptr
-    err = _build.library().yrt_shade_bwd(
-        ctypes.byref(args), ctypes.byref(gstruct), ptr(ro), ptr(rd),
-        ptr(inst), ptr(prim), ptr(mask), ptr(occ), n, *(ptr(g) for g in cots),
-        ptr(d_ro), ptr(d_rd), _build.current_stream())
-    _build.check_launch(err, "yrt_shade_bwd")
-    _build.launches["shade_bwd" if d_lpr is None else "shade_bwd_lights"] += 1
-    grads = {k: v.to(f32) for k, v in grads.items()}
+    return cots, sums, d_lpr, gstruct, d_ro, d_rd
+
+
+def _leaf_views(flat, leaves):
+    """{leaf: its slice of ``flat``, in the leaf's shape}, GRAD_LEAVES
+    order."""
+    parts = flat.split([leaves[k].numel() for k in GRAD_LEAVES])
+    return {k: p.view(leaves[k].shape) for k, p in zip(GRAD_LEAVES, parts)}
+
+
+def bwd_results(sums, leaves, d_lpr):
+    """The f32 leaf gradients, rounded from ``bwd_buffers``' f64 sums in one
+    launch (views of one buffer), and the per-ray light positions'."""
+    grads = _leaf_views(sums.to(torch.float32), leaves)
     if d_lpr is not None:
         grads["light_pos_ray"] = d_lpr
-    return d_ro, d_rd, grads
+    return grads
+
+
+def shade_step_bwd(scene, leaves, amb, ro, rd, inst, prim, mask, occ,
+                   cotangents, has_kd_textures=True, has_ks_textures=True,
+                   light_pos_ray=None, records=None):
+    """K5 launch: (d_ro, d_rd, {leaf name: gradient}) of one bounce for the
+    cotangents of (color, kr, p, refl_dir). CUDA only. With per-ray light
+    positions (L, N, 3) the dict also holds their dense gradient under
+    ``"light_pos_ray"`` (and ``light_pos``'s is zero). ``records``:
+    ``shade_records.pack`` of ``leaves``, packed here when None.
+
+    The leaf gradients are f64 sums rounded to f32. The light leaves' sums
+    run in a fixed order, so they are the same bits on every run; the
+    material, instance and vertex leaves' are atomic, and their last bit
+    can change from run to run (see ``kernels/csrc/shade_bwd.cu``). The per-ray gradients have no sum and
+    are deterministic.
+    """
+    n = ro.shape[0]
+    dev = ro.device
+    if records is None:
+        records = shade_records.pack(dataclasses.replace(scene, **leaves))
+    args = _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
+                       light_pos_ray, n, records)
+    cots, sums, d_lpr, gstruct, d_ro, d_rd = bwd_buffers(
+        args, leaves, cotangents, n, dev, light_pos_ray is not None)
+    lib = _build.library()
+    # f64 block partials of the light leaves, summed in a fixed order
+    scratch = torch.empty(lib.yrt_shade_bwd_scratch(n, args.num_lights),
+                          dtype=torch.float64, device=dev)
+    ptr = _build.ptr
+    err = lib.yrt_shade_bwd(
+        ctypes.byref(args), ctypes.byref(gstruct), ptr(ro), ptr(rd),
+        ptr(inst), ptr(prim), ptr(mask), ptr(occ), n, *(ptr(g) for g in cots),
+        ptr(d_ro), ptr(d_rd), ptr(scratch), _build.current_stream())
+    _build.check_launch(err, "yrt_shade_bwd")
+    _build.launches["shade_bwd" if d_lpr is None else "shade_bwd_lights"] += 1
+    return d_ro, d_rd, bwd_results(sums, leaves, d_lpr)
 
 
 def shade_step_cuda(scene, ro, rd, hits, amb, active, occluder,
                     has_kd_textures=True, has_ks_textures=True,
-                    light_pos=None):
+                    light_pos=None, records=None):
     """K4 launch (K5 in the backward): same contract as
-    ``shade_step_plain``, CUDA only."""
+    ``shade_step_plain``, CUDA only; ``records`` as in ``shade_step``."""
     mask = active & hits["hit"]
     color, kr, p, refl_dir = ShadeStepFn.apply(
-        scene, occluder, has_kd_textures, has_ks_textures, ro, rd,
+        scene, occluder, has_kd_textures, has_ks_textures, records, ro, rd,
         hits["inst"], hits["prim"], mask, amb, light_pos,
         *(getattr(scene, k) for k in GRAD_LEAVES))
     return color, kr, p, refl_dir, mask
 
 
 def shade_step(scene, ro, rd, hits, amb, active, occluder,
-               has_kd_textures=True, has_ks_textures=True, light_pos=None):
+               has_kd_textures=True, has_ks_textures=True, light_pos=None,
+               records=None):
     """One bounce of the reference shade() body: (color, kr, p, refl_dir,
     hit_mask); ``light_pos`` as in ``shade_step_plain``.
 
     CPU tensors take the plain version; CUDA tensors launch K4 (or raise),
-    and K5 in the backward.
+    and K5 in the backward, on ``records`` (``shade_records.pack(scene)``,
+    packed here when not given; the plain version needs none).
     """
     if _build.device_kind(ro) == "cpu":
         return shade_step_plain(scene, ro, rd, hits, amb, active, occluder,
                                 has_kd_textures, has_ks_textures, light_pos)
     return shade_step_cuda(scene, ro, rd, hits, amb, active, occluder,
-                           has_kd_textures, has_ks_textures, light_pos)
+                           has_kd_textures, has_ks_textures, light_pos,
+                           records)
