@@ -7,7 +7,8 @@ plain torch version on the card: K1 hit (its nearest-hit and any-hit
 kernels, also against K1's first, simple kernel, on every hit query of the
 hair and area hair frames, timed in turns with it; the 10,004-instance
 scene's nearest hits against the plain walk run on the host CPU by worker
-processes beside the card's phases), K2 camera rays, K3 pixel finish, K4
+processes beside the card's phases), K2 camera rays, K3 pixel finish
+(also at 4,900 spp, its device time beside torch's sum(1)), K4
 shading (bit-equal, also with per-ray light positions, and to its first
 form, ``shade_simple.cu``, timed in turns with it; the four frames
 bit-equal through either), K5 shading backward (also with per-ray light
@@ -15,9 +16,9 @@ positions; against its first form, ``shade_bwd_simple.cu``, too, timed in
 turns with it, its light gradients bit-identical over two runs), K6 camera
 backward, K9 thin-lens camera backward and K10 light-points backward
 (relative L2 error <= 1e-4 per gradient leaf of torch autograd), K7
-stochastic camera rays, K8 area-light points and K11 overlap query
-(bit-equal). Then it drives the port's seven paths through their user
-entry points:
+stochastic camera rays, K8 area-light points and K11 overlap query with
+its refit kernel (bit-equal). Then it drives the port's seven
+paths through their user entry points:
 
 * rendering, ``render_scene_file(..., device="cuda")``: the hair scene
   (lines + triangles + two point lights; the stand-in for the reference's
@@ -44,9 +45,14 @@ entry points:
   with perturbed ``mat_kd``, ``light_ke`` and light-shape ``pos``: every
   float leaf's gradient against the f64 reference, ``cam_aperture`` and
   the light vertices moved, a timed and a profiled fwd+bwd;
-* the overlap query, ``ops.overlap.overlap_scene`` on 2**20 query points
-  against the hair scene (capsule radii) and a random scene (points, lines,
-  triangles), equal to the plain query on a 65,536-query subset;
+* the overlap query, ``ops.overlap.overlap_scene`` (the refit of K11's
+  records, then K11's culled walk) on 2**20 query points against the hair
+  scene (capsule radii), a random scene (points, lines, triangles), the
+  hair scene with pos and radius moved after the build, and points along
+  the hair strands in strand order (coherent traffic): bit-equal to K11's
+  first form (``overlap_simple.cu``) on every query and to the brute-force
+  plain query and the plain walk on a 65,536-query subset, whose walk work
+  gives the walk's bound; timed in turns with the first form;
 * the ray-sharded paths, ``parallel.mesh`` in a one-rank NCCL group:
   ``render_image_sharded`` of the hair and area hair frames (host spp sum,
   no K3) within 1 u8 step of ``render_image`` (the f32 ULP gap printed),
@@ -140,6 +146,18 @@ HIT_BIG_SEED = 300
 HIT_BIG_RAYS = 1 << 16
 OVERLAP_QUERIES = 1 << 20
 OVERLAP_COMPARE = 1 << 16
+# K11's operations per unit of its culled walk's work (the plain walk counts
+# the units on the first OVERLAP_COMPARE queries of the same run,
+# ``overlap_scene_walk_plain(stats=)``), counted from overlap.cu: a node
+# visit (two record loads, cull_box's gaps, square root and slack, the next
+# node), a prim test of each kind (its record and tag, the pair math of
+# OVERLAP_OPS_PER_PAIR, the tie rule)
+WALK_OPS = {"nodes": 50, "point_tests": 25, "line_tests": 60,
+            "triangle_tests": 110}
+# the kernels of one overlap_scene call on the card
+OVERLAP_KERNELS = ("overlap", "overlap_refit")
+K3_ROUNDS = 8            # K3 launches per profile
+K3_BIG_SPP = 4900        # render_image's spp at --samples 70
 # idle host seconds on each side of a profiled call, their growth from one
 # attempt to the next, and the most sessions tried for one profile (see
 # profile_summary)
@@ -177,6 +195,18 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def event_ms(fn) -> float:
+    """Device milliseconds of one call of ``fn``, without a warm-up."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop)
 
 
 def profile_summary(fn, label: str, expect=()) -> dict:
@@ -261,7 +291,9 @@ DEVICE_FUNCTIONS = {
     "camera_bwd_stochastic": ("camera_stochastic_bwd_partial_kernel",
                               "camera_stochastic_bwd_sum_kernel"),
     "light_points_bwd": ("light_points_bwd_kernel",),
-    "overlap": ("overlap_kernel",)}
+    "overlap": ("overlap_kernel",),
+    "overlap_refit": ("overlap_parent_kernel", "overlap_refit_kernel"),
+    "overlap_simple": ("simple::overlap_kernel",)}
 
 
 def device_us(by_name: dict, kernel: str) -> float:
@@ -576,7 +608,9 @@ def phase_hit_kernel(device) -> dict:
 
 def phase_frame_kernels(scene, width, height, samples, device) -> dict:
     """K2 and K3 on the middle chunk of the hair frame (the rows that cross
-    the hair ball): kernel against plain, values and CUDA-event times."""
+    the hair ball): kernel against plain, values and CUDA-event times; K3's
+    device time per launch in both modes beside torch's sum(1), and K3
+    against plain on a few pixels at K3_BIG_SPP."""
     from yocto_raytracing_tpu_torch.render import camera, renderer
 
     spp = samples * samples
@@ -619,6 +653,31 @@ def phase_frame_kernels(scene, width, height, samples, device) -> dict:
             if not bool(((x - y).abs() <= 1e-6 * x.abs()).all()):
                 raise AssertionError(f"K3 sums: max abs diff {d}")
         errs.append(float(d))
+    # device time per launch in both modes; torch's sum(1), the HDR mode's
+    # one-call counterpart (LDR has none)
+    dev_us = {}
+    for ldr in (False, True):
+        mode = "ldr" if ldr else "hdr"
+        prof = profile_summary(
+            lambda ldr=ldr: [renderer.pixel_finish(rgb, spp, ldr)
+                             for _ in range(K3_ROUNDS)],
+            f"K3 {mode}", ("pixel_finish",))
+        dev_us[mode] = device_us(prof["by_name"], "pixel_finish") / K3_ROUNDS
+    prof = profile_summary(
+        lambda: [rgb.view(-1, spp, 3).sum(1) for _ in range(K3_ROUNDS)],
+        "torch sum(1)")
+    dev_us["sum1"] = prof["busy_ms"] * 1e3 / K3_ROUNDS
+    # any spp: a few pixels at K3_BIG_SPP
+    big = torch.rand((37 * K3_BIG_SPP, 3), device=device,
+                     generator=torch.Generator(device=device).manual_seed(5))
+    for ldr in (False, True):
+        x = renderer.pixel_finish_plain(big, K3_BIG_SPP, ldr)
+        y = renderer.pixel_finish(big, K3_BIG_SPP, ldr)
+        ok = (bool((x.int() - y.int()).abs().max() <= 1) if ldr
+              else torch.equal(x, y))
+        if not ok:
+            raise AssertionError(f"K3 at {K3_BIG_SPP} spp, ldr={ldr}: "
+                                 f"differs from plain")
     rec["pixel_finish"] = dict(
         max_abs_err=max(errs),
         ms=cuda_ms(lambda: renderer.pixel_finish(rgb, spp, True), 20),
@@ -626,13 +685,20 @@ def phase_frame_kernels(scene, width, height, samples, device) -> dict:
                          5),
         # one PyTorch call for the spp sum (without the tonemap to u8)
         library_ms=cuda_ms(lambda: rgb.view(-1, spp, 3).sum(1), 20),
+        ldr_device_us=dev_us["ldr"], hdr_device_us=dev_us["hdr"],
+        library_device_us=dev_us["sum1"],
         **bound("pixel_finish", nbytes(rgb) + CHUNK_PIXELS * 3, n))
     sum_ms = cuda_ms(lambda: renderer.pixel_finish(rgb, spp, False), 20)
     log(f"K3 pixel finish: {CHUNK_PIXELS} pixels x {spp} spp, "
         f"max |kernel - plain| sums {errs[0]}, u8 {errs[1]} (tolerance: "
-        f"sums 1e-6 relative, u8 1 step); kernel u8 "
+        f"sums 1e-6 relative, u8 1 step), also at {K3_BIG_SPP} spp; "
+        f"timed calls: kernel u8 "
         f"{rec['pixel_finish']['ms']:.4f} ms, kernel f32 sums {sum_ms:.4f} "
-        f"ms, torch sum(1) {rec['pixel_finish']['library_ms']:.4f} ms")
+        f"ms, torch sum(1) {rec['pixel_finish']['library_ms']:.4f} ms; "
+        f"device us per launch: LDR {dev_us['ldr']:.2f}, HDR "
+        f"{dev_us['hdr']:.2f}, torch sum(1) {dev_us['sum1']:.2f} (HDR's "
+        f"one-call counterpart); bound "
+        f"{rec['pixel_finish']['bound_ms'] * 1e3:.2f} us")
     return rec
 
 
@@ -1824,27 +1890,61 @@ def phase_train_stochastic(name, host, last, device, dev_info) -> dict:
     return dict(counts=counts, walls=walls, peak=peak, prof=prof)
 
 
+def moved_leaves(leaves: dict, seed: int) -> dict:
+    """The scene's pos moved (N(0, 0.02) per coordinate) and radius scaled
+    (U(0.5, 2)) after the build, without a rebuild."""
+    rng = np.random.default_rng(seed)
+    out = dict(leaves)
+    out["pos"] = (leaves["pos"] + rng.normal(
+        scale=0.02, size=leaves["pos"].shape)).astype(np.float32)
+    out["radius"] = (leaves["radius"] * rng.uniform(
+        0.5, 2.0, leaves["radius"].shape)).astype(np.float32)
+    return out
+
+
 def phase_overlap(device, dev_info):
     """``overlap_scene`` on OVERLAP_QUERIES points against the hair scene
-    (capsule radii, triangles, points) and a random scene (points, lines,
-    triangles in 8 instances): K11 on all of them, equal to the plain query
-    on the first OVERLAP_COMPARE (found, inst, prim equal; dist and euv
-    bit-equal). The hair run is the path: its launch count, a profiled call,
-    and kernel and plain timed on all queries. Returns (record, path)."""
-    from yocto_raytracing_tpu_torch import kernels, testscenes
+    (capsule radii, triangles, points), a random scene (points, lines,
+    triangles in 8 instances), the hair scene with pos and radius moved
+    after the build (uniform random points in a box), and the hair scene
+    again on points along its strands in strand order (``strand_queries``,
+    coherent traffic: jittered by N(0, 0.1), and exactly on the strands):
+    the refit and K11 on all of them, bit-equal to K11's
+    first form (``overlap_simple.cu``) on every query and to the
+    brute-force plain query on the first OVERLAP_COMPARE, whose walk work
+    the plain walk counts (``stats``). On all but the moved scene,
+    ``overlap_in_turns``. The hair run is the path: its launch counts, a
+    profiled call (wall, idle share), and kernel, refit and plain timed on
+    all queries. Returns (record, path)."""
+    from yocto_raytracing_tpu_torch import kernels, scene as scene_lib
+    from yocto_raytracing_tpu_torch import testscenes
     from yocto_raytracing_tpu_torch.kernels import parity
     from yocto_raytracing_tpu_torch.ops import overlap
 
-    cases = [("hair 256", testscenes.make_hair_scene(256),
-              ([-1.5, -0.2, -1.5], [1.5, 2.2, 1.5]), 0.2),
+    hair_box = ((-1.5, -0.2, -1.5), (1.5, 2.2, 1.5))
+    cases = [("hair 256", testscenes.make_hair_scene(256), hair_box, 0.2,
+              False),
              ("random seed 0", testscenes.make_random_scene(seed=0),
-              ([-4.0] * 3, [4.0] * 3), 0.75)]
-    rec = path = None
-    for k, (name, host, box, dist_max) in enumerate(cases):
-        scene, meta = scene_on(host, device)
+              ((-4.0,) * 3, (4.0,) * 3), 0.75, False),
+             ("hair 256, pos moved", testscenes.make_hair_scene(256),
+              hair_box, 0.2, True),
+             ("hair 256, strand points", testscenes.make_hair_scene(256),
+              0.1, 0.2, False),
+             ("hair 256, points on the strands",
+              testscenes.make_hair_scene(256), 0.0, 0.2, False)]
+    rec = {}
+    path = None
+    for k, (name, host, box, dist_max, moved) in enumerate(cases):
+        leaves, meta = scene_lib.build_device_scene(host)
+        if moved:
+            leaves = moved_leaves(leaves, 13)
+        scene = scene_lib.to_torch(leaves, device)
         rng = np.random.default_rng(11 + k)
-        q = torch.from_numpy(rng.uniform(*box, (OVERLAP_QUERIES, 3)).astype(
-            np.float32)).to(device)
+        if not isinstance(box, tuple):   # points along strands, jittered
+            q = strand_queries(scene, meta, OVERLAP_QUERIES, rng, box)
+        else:
+            q = torch.from_numpy(rng.uniform(
+                *box, (OVERLAP_QUERIES, 3)).astype(np.float32)).to(device)
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -1852,56 +1952,182 @@ def phase_overlap(device, dev_info):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(kernels.launches)
-        if counts["overlap"] != 1:
-            raise AssertionError(f"overlap {name}: K11 launched "
-                                 f"{counts['overlap']} times")
+        if any(counts[key] != 1 for key in OVERLAP_KERNELS):
+            raise AssertionError(f"overlap {name}: launches "
+                                 + str({key: counts[key]
+                                        for key in OVERLAP_KERNELS}))
         share = float(out["found"].float().mean())
+        if not parity.overlap_identical(
+                out, parity.overlap_simple(scene, meta, q, dist_max)):
+            raise AssertionError(f"K11 {name}: differs from its first form")
         sub = slice(0, OVERLAP_COMPARE)
         plain = overlap.overlap_scene_plain(scene, meta, q[sub], dist_max)
-        gaps = parity.overlap_gaps({key: v[sub] for key, v in out.items()},
-                                   plain)
+        kern = {key: v[sub] for key, v in out.items()}
+        gaps = parity.overlap_gaps(kern, plain)
+        stats = {}
+        walk = overlap.overlap_scene_walk_plain(scene, meta, q[sub],
+                                                dist_max, stats=stats)
+        flags = (overlap.refit_cuda(scene).nodes.view(torch.int32)[:, 7]
+                 >> 1) & 1
+        thin = (int(flags.sum()), int((scene.node_kind == 1).sum()))
         log(f"K11 overlap {name}: {OVERLAP_QUERIES} queries, {meta.num_prims} "
             f"prims in {meta.num_instances} instances, dist_max {dist_max}: "
-            f"found share {share:.4f}; on the first {OVERLAP_COMPARE}: "
-            f"found/inst/prim equal {gaps['equal']}, ULP gap dist "
-            f"{gaps['dist']}, euv {gaps['euv']} over {gaps['found']} found "
-            f"(tolerance: bit-equal); call {wall:.4f} s")
-        if not gaps["equal"] or gaps["dist"] or gaps["euv"]:
+            f"found share {share:.4f}; bit-equal to its first form on every "
+            f"query; on the first {OVERLAP_COMPARE}: found/inst/prim equal "
+            f"{gaps['equal']}, ULP gap dist {gaps['dist']}, euv "
+            f"{gaps['euv']} over {gaps['found']} found (tolerance: "
+            f"bit-equal), the plain walk bit-equal "
+            f"{parity.overlap_identical(kern, walk)}; walk work per query "
+            + ", ".join(f"{key} {v / OVERLAP_COMPARE:.2f}"
+                        for key, v in stats.items())
+            + f"; thin: {thin[0]} of {thin[1]} shape nodes never skipped; "
+            f"call {wall:.4f} s")
+        if (not gaps["equal"] or gaps["dist"] or gaps["euv"]
+                or not parity.overlap_identical(kern, plain)
+                or not parity.overlap_identical(kern, walk)):
             raise AssertionError(f"K11 {name}: {gaps}")
-        if not 0.05 <= share <= 0.95:
+        # points along strands lie mostly within reach
+        if not 0.05 <= share <= (0.95 if isinstance(box, tuple) else 1.0):
             raise AssertionError(f"overlap {name}: found share {share}")
+        if moved:
+            continue
+        r = rec[name] = overlap_in_turns(scene, meta, q, dist_max, name)
+        walk_ops = OVERLAP_OPS_PER_INSTANCE * meta.num_instances + sum(
+            WALK_OPS[key] * v for key, v in stats.items()) / OVERLAP_COMPARE
+        r["walk"] = {key: v / OVERLAP_COMPARE for key, v in stats.items()}
+        r["walk_ops_per_query"] = walk_ops
         if path is not None:
             continue
         prof = profile_summary(lambda: overlap.overlap_scene(
-            scene, meta, q, dist_max), f"overlap {name}", ("overlap",))
+            scene, meta, q, dist_max), f"overlap {name}", OVERLAP_KERNELS)
         path = dict(counts=counts, prof=prof)
-        lo, hi = overlap.instance_prim_ranges(scene, meta)
-        ptype = scene.prim_type.cpu().numpy()
-        ops = 0
-        for a, b in zip(lo.tolist(), hi.tolist()):
-            kinds = np.bincount(ptype[a:b], minlength=3)
-            ops += OVERLAP_OPS_PER_INSTANCE + sum(
-                int(c) * OVERLAP_OPS_PER_PAIR[t] for t, c in enumerate(kinds))
-        ops *= OVERLAP_QUERIES
-        rec = dict(
+        walls = []
+        for _ in range(5):   # warm, host clock to the synchronize
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            overlap.overlap_scene(scene, meta, q, dist_max)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        brute_ops = brute_force_ops(scene, meta) * OVERLAP_QUERIES
+        io_bytes = OVERLAP_QUERIES * (16 + 29)   # queries, dist_max; outputs
+        recs = overlap.refit_cuda(scene)
+        want = overlap.refit_plain(scene)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(recs[:2], want[:2])):
+            raise AssertionError("overlap refit: the kernel's records differ "
+                                 "from the plain refit's")
+        refit_in = leaves_bytes(scene, [n for n, _, _ in
+                                        overlap.REFIT_LEAVES])
+        rec["overlap_refit"] = dict(
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: overlap.refit_cuda(scene), 20),
+            plain_ms=cuda_ms(lambda: overlap.refit_plain(scene), 2),
+            library_ms=None,
+            # the leaves it reads once, the node and prim records written
+            **bound("overlap_refit", refit_in + nbytes(*recs[:2]), 0, ops=0))
+        rec["overlap"] = dict(
             max_abs_err=gaps["max_abs_err"],
             ms=cuda_ms(lambda: overlap.overlap_scene(scene, meta, q,
                                                      dist_max), 5),
-            plain_ms=cuda_ms(lambda: overlap.overlap_scene_plain(
-                scene, meta, q, dist_max), 1),
-            library_ms=None,
+            # one call, warm from the subset's (2.4 s a call)
+            plain_ms=event_ms(lambda: overlap.overlap_scene_plain(
+                scene, meta, q, dist_max)),
+            library_ms=None, wall_ms=sorted(walls)[2], idle=prof["idle"],
+            **{key: v for key, v in r.items()},
+            # the walk's counted work; the brute force's (JAX's work) beside
+            brute_force_bound_ms=bound(
+                "overlap", 0, OVERLAP_QUERIES, ops=brute_ops)["bound_ms"],
             # queries and dist_max in, found/dist/inst/prim/euv out, the
-            # instance frames and the prims' vertices and radii once
-            **bound("overlap", OVERLAP_QUERIES * (16 + 29) + nbytes(
-                scene.inst_axes, scene.inst_o, lo, hi, scene.prim_v,
-                scene.prim_type, scene.pos, scene.radius), OVERLAP_QUERIES,
-                ops=ops))
-        log(f"K11 overlap {name}: kernel {rec['ms']:.3f} ms, plain "
-            f"{rec['plain_ms']:.3f} ms for {OVERLAP_QUERIES} queries; "
-            f"{ops / OVERLAP_QUERIES:.0f} operations per query counted from "
-            f"overlap.cu, bound {rec['bound_ms'] * 1e3:.1f} us "
-            f"({rec['bound_by']}) on {dev_info['smi']}")
+            # instance frames and the records once
+            **bound("overlap", io_bytes + nbytes(
+                scene.inst_axes, scene.inst_o, scene.inst_shape_root,
+                *recs[:2]), OVERLAP_QUERIES,
+                ops=int(walk_ops * OVERLAP_QUERIES)))
+        o = rec["overlap"]
+        log(f"K11 overlap {name}: timed call {o['ms']:.3f} ms (refit "
+            f"{rec['overlap_refit']['ms']:.4f} ms), plain (brute force) "
+            f"{o['plain_ms']:.3f} ms for {OVERLAP_QUERIES} queries; "
+            f"{walk_ops:.0f} operations per query for the walk (counted on "
+            f"the first {OVERLAP_COMPARE} queries, scaled up), "
+            f"{brute_ops / OVERLAP_QUERIES:.0f} for the brute force; bounds "
+            f"{o['bound_ms'] * 1e3:.1f} us ({o['bound_by']}), brute force "
+            f"{o['brute_force_bound_ms'] * 1e3:.1f} us; the call's warm "
+            f"wall (host clock, median of 5) {o['wall_ms']:.3f} ms, "
+            f"profiled {prof['wall_ms']:.3f} ms with idle share "
+            f"{prof['idle']:.3f}; on {dev_info['smi']}")
     return rec, path
+
+
+def brute_force_ops(scene, meta) -> int:
+    """Operations per query of the brute force (JAX's work, K11's first
+    form): every prim of every instance, OVERLAP_OPS_PER_PAIR by type."""
+    from yocto_raytracing_tpu_torch.ops import overlap
+
+    lo, hi = overlap.instance_prim_ranges(scene, meta)
+    ptype = scene.prim_type.cpu().numpy()
+    ops = 0
+    for a, b in zip(lo.tolist(), hi.tolist()):
+        kinds = np.bincount(ptype[a:b], minlength=3)
+        ops += OVERLAP_OPS_PER_INSTANCE + sum(
+            int(c) * OVERLAP_OPS_PER_PAIR[t] for t, c in enumerate(kinds))
+    return ops
+
+
+def strand_queries(scene, meta, n: int, rng, jitter: float) -> torch.Tensor:
+    """n world-space points along the scene's lines (the hair strands), in
+    line order: each line's points at even steps from its first vertex to
+    its second, moved by N(0, jitter) per coordinate. Coherent traffic, as
+    a tool that projects points sampled along (or near) strands sends
+    it."""
+    from yocto_raytracing_tpu_torch.ops import intersect as isect, overlap
+    from yocto_raytracing_tpu_torch.scene import PRIM_LINE
+
+    lo, hi = overlap.instance_prim_ranges(scene, meta)
+    per_inst = []
+    for ii, (a, b) in enumerate(zip(lo.tolist(), hi.tolist())):
+        lines = a + torch.nonzero(scene.prim_type[a:b] == PRIM_LINE).squeeze(1)
+        if lines.numel():
+            per_inst.append((ii, scene.prim_v[lines].long()))
+    per = -(-n // sum(pv.shape[0] for _, pv in per_inst))
+    t = ((torch.arange(per, device=scene.pos.device) + 0.5) / per)[
+        None, :, None]
+    pts = []
+    for ii, pv in per_inst:
+        v0, v1 = scene.pos[pv[:, 0]][:, None], scene.pos[pv[:, 1]][:, None]
+        local = (v0 * (1.0 - t) + v1 * t).reshape(-1, 3)
+        pts.append(isect.transform_point(scene.inst_axes[ii],
+                                         scene.inst_o[ii], local))
+    noise = torch.from_numpy(rng.normal(scale=jitter, size=(n, 3)).astype(
+        np.float32)).to(scene.pos.device)
+    return (torch.cat(pts)[:n] + noise).contiguous()
+
+
+def overlap_in_turns(scene, meta, q, dist_max, name) -> dict:
+    """K11 (the whole call: refit and walk) and its first form, device us
+    per launch in one profile, in turns (first, new, new, first), and the
+    call's timed ms."""
+    from yocto_raytracing_tpu_torch.kernels import parity
+    from yocto_raytracing_tpu_torch.ops import overlap
+
+    call = lambda: overlap.overlap_scene_cuda(  # noqa: E731
+        scene, meta, q, dist_max)
+    first = lambda: parity.overlap_simple(  # noqa: E731
+        scene, meta, q, dist_max)
+
+    def turns():
+        for f in (first, call, call, first):
+            f()
+
+    prof = profile_summary(turns, f"K11 in turns {name}",
+                           ("overlap", "overlap_simple"))
+    out = {key + "_device_us": device_us(prof["by_name"], key) / 2
+           for key in ("overlap", "overlap_simple")}
+    out["call_ms"] = cuda_ms(call, 5)
+    log(f"K11 {name}, device us per launch in turns: first form "
+        f"{out['overlap_simple_device_us']:.1f}, new "
+        f"{out['overlap_device_us']:.1f}; timed call {out['call_ms']:.4f} "
+        f"ms")
+    return out
 
 
 SHARDED_FRAME_KERNELS = {"hair": ("hit", "camera_rays", "shade"),
@@ -2299,7 +2525,12 @@ def run_phases(dev_info, device, shade_regs, plain_walk, t_start) -> None:
         phase_train_stochastic("area mirror",
                                scene_lib.load_scene(area_mirror_obj), True,
                                device, dev_info)
-        rec["overlap"] = overlap_rec
+        rec["overlap"] = dict(
+            overlap_rec["overlap"],
+            random_seed_0=overlap_rec["random seed 0"],
+            strand_points=overlap_rec["hair 256, strand points"],
+            on_strands=overlap_rec["hair 256, points on the strands"])
+        rec["overlap_refit"] = overlap_rec["overlap_refit"]
         # last: the NCCL group and the CLI's subprocesses
         phase_sharded(hair_obj, area_hair_obj, device, dev_info)
         phase_cli(hair_obj, tmp, device, dev_info)
@@ -2344,6 +2575,9 @@ def run_phases(dev_info, device, shade_regs, plain_walk, t_start) -> None:
                              stochastic_train),
         "overlap": ("overlap.cu", "yocto_raytracing_tpu/ops/overlap.py:244",
                     overlap_path),
+        "overlap_refit": ("overlap.cu",
+                          "yocto_raytracing_tpu/ops/overlap.py:244",
+                          overlap_path),
     }
     kernels_rec = [dict(name=k, route="cuda", source=src + f, replaces=r,
                         launches=path["counts"][k], **rec[k],
@@ -2393,6 +2627,26 @@ def run_phases(dev_info, device, shade_regs, plain_walk, t_start) -> None:
             f"{a['bound_ms'] * 1e3:.2f}; 10,004-instance scene, timed ms: "
             f"{hit_10004[kind]['simple_ms']:.4f} / "
             f"{hit_10004[kind]['ms']:.4f}")
+    r, p = by_name["overlap"], by_name["pixel_finish"]
+    log(f"K11 overlap, device us per launch for 2^20 queries, first form / "
+        f"new: hair {r['overlap_simple_device_us']:.1f} / "
+        f"{r['overlap_device_us']:.1f}, random seed 0 "
+        f"{r['random_seed_0']['overlap_simple_device_us']:.1f} / "
+        f"{r['random_seed_0']['overlap_device_us']:.1f}, strand points "
+        f"{r['strand_points']['overlap_simple_device_us']:.1f} / "
+        f"{r['strand_points']['overlap_device_us']:.1f}, points on the "
+        f"strands {r['on_strands']['overlap_simple_device_us']:.1f} / "
+        f"{r['on_strands']['overlap_device_us']:.1f}; bound "
+        f"{r['bound_ms'] * 1e3:.1f} us (walk), "
+        f"{r['brute_force_bound_ms'] * 1e3:.1f} us (brute force); timed "
+        f"call: hair {r['call_ms']:.4f}, random seed 0 "
+        f"{r['random_seed_0']['call_ms']:.4f}, strand points "
+        f"{r['strand_points']['call_ms']:.4f}, points on the strands "
+        f"{r['on_strands']['call_ms']:.4f} ms; K3 pixel "
+        f"finish, device us per chunk: LDR {p['ldr_device_us']:.2f}, HDR "
+        f"{p['hdr_device_us']:.2f}, torch sum(1) "
+        f"{p['library_device_us']:.2f}, bound {p['bound_ms'] * 1e3:.2f}; on "
+        f"{dev_info['smi']}")
     for r in kernels_rec:
         log(f"{r['name']}: {r['launches']} launches on its path; per "
             f"launch there, device {r['device_ms'] * 1e3:.1f} us (profiler) "

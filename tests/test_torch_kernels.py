@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain torch versions, on a card.
 
-K1-K3 bit-equal (K3's u8 within 1 step; K1 also on dead, NaN-tmax and
+K1-K3 bit-equal (K3's u8 within 1 step, also on partial blocks, views at
+a 12-byte offset and 4,900 spp; K1 also on dead, NaN-tmax and
 partial batches, the 10,004-instance scene, equal-t ties, axis-parallel and
 NaN directions, and after a training step); K4 (shading)
 bit-equal to the plain shading and to its first form (``shade_simple.cu``)
@@ -19,8 +20,11 @@ through them within 1 u8 step of the all-plain path; the reverses of the
 stochastic modes, K5 with per-ray light positions, K9 (thin-lens rays,
 also against K6 at aperture 0) and K10 (light points), within 1e-4 of
 torch autograd of their plain versions, and the stochastic training
-gradient against its f64 reference; K11 (overlap query) equal to the plain
-query (found, inst, prim equal; dist and euv bit-equal);
+gradient against its f64 reference; K11 (refit and culled walk) bit for
+bit equal to the brute-force plain query, the plain walk and its first
+form ``overlap_simple.cu``, on moved ``pos`` and duplicated prims too, its
+wrapper synchronising no host, and its refit kernel word for word equal to
+the plain refit;
 ``train_step_sharded`` in a one-rank NCCL group equal to ``train_step``,
 and the CLI on the card writing the host tonemap of ``render_image`` (also
 checkpointed and resumed, and ``--sharded``).
@@ -207,16 +211,24 @@ def test_camera_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("spp", [1, 4, 16])
+@pytest.mark.parametrize("spp", [1, 4, 9, 16, 4900])
 def test_pixel_kernel_matches_plain(cuda_device, spp):
+    """K3 against plain (sums bit-equal, u8 within 1 step) at pixel counts
+    that leave a partial block, on views at a 12-byte offset, and at the
+    4,900 spp of ``--samples 70``."""
     g = torch.Generator(device=cuda_device).manual_seed(spp)
-    rgb = torch.rand((4096 * spp, 3), device=cuda_device, generator=g) * 1.5
-    x = renderer.pixel_finish_plain(rgb, spp, False)
-    y = renderer.pixel_finish(rgb, spp, False)
-    np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
-    x = renderer.pixel_finish_plain(rgb, spp, True).cpu().numpy()
-    y = renderer.pixel_finish(rgb, spp, True).cpu().numpy()
-    assert np.abs(x.astype(np.int32) - y).max() <= 1
+    cases = ((4096, 0), (4093, 1), (1000, 1), (3, 0), (37, 1))
+    for npix, offset in cases if spp < 100 else cases[3:]:
+        # some negative samples: the tonemap's max(x, 0)
+        big = torch.rand(((npix + 1) * spp, 3), device=cuda_device,
+                         generator=g) * 1.5 - 0.2
+        rgb = big[offset:offset + npix * spp]
+        x = renderer.pixel_finish_plain(rgb, spp, False)
+        y = renderer.pixel_finish(rgb, spp, False)
+        assert torch.equal(x, y), (npix, offset)
+        x = renderer.pixel_finish_plain(rgb, spp, True)
+        y = renderer.pixel_finish(rgb, spp, True)
+        assert (x.int() - y.int()).abs().max() <= 1, (npix, offset)
 
 
 @pytest.mark.cuda
@@ -668,21 +680,88 @@ def test_light_points_bwd_matches_autograd(cuda_device, deg):
     assert rep["light_pos" if deg else "pos"]["norm"] > 0
 
 
+def _duplicates_scene():
+    """The random scene with every triangle of shape 0 listed twice and
+    instance 0 repeated: ties decide prim and inst."""
+    host = testscenes.make_random_scene(seed=1)
+    shp = host.shapes[0]
+    shp.triangles = np.concatenate([shp.triangles, shp.triangles])
+    host.instances.append(host.instances[0])
+    return host
+
+
+def _moved_leaves(leaves, seed):
+    """pos and radius moved after the build (no rebuild)."""
+    rng = np.random.default_rng(seed)
+    out = dict(leaves)
+    out["pos"] = (leaves["pos"] + rng.normal(
+        scale=0.05, size=leaves["pos"].shape)).astype(np.float32)
+    out["radius"] = (leaves["radius"] * rng.uniform(
+        0.5, 2.0, leaves["radius"].shape)).astype(np.float32)
+    return out
+
+
+OVERLAP_SCENES = {
+    "random0": (lambda: testscenes.make_random_scene(seed=0), False),
+    "hair64": (lambda: testscenes.make_hair_scene(64), False),
+    "moved": (lambda: testscenes.make_random_scene(seed=2), True),
+    "duplicates": (_duplicates_scene, False),
+}
+
+
+def _overlap_case(name, device):
+    make, moved = OVERLAP_SCENES[name]
+    leaves, meta = scene_lib.build_device_scene(make())
+    if moved:
+        leaves = _moved_leaves(leaves, 3)
+    return scene_lib.to_torch(leaves, device), meta
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("make", [
-    lambda: testscenes.make_random_scene(seed=0),
-    lambda: testscenes.make_hair_scene(64),
-], ids=["random0", "hair64"])
-@pytest.mark.parametrize("dist_max", [1.0, 0.05])
+@pytest.mark.parametrize("make", list(OVERLAP_SCENES))
+@pytest.mark.parametrize("dist_max", [10.0, 1.0, 0.05])
 def test_overlap_kernel_matches_plain(cuda_device, make, dist_max):
-    ts, meta = _scene(make(), cuda_device)
+    """K11 (refit kernel and culled walk) against the brute-force plain
+    query, the plain walk and its first form, every output bit for bit; its
+    wrapper synchronises no host (``set_sync_debug_mode("error")``)."""
+    from yocto_raytracing_tpu_torch.ops import overlap
+
+    ts, meta = _overlap_case(make, cuda_device)
     rng = np.random.default_rng(3)
-    q = torch.from_numpy(rng.uniform(-2, 2, (8192, 3)).astype(np.float32))
-    before = kernels.launches["overlap"]
-    rep = parity.compare_overlap(ts, meta, q.to(cuda_device), dist_max)
-    assert kernels.launches["overlap"] == before + 1
+    q = torch.from_numpy(rng.uniform(-2, 2, (8192, 3)).astype(
+        np.float32)).to(cuda_device)
+    overlap.overlap_scene(ts, meta, q[:8], dist_max)   # build, load
+    torch.cuda.synchronize()
+    before = dict(kernels.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = overlap.overlap_scene(ts, meta, q, dist_max)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.launches["overlap"] == before["overlap"] + 1
+    assert kernels.launches["overlap_refit"] == before["overlap_refit"] + 1
+    plain = overlap.overlap_scene_plain(ts, meta, q, dist_max)
+    rep = parity.overlap_gaps(got, plain)
     assert rep["equal"] and rep["found"] > 0, rep
     assert rep["dist"] == rep["euv"] == 0, rep
+    assert parity.overlap_identical(got, plain)
+    assert parity.overlap_identical(
+        got, overlap.overlap_scene_walk_plain(ts, meta, q, dist_max))
+    assert parity.overlap_identical(
+        got, parity.overlap_simple(ts, meta, q, dist_max))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", list(OVERLAP_SCENES))
+def test_overlap_refit_kernel_matches_plain(cuda_device, make):
+    """The refit kernel's records equal the plain refit's word for word."""
+    from yocto_raytracing_tpu_torch.ops import overlap
+
+    ts, _ = _overlap_case(make, cuda_device)
+    a = overlap.refit_cuda(ts)
+    b = overlap.refit_plain(ts)
+    for x, y in zip(a[:2], b[:2]):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -5,10 +5,12 @@ brute-force oracle (``ops/brute.py``) == the JAX package's.
   ``overlap_point/line/triangle/quad/tetrahedron``, ``distance_check_bbox``,
   ``overlap_bbox``) bit-equal to JAX run op by op (``jax.disable_jit``) on
   random inputs from numpy seeds;
-* ``overlap_scene`` against the JAX function jitted in the no-FMA child
-  (``tests/jax_nofma.py``) on ``make_random_scene`` seeds 0-3 and the hair
-  scene, at ``dist_max`` 10, 1.0 and 0.05: ``found``, ``inst`` and
-  ``prim`` equal, ``dist`` and ``euv`` bit-equal;
+* ``overlap_scene`` (on the CPU the culled walk,
+  ``overlap_scene_walk_plain``) against the JAX function jitted in the
+  no-FMA child (``tests/jax_nofma.py``) on ``make_random_scene`` seeds 0-3
+  and the hair scene, at ``dist_max`` 10, 1.0 and 0.05: ``found``,
+  ``inst`` and ``prim`` equal, ``dist`` and ``euv`` bit-equal, and every
+  output ``torch.equal`` to the brute force (``overlap_scene_plain``);
 * ``intersect_scene_brute`` against the port's own BVH walk
   (``traverse.intersect_scene_plain``) on random rays, as
   ``tests/test_bvh.py`` holds the JAX walk to the JAX oracle.
@@ -25,6 +27,7 @@ import torch
 import jax_nofma
 from yocto_raytracing_tpu.ops import overlap as joverlap
 from yocto_raytracing_tpu_torch import scene as tscene, testscenes as tts
+from yocto_raytracing_tpu_torch.kernels import parity
 from yocto_raytracing_tpu_torch.ops import brute as tbrute
 from yocto_raytracing_tpu_torch.ops import overlap as toverlap
 from yocto_raytracing_tpu_torch.ops import traverse as ttrav
@@ -143,6 +146,8 @@ def test_overlap_scene_matches_jax(name, dist_max):
     ts = tscene.to_torch(leaves, "cpu")
     q = _queries(name)
     got = toverlap.overlap_scene(ts, meta, torch.from_numpy(q), dist_max)
+    assert parity.overlap_identical(got, toverlap.overlap_scene_plain(
+        ts, meta, torch.from_numpy(q), dist_max))
     k = DIST_MAX.index(dist_max)
     ref = {key: v[k * NQ:(k + 1) * NQ] for key, v in
            _jax_overlap(name).items()}

@@ -11,9 +11,9 @@ Numerics: ``--fmad=false`` (no a*b+c contraction, like eager torch) and no
 fast-math, so division and sqrt are IEEE-rounded. The kernels are held
 bit-equal (K1, K2, K4, K7, K8, K11) or within a stated tolerance (K3, K5,
 K6, K9, K10) to their plain torch versions. ``hit_simple.cu``,
-``shade_simple.cu`` and ``shade_bwd_simple.cu`` are the first forms of K1,
-K4 and K5, built for the same-card comparisons of ``chip_smoke.py`` and
-the card tests only.
+``shade_simple.cu``, ``shade_bwd_simple.cu`` and ``overlap_simple.cu`` are
+the first forms of K1, K4, K5 and K11, built for the same-card comparisons
+of ``chip_smoke.py`` and the card tests only.
 
 Each wrapper counts its launches in ``launches``; a run resets the counts
 with ``reset_launches`` and reads them afterwards to show which kernels it
@@ -37,7 +37,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("hit.cu", "hit_simple.cu", "camera.cu", "pixel.cu", "shade.cu",
            "shade_simple.cu", "shade_bwd.cu", "shade_bwd_simple.cu",
-           "stochastic.cu", "lights.cu", "overlap.cu")
+           "stochastic.cu", "lights.cu", "overlap.cu", "overlap_simple.cu")
 HEADERS = ("common.cuh", "shade.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
@@ -45,11 +45,13 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 
 # launches of each kernel since the last reset_launches(); "hit" counts K1's
 # nearest and any-hit launches, "hit_any" its any-hit launches alone; K5
-# with per-ray light positions counts apart from K5 with the fixed ones
+# with per-ray light positions counts apart from K5 with the fixed ones;
+# "overlap_refit" counts the refit of K11's records
 launches = {"hit": 0, "hit_any": 0, "camera_rays": 0, "pixel_finish": 0,
             "shade": 0, "shade_bwd": 0, "shade_bwd_lights": 0, "camera_bwd": 0,
             "camera_rays_stochastic": 0, "camera_bwd_stochastic": 0,
-            "light_points": 0, "light_points_bwd": 0, "overlap": 0}
+            "light_points": 0, "light_points_bwd": 0, "overlap": 0,
+            "overlap_refit": 0}
 
 
 def reset_launches() -> None:
@@ -188,9 +190,14 @@ def library() -> ctypes.CDLL:
         fn.restype = i32
         fn.argtypes = ([vp, i32, u32, vp, i32, i32] + [vp] * 5 + [i32]
                        + [vp] * 4)
+    lib.yrt_overlap_refit.restype = i32
+    lib.yrt_overlap_refit.argtypes = [vp] * 12 + [i32] * 2 + [vp] * 5
     lib.yrt_overlap.restype = i32
-    lib.yrt_overlap.argtypes = ([vp, vp, i32] + [vp] * 4 + [i32] + [vp] * 4
-                                + [vp] * 6)
+    lib.yrt_overlap.argtypes = ([vp, vp, i32] + [vp] * 3 + [i32] + [vp] * 3
+                                + [i32] + [vp] * 6)
+    lib.yrt_overlap_simple.restype = i32
+    lib.yrt_overlap_simple.argtypes = ([vp, vp, i32] + [vp] * 4 + [i32]
+                                       + [vp] * 4 + [vp] * 6)
     _lib = lib
     return lib
 

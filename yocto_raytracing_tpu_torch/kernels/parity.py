@@ -27,8 +27,11 @@ The comparisons that ``chip_smoke.py`` and the card tests
   of the plain light sampling;
 * ``shade_graph`` / ``camera_graph`` / ``light_points_graph``: the
   autograd graphs those compare (and ``chip_smoke.py`` times);
-* ``compare_overlap`` (``overlap_gaps``): K11 and the plain overlap query
-  on the same queries;
+* ``overlap_gaps``: K11 and the plain overlap query on the same queries,
+  per output; ``overlap_identical``: two overlap results bit for bit;
+* ``overlap_simple``: K11's first form (``csrc/overlap_simple.cu``), the
+  other side of its same-card comparisons; it counts no launch, and no
+  path of the package calls it;
 * ``compare_loss_grads`` (from ``loss_grads``, ``recorder``,
   ``replayer`` and ``as_dtype``): the gradient of the MSE render loss of
   ``mesh.render_loss`` (with the stochastic modes, if asked) on the kernel
@@ -454,14 +457,36 @@ def overlap_gaps(kern: dict, plain: dict) -> dict:
     return out
 
 
-def compare_overlap(scene, meta, queries, dist_max) -> dict:
-    """K11 and the plain overlap query on the same queries: their
-    ``overlap_gaps``."""
-    with torch.no_grad():
-        kern = overlap_mod.overlap_scene_cuda(scene, meta, queries, dist_max)
-        plain = overlap_mod.overlap_scene_plain(scene, meta, queries,
-                                                dist_max)
-    return overlap_gaps(kern, plain)
+def overlap_identical(a: dict, b: dict) -> bool:
+    """Two overlap query results bit for bit on every query: found, inst
+    and prim equal, dist and euv equal as int32 views."""
+    return (all(torch.equal(a[k], b[k]) for k in ("found", "inst", "prim"))
+            and all(torch.equal(a[k].view(torch.int32),
+                                b[k].view(torch.int32))
+                    for k in ("dist", "euv")))
+
+
+def overlap_simple(scene, meta, queries, dist_max) -> dict:
+    """K11's first form (``csrc/overlap_simple.cu``: every prim of every
+    instance), the same contract as ``overlap_scene``; CUDA only. It counts
+    no launch, and no path of the package calls it."""
+    dev = queries.device
+    n = queries.shape[0]
+    f32 = torch.float32
+    dist_max = torch.broadcast_to(
+        torch.as_tensor(dist_max, dtype=f32, device=dev), (n,)).contiguous()
+    lo, hi = overlap_mod.instance_prim_ranges(scene, meta)
+    _build.check_tensor("pos (queries)", queries, f32, (n, 3), dev)
+    out = overlap_mod.empty_result(n, dev)
+    ptr = _build.ptr
+    err = _build.library().yrt_overlap_simple(
+        ptr(queries), ptr(dist_max), n, ptr(scene.inst_axes),
+        ptr(scene.inst_o), ptr(lo), ptr(hi), lo.shape[0], ptr(scene.prim_v),
+        ptr(scene.prim_type), ptr(scene.pos), ptr(scene.radius),
+        *(ptr(out[k]) for k in ("found", "dist", "inst", "prim", "euv")),
+        _build.current_stream())
+    _build.check_launch(err, "yrt_overlap_simple")
+    return out
 
 
 def recorder(isect_fn, log: list):
