@@ -17,8 +17,13 @@ turns with it, its light gradients bit-identical over two runs), K6 camera
 backward, K9 thin-lens camera backward and K10 light-points backward
 (relative L2 error <= 1e-4 per gradient leaf of torch autograd), K7
 stochastic camera rays, K8 area-light points and K11 overlap query with
-its refit kernel (bit-equal). Then it drives the port's seven
-paths through their user entry points:
+its refit kernel (bit-equal). K8 and K10 are also held against their first
+forms (``lights_simple.cu``) and timed in turns with them on the area
+hair frame's lights (a quad and a polyline), the area mirror frame's quad
+and a lamp panel of 2,048 triangles: K8 bit-equal to both, K10 within 1
+ULP of the explicit f64 reverse and 1e-4 of autograd and the first form,
+bit-identical over two runs where every light spans at most 8 vertices.
+Then it drives the port's seven paths through their user entry points:
 
 * rendering, ``render_scene_file(..., device="cuda")``: the hair scene
   (lines + triangles + two point lights; the stand-in for the reference's
@@ -157,6 +162,7 @@ WALK_OPS = {"nodes": 50, "point_tests": 25, "line_tests": 60,
 # the kernels of one overlap_scene call on the card
 OVERLAP_KERNELS = ("overlap", "overlap_refit")
 K3_ROUNDS = 8            # K3 launches per profile
+PANEL_CELLS = 32         # the lamp panel light: 32 x 32 cells, 2,048 triangles
 K3_BIG_SPP = 4900        # render_image's spp at --samples 70
 # idle host seconds on each side of a profiled call, their growth from one
 # attempt to the next, and the most sessions tried for one profile (see
@@ -287,10 +293,13 @@ DEVICE_FUNCTIONS = {
     "camera_bwd": ("camera_bwd_partial_kernel", "camera_bwd_sum_kernel"),
     "camera_rays_stochastic": ("camera_rays_stochastic_kernel",),
     "light_points": ("light_points_kernel",),
+    "light_points_simple": ("simple::light_points_kernel",),
     "shade_bwd_lights": ("shade_bwd_kernel", "light_sum_kernel"),
     "camera_bwd_stochastic": ("camera_stochastic_bwd_partial_kernel",
                               "camera_stochastic_bwd_sum_kernel"),
-    "light_points_bwd": ("light_points_bwd_kernel",),
+    "light_points_bwd": ("light_span_kernel", "light_points_bwd_kernel",
+                         "light_points_bwd_finish_kernel"),
+    "light_points_bwd_simple": ("simple::light_points_bwd_kernel",),
     "overlap": ("overlap_kernel",),
     "overlap_refit": ("overlap_parent_kernel", "overlap_refit_kernel"),
     "overlap_simple": ("simple::overlap_kernel",)}
@@ -977,15 +986,17 @@ def quad(center):
             [[0, 1, 2], [0, 2, 3]])
 
 
-def area_hair_scene():
+def area_hair_scene(cells=1):
     """``make_hair_scene(256)`` with light1 an emissive 1 m quad at (2, 4,
     3) facing down, light2 an emissive 4-segment polyline around (-2.5,
     3.5, -1) (ke stays 40) and the camera's aperture 0.1 at its focus, the
-    distance to the target."""
+    distance to the target. With ``cells`` > 1 the quad is a lamp panel of
+    ``cells`` x ``cells`` cells, two triangles each (``panel_grid``)."""
     from yocto_raytracing_tpu_torch import scene as scene_lib, testscenes
 
     host = testscenes.make_hair_scene(256)
-    pos, tris = quad((2.0, 4.0, 3.0))
+    pos, tris = (quad((2.0, 4.0, 3.0)) if cells == 1 else
+                 testscenes.panel_grid((2.0, 4.0, 3.0), cells=cells))
     set_geometry(light_shape(host, "light1"), pos, triangles=tris)
     c = np.asarray([-2.5, 3.5, -1.0], np.float32)
     set_geometry(light_shape(host, "light2"),
@@ -1058,10 +1069,7 @@ def phase_stochastic(host, device) -> dict:
             scene, sampler, ids, SEED), 20),
         plain_ms=cuda_ms(lambda: lights.sample_light_points_plain(
             scene, sampler, ids, SEED), 5),
-        library_ms=None,
-        **bound("light_points", nbytes(ids, lpos, *sampler.values(),
-                                       scene.prim_v, scene.prim_type,
-                                       scene.pos), nl * n))
+        library_ms=None, **light_points_bound(sampler, n))
 
     amb = torch.full((3,), 0.1, device=device)
     ro, rd, hits, active = inputs = parity.shade_inputs(
@@ -1367,18 +1375,11 @@ def k5_in_turns(label, scene, meta, inputs, amb, gen, light_pos=None) -> dict:
         raise AssertionError(f"K5 {label}: light gradients differ between "
                              f"two runs")
     kind = "shade_bwd" if light_pos is None else "shade_bwd_lights"
-    variants = {"simple": (old, "shade_bwd_simple"), "new": (new, kind)}
-    turns = [cuda_ms(variants[v][0], 10)
-             for v in ("simple", "new", "new", "simple")]
-    dev = {v: 0.0 for v in variants}
-    for v in ("simple", "new", "new", "simple"):
-        fn, dk = variants[v]
-        prof = profile_summary(fn, f"K5 {label}: {v}", (dk,))
-        dev[v] += device_us(prof["by_name"], dk) / 2
+    out = kernel_turns(f"K5 {label}", {"simple": (old, "shade_bwd_simple"),
+                                       "new": (new, kind)}, 10)
+    dev = {"simple": out["simple_device_us"], "new": out["device_us"]}
     live = saved["mask"][: saved["mask"].numel() // 32 * 32].view(-1, 32)
-    out = dict(ms=(turns[1] + turns[2]) / 2,
-               simple_ms=(turns[0] + turns[3]) / 2, device_us=dev["new"],
-               simple_device_us=dev["simple"], rel_vs_simple=worst,
+    out.update(rel_vs_simple=worst,
                dead_warp_share=float(1 - live.any(1).float().mean()))
     log(f"K5 {label}: {saved['ro'].shape[0]} rays, dead-warp share "
         f"{out['dead_warp_share']:.4f}: against its first form, largest "
@@ -1387,8 +1388,174 @@ def k5_in_turns(label, scene, meta, inputs, amb, gen, light_pos=None) -> dict:
         f"runs; device us per launch (profiler, in turns) simple / new "
         f"{dev['simple']:.1f} / {dev['new']:.1f} = "
         f"{dev['simple'] / dev['new']:.2f}x; timed calls in turns (simple, "
-        f"new, new, simple) " + ", ".join(f"{m:.3f}" for m in turns)
-        + " ms")
+        f"new, new, simple) "
+        + ", ".join(f"{m:.3f}" for m in out["turns_ms"]) + " ms")
+    return out
+
+
+def light_points_bound(sampler, n: int) -> dict:
+    """K8's bound for n rays: the id read (4 B) and the L points written
+    (12 B each) per ray; operations: OPS_PER_RAY per (light, ray) plus
+    the search's ceil(log2 E) + 1 compares."""
+    nl, ne = sampler["cdf"].shape
+    search = int(np.ceil(np.log2(ne))) + 1
+    return bound("light_points", 4 * n + 12 * nl * n, nl * n,
+                 ops=nl * n * (OPS_PER_RAY["light_points"] + search))
+
+
+def light_points_bwd_bound(sampler, n: int, num_verts: int,
+                           g=None) -> dict:
+    """K10's bound for n rays: the (L, N, 3) cotangent read once, d_pos and
+    d_light_pos written once, and the ids of the rays that add a term;
+    operations: OPS_PER_RAY per (light, ray) that adds one. A zero row of
+    the cotangent adds nothing, so with ``g`` given only its non-zero rows
+    count, and only the ids of rays with a non-zero row for some light;
+    without it every row does."""
+    nl = sampler["cdf"].shape[0]
+    if g is None:
+        rows, id_rays = nl * n, n
+    else:
+        live = (g != 0).any(-1)
+        rows, id_rays = int(live.sum()), int(live.any(0).sum())
+    return bound("light_points_bwd", 12 * nl * n + 4 * id_rays
+                 + 12 * (num_verts + nl), rows)
+
+
+def kernel_turns(label, variants: dict, reps: int) -> dict:
+    """A kernel's wrapper and its first form's, ``variants`` {"simple" |
+    "new": (fn, DEVICE_FUNCTIONS key)}: timed calls in turns (simple, new,
+    new, simple; CUDA events around the call, ``reps`` calls each), and the
+    device us per launch from one profiled call of each in the same
+    turns."""
+    order = ("simple", "new", "new", "simple")
+    turns = [cuda_ms(variants[v][0], reps) for v in order]
+    dev = {v: 0.0 for v in variants}
+    for v in order:
+        fn, kind = variants[v]
+        prof = profile_summary(fn, f"{label}: {v}", (kind,))
+        dev[v] += device_us(prof["by_name"], kind) / 2
+    return dict(ms=(turns[1] + turns[2]) / 2,
+                simple_ms=(turns[0] + turns[3]) / 2, device_us=dev["new"],
+                simple_device_us=dev["simple"], turns_ms=turns)
+
+
+def k8_in_turns(label, scene, sampler, ids) -> dict:
+    """K8 against its first form and the plain version on the same ids
+    (bit-equal to both), then the two timed in turns
+    (``kernel_turns``), beside K8's bound."""
+    from yocto_raytracing_tpu_torch.kernels import parity
+    from yocto_raytracing_tpu_torch.render import lights
+
+    rep = parity.compare_light_points(scene, sampler, ids, SEED)
+    if not (rep["equal"] and rep["simple_equal"]):
+        raise AssertionError(f"K8 {label}: {rep}")
+
+    def new():
+        with torch.no_grad():
+            lights.sample_light_points_cuda(scene, sampler, ids, SEED)
+
+    def old():
+        parity.light_points_simple(scene, sampler, ids, SEED)
+
+    nl, ne = sampler["cdf"].shape
+    n = ids.shape[0]
+    out = dict(kernel_turns(f"K8 {label}", {
+        "simple": (old, "light_points_simple"),
+        "new": (new, "light_points")}, 10), **light_points_bound(sampler, n))
+    log(f"K8 {label}: {nl} lights x {n} rays, elements "
+        f"{sampler['n'].tolist()} (E {ne}): bit-equal to the plain version "
+        f"and to its first form; device us per launch (profiler, in turns) "
+        f"first form / new {out['simple_device_us']:.2f} / "
+        f"{out['device_us']:.2f} = "
+        f"{out['simple_device_us'] / out['device_us']:.2f}x, bound "
+        f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}); timed calls "
+        f"in turns (simple, new, new, simple) "
+        + ", ".join(f"{m:.4f}" for m in out["turns_ms"]) + " ms")
+    return out
+
+
+def k10_in_turns(label, scene, sampler, ids, gen, registers,
+                 g=None) -> dict:
+    """K10 on a seeded cotangent (or on ``g``, a path's own): within 1 ULP
+    of the explicit f64 reverse (``light_points_bwd_plain``; entries below
+    ``parity.LIGHT_BWD_FLOOR`` of the largest within that much of it),
+    within GRAD_RTOL relative L2 of its first form and of torch autograd
+    of the plain version, bit-identical over two runs where ``registers``
+    (every light spans at most 8 vertices); then the two timed in turns
+    (``kernel_turns``), beside
+    K10's bound."""
+    from yocto_raytracing_tpu_torch.kernels import parity
+    from yocto_raytracing_tpu_torch.render import lights
+
+    nl = sampler["cdf"].shape[0]
+    n, nv = ids.shape[0], scene.pos.shape[0]
+    if g is None:
+        g = torch.randn((nl, n, 3), device=ids.device, generator=gen)
+    rep = parity.compare_light_points_bwd(scene, sampler, ids, SEED, g)
+    for out in ("d_pos", "d_light_pos"):
+        r = rep[out]
+        if r["ulp"] > 1 or r["small_abs"] > r["floor"]:
+            raise AssertionError(f"K10 {label} vs the f64 reverse, {out}: "
+                                 f"{r}")
+    worst = parity.check_grads(rep["simple"], GRAD_RTOL,
+                               f"K10 {label} vs first form")
+    if registers and not rep["repeat"]:
+        raise AssertionError(f"K10 {label}: two runs differ")
+    auto = parity.compare_light_points_grads(scene, sampler, ids, SEED, gen)
+    aworst = parity.check_grads(auto, GRAD_RTOL, f"K10 {label}")
+
+    def new():
+        lights.light_points_bwd(scene, sampler, ids, SEED, g, nv)
+
+    def old():
+        parity.light_points_bwd_simple(scene, sampler, ids, SEED, g, nv)
+
+    out = dict(kernel_turns(f"K10 {label}", {
+        "simple": (old, "light_points_bwd_simple"),
+        "new": (new, "light_points_bwd")}, 10),
+        **light_points_bwd_bound(sampler, n, nv, g),
+        ulp=max(rep["d_pos"]["ulp"], rep["d_light_pos"]["ulp"]),
+        rel_vs_simple=worst, rel_vs_autograd=aworst, repeat=rep["repeat"],
+        nonzero_share=float((g != 0).any(-1).float().mean()))
+    log(f"K10 {label}: {nl} lights x {n} rays, cotangent rows non-zero "
+        f"{out['nonzero_share']:.4f}: against the f64 reverse "
+        f"{out['ulp']} ULP (tolerance 1), against its first form "
+        f"{worst:.3e} and autograd {aworst:.3e} relative L2 (tolerance "
+        f"{GRAD_RTOL}); two runs bit-identical {rep['repeat']}"
+        f"{' (required)' if registers else ' (atomic path: not required)'}; "
+        f"device us per launch (profiler, in turns) first form / new "
+        f"{out['simple_device_us']:.2f} / {out['device_us']:.2f} = "
+        f"{out['simple_device_us'] / out['device_us']:.2f}x, bound "
+        f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}); timed calls "
+        f"in turns (simple, new, new, simple) "
+        + ", ".join(f"{m:.4f}" for m in out["turns_ms"]) + " ms")
+    return out
+
+
+def phase_light_kernels(cases, device) -> dict:
+    """K8 and K10 against their first forms (``lights_simple.cu``), in
+    turns, on ``cases`` [(name, host, registers)]: K8 on the middle
+    CHUNK_PIXELS * SAMPLES^2 ray ids of the frame, K10 on the middle
+    TRAIN_RAYS (``k8_in_turns``, ``k10_in_turns``). Returns {name: {"k8":
+    ..., "k10": ...}}."""
+    from yocto_raytracing_tpu_torch import scene as scene_lib
+    from yocto_raytracing_tpu_torch.render import lights, renderer
+
+    gen = torch.Generator(device=device)
+    out = {}
+    for k, (name, host, registers) in enumerate(cases):
+        leaves, meta = scene_lib.build_device_scene(host)
+        scene = scene_lib.to_torch(leaves, device)
+        sampler = lights.build_light_sampler(host, leaves, meta, device)
+        width = renderer.image_width(host.cameras[0].aspect, RES)
+        ids = middle_ids(width, RES, SAMPLES,
+                         CHUNK_PIXELS * SAMPLES * SAMPLES, device)
+        k8 = k8_in_turns(name, scene, sampler, ids)
+        gen.manual_seed(500 + k)
+        k10 = k10_in_turns(name, scene, sampler,
+                           middle_ids(width, RES, SAMPLES, TRAIN_RAYS,
+                                      device), gen, registers)
+        out[name] = dict(k8=k8, k10=k10)
     return out
 
 
@@ -1787,12 +1954,7 @@ def phase_reverse_kernels(host, device) -> dict:
     rec["light_points_bwd"] = dict(
         max_abs_err=max(r["max_abs"] for r in rep.values()),
         library_ms=None, **times,
-        # ids, the (L, N, 3) cotangent and the tables in; d_pos, d_light_pos
-        # out
-        **bound("light_points_bwd", nbytes(ids, lcots[0], *sampler.values(),
-                                           scene.prim_v, scene.prim_type,
-                                           scene.pos, scene.light_pos),
-                nl * n))
+        **light_points_bwd_bound(sampler, n, scene.pos.shape[0]))
     log(f"K10 light_points_bwd: backward at {nl} x {n}: kernel "
         f"{times['ms']:.4f} ms, plain autograd {times['plain_ms']:.4f} ms")
     return rec
@@ -1811,7 +1973,8 @@ def phase_train_stochastic(name, host, last, device, dev_info) -> dict:
     path's gradient within TRAIN_GRAD_RTOL of the f64 reference (or
     TRAIN_PLAIN_FACTOR x the plain f32 path's error), cam_aperture and each
     light's vertices moved; warm fwd+bwd walls and one profiled call, which
-    must hold K5, K9 and K10."""
+    must hold K5, K9 and K10; then K10 and its first form in turns on the
+    cotangent that the step hands K10 (``k10_in_turns``)."""
     from yocto_raytracing_tpu_torch import kernels
     from yocto_raytracing_tpu_torch import scene as scene_lib
     from yocto_raytracing_tpu_torch.kernels import parity
@@ -1821,19 +1984,10 @@ def phase_train_stochastic(name, host, last, device, dev_info) -> dict:
     scene = scene_lib.to_torch(leaves, device)
     sampler = lights.build_light_sampler(host, leaves, meta, device)
     w = renderer.image_width(host.cameras[0].aspect, RES)
-    amb = torch.full((3,), 0.1, device=device)
     ids = middle_ids(w, RES, SAMPLES, TRAIN_RAYS, device, last)
     rows = light_vertex_rows(host, meta)
-    kw = dict(width=w, height=RES, samples=SAMPLES, max_depth=DEPTH,
-              stochastic=True, seed=SEED, light_sampler=sampler)
-    target = renderer.trace_rays(
-        perturbed(scene, 7, [r for lr in rows for r in lr]), ids, amb, w,
-        RES, SAMPLES, DEPTH, meta.has_kd_textures, meta.has_ks_textures,
-        stochastic=True, seed=SEED, light_sampler=sampler)
-
-    def step():
-        return parity.loss_grads(scene, ids, target, amb, **kw)
-
+    step, target, amb, kw = stochastic_loss_step(host, meta, scene, sampler,
+                                                 ids)
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1887,7 +2041,58 @@ def phase_train_stochastic(name, host, last, device, dev_info) -> dict:
     for k in ("shade_bwd_lights", "camera_bwd_stochastic",
               "light_points_bwd"):
         device_ms(prof, k, counts[k])   # raises if K5, K9 or K10 is missing
-    return dict(counts=counts, walls=walls, peak=peak, prof=prof)
+
+    # K10 and its first form in turns on the cotangent this step gives K10
+    k10 = k10_in_turns(f"{name}, the step's cotangent", scene, sampler, ids,
+                       torch.Generator(device=device).manual_seed(600), True,
+                       g=step_light_cotangent(step))
+    return dict(counts=counts, walls=walls, peak=peak, prof=prof, k10=k10)
+
+
+def stochastic_loss_step(host, meta, scene, sampler, ids):
+    """(step, target, amb, kw) of the stochastic modes' training loss on
+    the rays ``ids``: ``step()`` gives ``parity.loss_grads`` of the MSE of
+    ``trace_rays(..., stochastic=True, seed=SEED, light_sampler=sampler)``
+    towards ``target``, the frame rendered with perturbed mat_kd, light_ke
+    and light-shape pos; ``kw`` its ``loss_grads`` keywords."""
+    from yocto_raytracing_tpu_torch.kernels import parity
+    from yocto_raytracing_tpu_torch.render import renderer
+
+    w = renderer.image_width(host.cameras[0].aspect, RES)
+    amb = torch.full((3,), 0.1, device=ids.device)
+    rows = [r for lr in light_vertex_rows(host, meta) for r in lr]
+    kw = dict(width=w, height=RES, samples=SAMPLES, max_depth=DEPTH,
+              stochastic=True, seed=SEED, light_sampler=sampler)
+    target = renderer.trace_rays(
+        perturbed(scene, 7, rows), ids, amb, w, RES, SAMPLES, DEPTH,
+        meta.has_kd_textures, meta.has_ks_textures, stochastic=True,
+        seed=SEED, light_sampler=sampler)
+
+    def step():
+        return parity.loss_grads(scene, ids, target, amb, **kw)
+
+    return step, target, amb, kw
+
+
+def step_light_cotangent(step) -> torch.Tensor:
+    """The (L, N, 3) cotangent that one call of ``step`` (a training step
+    whose forward samples light points on the card) hands K10, recorded by
+    wrapping ``lights.light_points_bwd`` for the call."""
+    from yocto_raytracing_tpu_torch.render import lights
+
+    cots = []
+    bwd = lights.light_points_bwd
+
+    def recording(*args):
+        cots.append(args[4].clone())
+        return bwd(*args)
+
+    lights.light_points_bwd = recording
+    try:
+        step()
+    finally:
+        lights.light_points_bwd = bwd
+    return cots[0]
 
 
 def moved_leaves(leaves: dict, seed: int) -> dict:
@@ -2519,6 +2724,13 @@ def run_phases(dev_info, device, shade_regs, plain_walk, t_start) -> None:
         phase_point_light_area(hair_obj, main_frame["image"], device)
         rec.update(phase_reverse_kernels(scene_lib.load_scene(area_hair_obj),
                                          device))
+        panel_obj = os.path.join(tmp, "area_hair_panel.obj")
+        scene_lib.save_scene(area_hair_scene(PANEL_CELLS), panel_obj)
+        light_turns = phase_light_kernels(
+            [("area hair", scene_lib.load_scene(area_hair_obj), True),
+             ("area mirror", scene_lib.load_scene(area_mirror_obj), True),
+             ("lamp panel", scene_lib.load_scene(panel_obj), False)],
+            device)
         stochastic_train = phase_train_stochastic(
             "area hair", scene_lib.load_scene(area_hair_obj), False, device,
             dev_info)
@@ -2627,6 +2839,21 @@ def run_phases(dev_info, device, shade_regs, plain_walk, t_start) -> None:
             f"{a['bound_ms'] * 1e3:.2f}; 10,004-instance scene, timed ms: "
             f"{hit_10004[kind]['simple_ms']:.4f} / "
             f"{hit_10004[kind]['ms']:.4f}")
+    for kind, key, rays in (("light_points", "k8", "the middle chunk"),
+                            ("light_points_bwd", "k10",
+                             f"{TRAIN_RAYS} rays a light")):
+        by_name[kind]["turns"] = {k: v[key] for k, v in light_turns.items()}
+        log(f"{kind}, device us per launch on {rays}, first form / new: "
+            + "; ".join(f"{k} {v[key]['simple_device_us']:.2f} / "
+                        f"{v[key]['device_us']:.2f} (bound "
+                        f"{v[key]['bound_ms'] * 1e3:.2f})"
+                        for k, v in light_turns.items())
+            + f"; on {dev_info['smi']}")
+    r = by_name["light_points_bwd"]["step_turns"] = stochastic_train["k10"]
+    log(f"light_points_bwd on the area hair step's own cotangent (rows "
+        f"non-zero {r['nonzero_share']:.4f}), device us per launch, first "
+        f"form / new: {r['simple_device_us']:.2f} / {r['device_us']:.2f} "
+        f"(bound {r['bound_ms'] * 1e3:.2f}); on {dev_info['smi']}")
     r, p = by_name["overlap"], by_name["pixel_finish"]
     log(f"K11 overlap, device us per launch for 2^20 queries, first form / "
         f"new: hair {r['overlap_simple_device_us']:.1f} / "

@@ -49,6 +49,8 @@ import tempfile
 import numpy as np
 import torch
 
+import kernel_variants
+
 SAMPLES, RES, RAYS = 4, 512, 1 << 20
 
 # (variant, [(text in shade_bwd_simple.cu, replacement)])
@@ -149,56 +151,20 @@ def build_variants(tmp: str, new: bool) -> dict:
                           (("shade_bwd_simple.cu", VARIANTS),)):
         base = (_build.CSRC / src).read_text()
         for name, edits in variants.items():
-            text = base
-            for old, rep in edits:
-                if old not in text:
-                    raise AssertionError(f"{name}: {old!r} not in the "
-                                         f"source")
-                text = text.replace(old, rep)
-            sources[name] = text
+            sources[name] = kernel_variants.edited(base, edits, name)
     if not new:
         sources["recompute"] = RECOMPUTE_SRC
-    procs = {}
-    for name, text in sources.items():
-        src = os.path.join(tmp, f"{name}.cu")
-        with open(src, "w") as f:
-            f.write(text)
-        so = os.path.join(tmp, f"lib{name}.so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-               str(_build.CSRC), "-o", so, src]
-        procs[name] = (so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    out = {}
-    for name, (so, proc) in procs.items():
-        log, _ = proc.communicate(timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name} failed:\n{log}")
-        out[name] = (so, [ln.strip() for ln in log.splitlines()
-                          if "registers" in ln or "spill" in ln])
-    return out
+    return kernel_variants.build(tmp, sources)
 
 
 def load(name: str, so: str):
     """(the variant's K5 entry point, its scratch-size function or None
     for the first form)."""
-    from yocto_raytracing_tpu_torch.kernels import _build
-
-    lib = ctypes.CDLL(so)
-    new = name.startswith("new")
-    fn = lib.yrt_shade_bwd if new else lib.yrt_shade_bwd_simple
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.POINTER(_build.ShadeScene),
-                    ctypes.POINTER(_build.ShadeGrads)]
-                   + [ctypes.c_void_p] * 6 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 6
-                   + [ctypes.c_void_p] * (2 if new else 1))
-    if not new:
-        return fn, None
-    scratch = lib.yrt_shade_bwd_scratch
-    scratch.restype = ctypes.c_longlong
-    scratch.argtypes = [ctypes.c_int] * 2
-    return fn, scratch
+    if not name.startswith("new"):
+        return kernel_variants.load(so, ["yrt_shade_bwd_simple"]) \
+            .yrt_shade_bwd_simple, None
+    lib = kernel_variants.load(so, ["yrt_shade_bwd", "yrt_shade_bwd_scratch"])
+    return lib.yrt_shade_bwd, lib.yrt_shade_bwd_scratch
 
 
 def case_inputs(scene, meta, width, height, bounce, last, seed, fresh):

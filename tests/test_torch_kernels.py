@@ -19,7 +19,14 @@ bit-equal to their plain versions, and a stochastic area-light frame
 through them within 1 u8 step of the all-plain path; the reverses of the
 stochastic modes, K5 with per-ray light positions, K9 (thin-lens rays,
 also against K6 at aperture 0) and K10 (light points), within 1e-4 of
-torch autograd of their plain versions, and the stochastic training
+torch autograd of their plain versions; K8 also bit-equal to its first
+form (``lights_simple.cu``) and K10 within 1 ULP of the explicit f64
+reverse and 1e-4 of its first form, bit-identical over two runs where
+every light spans at most 8 vertices, with 1, 2 and 8 lights, shared
+shapes, a deg light and lamp panels of 81 and 1,089 vertices, and on the
+adversarial CDF rows of ``light_pick_rows`` (NaN, inf and zero weights,
+ties, x on an entry), staged and not; and the
+stochastic training
 gradient against its f64 reference; K11 (refit and culled walk) bit for
 bit equal to the brute-force plain query, the plain walk and its first
 form ``overlap_simple.cu``, on moved ``pos`` and duplicated prims too, its
@@ -38,12 +45,14 @@ file imports no JAX, so it also runs where JAX is not installed:
 (``--noconftest``: tests/conftest.py configures JAX for the other tests.)
 """
 
+import dataclasses
 import os
 
 import numpy as np
 import pytest
 import torch
 
+import light_pick_rows
 from torch_card import cuda_device  # noqa: F401  (fixture)
 from yocto_raytracing_tpu_torch import kernels
 from yocto_raytracing_tpu_torch import scene as scene_lib, testscenes
@@ -679,6 +688,152 @@ def test_light_points_bwd_matches_autograd(cuda_device, deg):
     parity.check_grads(rep, GRAD_RTOL, "K10")
     assert rep["light_pos" if deg else "pos"]["norm"] > 0
 
+
+
+def _add_light(host, name, shape, o=(0.0, 0.0, 0.0)):
+    """An emissive instance of ``shape`` (a HostShape, or the index of one
+    already in the scene) at offset ``o``, with the light's material."""
+    if not isinstance(shape, int):
+        host.shapes.append(shape)
+        shape = len(host.shapes) - 1
+    mat = next(i for i in host.instances if i.name == "light").material
+    host.instances.append(scene_lib.HostInstance(
+        name=name, axes=np.eye(3, dtype=np.float32),
+        o=np.asarray(o, np.float32), shape=shape, material=mat))
+
+
+def _light_case(case, device):
+    """Light sets for K8 and K10 on the area mirror scene (its quad light,
+    4 vertices): ``one``; ``two`` (+ a 4-segment polyline, 5 vertices);
+    ``eight`` (+ a mixed shape of 2 points, 2 segments and 2 triangles on
+    6 vertices, and 5 more instances of the quad: shared shapes); ``deg``
+    (``two`` with its last light marked as a shape without elements);
+    ``panel8`` and ``panel`` (the quad as a lamp panel of 8 x 8 and
+    32 x 32 cells: 81 and 1,089 vertices, K10's shared-row and global
+    paths). Returns the scene, the sampler and whether every light's span
+    is at most 8 vertices (K10's register path)."""
+    host = _area_grad_scene()
+    light = next(i for i in host.instances if i.name == "light")
+    if case in ("panel8", "panel"):
+        shp = host.shapes[light.shape]
+        shp.pos, shp.triangles = testscenes.panel_grid(
+            shp.pos[:4].mean(axis=0), cells=8 if case == "panel8" else 32)
+        shp.texcoord = np.zeros((len(shp.pos), 2), np.float32)
+    if case in ("two", "eight", "deg"):
+        c = np.asarray([-2.5, 3.5, -1.0], np.float32)
+        _add_light(host, "polyline", testscenes._shape(
+            "polyline", [c + [dx, 0.1 * dx * dx, 0.3 * dx]
+                         for dx in (-0.8, -0.3, 0.0, 0.4, 0.9)],
+            lines=[[0, 1], [1, 2], [2, 3], [3, 4]]))
+    if case == "eight":
+        c = np.asarray([2.0, 4.0, 3.0], np.float32)
+        _add_light(host, "mixed", testscenes._shape(
+            "mixed", [c + d for d in ([0, 0, 0], [0.5, 0, 0], [0, 0, 0.5],
+                                      [0.5, 0, 0.5], [-0.4, 0.1, 0.2],
+                                      [-0.2, 0, -0.4])],
+            points=[4, 5], lines=[[4, 5], [5, 0]],
+            triangles=[[0, 1, 2], [1, 3, 2]]))
+        for k in range(5):
+            _add_light(host, f"quad{k}", light.shape, (0.3 * k, 0.0, -0.2 * k))
+    scene_lib.finalize_scene(host)
+    leaves, meta = scene_lib.build_device_scene(host)
+    ts = scene_lib.to_torch(leaves, device)
+    sampler = lights.build_light_sampler(host, leaves, meta, device)
+    if case == "deg":
+        sampler = {k: v.clone() for k, v in sampler.items()}
+        sampler["deg"][-1] = True
+        sampler["cdf"][-1] = 1.0
+        sampler["n"][-1] = 1
+    return ts, sampler, case not in ("panel8", "panel")
+
+
+LIGHT_CASES = ("one", "two", "eight", "deg", "panel8", "panel")
+LIGHT_RAYS = (1, 6221, 1 << 16)
+
+
+def _light_ids(n, device):
+    rng = np.random.default_rng(n)
+    return torch.from_numpy(rng.integers(0, 2**31 - 1, n).astype(
+        np.int32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", LIGHT_RAYS)
+@pytest.mark.parametrize("case", LIGHT_CASES)
+def test_light_points_kernel_matches_plain_and_simple(cuda_device, case, n):
+    """K8 bit for bit equal to the plain version and to its first form
+    (``lights_simple.cu``)."""
+    ts, sampler, _ = _light_case(case, cuda_device)
+    nl = {"one": 1, "two": 2, "eight": 8, "deg": 2}.get(case, 1)
+    assert sampler["cdf"].shape[0] == nl
+    rep = parity.compare_light_points(ts, sampler, _light_ids(n, cuda_device),
+                                      11)
+    assert rep["equal"] and rep["simple_equal"], rep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", LIGHT_RAYS)
+@pytest.mark.parametrize("case", LIGHT_CASES)
+def test_light_points_bwd_matches_f64_and_simple(cuda_device, case, n):
+    """K10 within 1 ULP of the explicit f64 reverse (entries below 1e-9 of
+    the largest within that much of it), within 1e-4 relative L2 of its
+    first form, and bit for bit the same over two runs where every span is
+    at most 8 vertices."""
+    ts, sampler, registers = _light_case(case, cuda_device)
+    ids = _light_ids(n, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    g = torch.randn((sampler["cdf"].shape[0], n, 3), device=cuda_device,
+                    generator=gen)
+    before = kernels.launches["light_points_bwd"]
+    rep = parity.compare_light_points_bwd(ts, sampler, ids, 11, g)
+    assert kernels.launches["light_points_bwd"] == before + 2
+    for out in ("d_pos", "d_light_pos"):
+        assert rep[out]["ulp"] <= 1, (out, rep[out])
+        assert rep[out]["small_abs"] <= rep[out]["floor"], (out, rep[out])
+    parity.check_grads(rep["simple"], GRAD_RTOL, "K10 vs first form")
+    assert rep["simple"]["light_pos" if case == "deg" else "pos"]["norm"] > 0
+    if registers:
+        assert rep["repeat"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("name", list(light_pick_rows.PICK_ROWS))
+def test_light_kernels_on_adversarial_rows(cuda_device, name, padded):
+    """K8 and K10 on samplers made by hand from the adversarial CDF rows of
+    ``light_pick_rows`` (ties, zero weights, a zero total, NaN and inf
+    weights, edge padding, tiny and huge weights, 2,048 elements) over the
+    lamp panel's 2,048 triangles: K8 bit for bit equal to the plain version
+    and to its first form, K10 within 1 ULP of the explicit f64 reverse and
+    1e-4 of its first form. The ray ids put r0 at 0, 2^-24, k / 8 and just
+    below 1, then 6,221 seeded ones. As built the rows fit K8's staging
+    (but the 2,048-element set); ``padded`` pads each with its last value
+    by 300 more entries, which do not."""
+    ts, panel, _ = _light_case("panel", cuda_device)
+    cdf = light_pick_rows.cdf_rows(light_pick_rows.PICK_ROWS[name],
+                                   300 if padded else 0)
+    nl, ne = cdf.shape
+    ts = dataclasses.replace(ts, light_pos=ts.light_pos[:1].repeat(nl, 1))
+    assert (nl * (ne + 1) <= 256) == (not padded and name != "grid_2048")
+    ids = torch.from_numpy(np.concatenate([
+        light_pick_rows.ids_for_r0(11, light_pick_rows.R0_TARGETS),
+        _light_ids(6221, "cpu").numpy()])).to(cuda_device)
+    n_elems = [len(r) for r in light_pick_rows.PICK_ROWS[name]]
+    sampler = dict(
+        cdf=torch.from_numpy(cdf).to(cuda_device),
+        n=torch.tensor(n_elems, dtype=torch.int32, device=cuda_device),
+        prim_lo=panel["prim_lo"][:1].repeat(nl),
+        deg=torch.zeros(nl, dtype=torch.bool, device=cuda_device))
+    rep = parity.compare_light_points(ts, sampler, ids, 11)
+    assert rep["equal"] and rep["simple_equal"], rep
+    gen = torch.Generator(device=cuda_device).manual_seed(ne)
+    g = torch.randn((nl, ids.shape[0], 3), device=cuda_device, generator=gen)
+    rep = parity.compare_light_points_bwd(ts, sampler, ids, 11, g)
+    for out in ("d_pos", "d_light_pos"):
+        assert rep[out]["ulp"] <= 1, (out, rep[out])
+        assert rep[out]["small_abs"] <= rep[out]["floor"], (out, rep[out])
+    parity.check_grads(rep["simple"], GRAD_RTOL, "K10 vs first form")
+    assert rep["simple"]["pos"]["norm"] > 0
 
 def _duplicates_scene():
     """The random scene with every triangle of shape 0 listed twice and

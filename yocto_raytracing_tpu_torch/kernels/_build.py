@@ -11,9 +11,10 @@ Numerics: ``--fmad=false`` (no a*b+c contraction, like eager torch) and no
 fast-math, so division and sqrt are IEEE-rounded. The kernels are held
 bit-equal (K1, K2, K4, K7, K8, K11) or within a stated tolerance (K3, K5,
 K6, K9, K10) to their plain torch versions. ``hit_simple.cu``,
-``shade_simple.cu``, ``shade_bwd_simple.cu`` and ``overlap_simple.cu`` are
-the first forms of K1, K4, K5 and K11, built for the same-card comparisons
-of ``chip_smoke.py`` and the card tests only.
+``shade_simple.cu``, ``shade_bwd_simple.cu``, ``lights_simple.cu`` and
+``overlap_simple.cu`` are the first forms of K1, K4, K5, K8 with K10, and
+K11, built for the same-card comparisons of ``chip_smoke.py`` and the card
+tests only.
 
 Each wrapper counts its launches in ``launches``; a run resets the counts
 with ``reset_launches`` and reads them afterwards to show which kernels it
@@ -37,7 +38,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("hit.cu", "hit_simple.cu", "camera.cu", "pixel.cu", "shade.cu",
            "shade_simple.cu", "shade_bwd.cu", "shade_bwd_simple.cu",
-           "stochastic.cu", "lights.cu", "overlap.cu", "overlap_simple.cu")
+           "stochastic.cu", "lights.cu", "lights_simple.cu", "overlap.cu",
+           "overlap_simple.cu")
 HEADERS = ("common.cuh", "shade.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
@@ -185,11 +187,16 @@ def library() -> ctypes.CDLL:
     lib.yrt_camera_stochastic_bwd.restype = i32
     lib.yrt_camera_stochastic_bwd.argtypes = ([vp, i32, i32, i32, i32, u32]
                                               + [vp] * 11)
-    for name in ("yrt_light_points", "yrt_light_points_bwd"):
+    light_args = [vp, i32, u32, vp, i32, i32] + [vp] * 5 + [i32]
+    for name in ("yrt_light_points", "yrt_light_points_simple",
+                 "yrt_light_points_bwd_simple"):
         fn = getattr(lib, name)
         fn.restype = i32
-        fn.argtypes = ([vp, i32, u32, vp, i32, i32] + [vp] * 5 + [i32]
-                       + [vp] * 4)
+        fn.argtypes = light_args + [vp] * 4
+    lib.yrt_light_points_bwd.restype = i32
+    lib.yrt_light_points_bwd.argtypes = light_args + [vp, i32] + [vp] * 4
+    lib.yrt_light_points_bwd_scratch.restype = ctypes.c_longlong
+    lib.yrt_light_points_bwd_scratch.argtypes = [i32] * 3
     lib.yrt_overlap_refit.restype = i32
     lib.yrt_overlap_refit.argtypes = [vp] * 12 + [i32] * 2 + [vp] * 5
     lib.yrt_overlap.restype = i32

@@ -9,8 +9,8 @@ The comparisons that ``chip_smoke.py`` and the card tests
   plain ``shade_step`` on the same inputs and the same K1 shadow query,
   optionally with per-ray light positions; per output the largest ULP gap;
 * ``compare_camera_stochastic``: K7 and the plain stochastic ray chain;
-  ``compare_light_points``: K8 and the plain light sampling; per output
-  the largest ULP gap;
+  ``compare_light_points``: K8, its first form (``light_points_simple``)
+  and the plain light sampling; per output the largest ULP gap;
 * ``compare_shade_grads``: K5 and torch autograd of the plain version, for
   the same seeded cotangents (zero on masked lanes, whose gradient K5
   defines as zero), optionally with per-ray light positions; per leaf the
@@ -24,7 +24,14 @@ The comparisons that ``chip_smoke.py`` and the card tests
 * ``compare_camera_grads``: K6 and torch autograd of ``camera_rays_plain``;
   ``compare_camera_stochastic_grads``: K9 and torch autograd of the plain
   stochastic chain; ``compare_light_points_grads``: K10 and torch autograd
-  of the plain light sampling;
+  of the plain light sampling; ``compare_light_points_bwd``: K10 on one
+  cotangent against the explicit f64 reverse (per output the ULP gap),
+  its first form (``light_points_bwd_simple``) and a second run of
+  itself;
+* ``light_points_simple`` / ``light_points_bwd_simple``: K8's and K10's
+  first forms (``csrc/lights_simple.cu``), the other side of their
+  same-card comparisons; they count no launch, and no path of the package
+  calls them;
 * ``shade_graph`` / ``camera_graph`` / ``light_points_graph``: the
   autograd graphs those compare (and ``chip_smoke.py`` times);
 * ``overlap_gaps``: K11 and the plain overlap query on the same queries,
@@ -175,15 +182,76 @@ def compare_camera_stochastic(scene, ids, width, height, samples,
     return _gaps(("uv", "ro", "rd"), kern, plain)
 
 
+def light_points_simple(scene, sampler, ids, seed):
+    """K8's first form: the (L, N, 3) light points."""
+    out = torch.empty((sampler["cdf"].shape[0], ids.shape[0], 3),
+                      dtype=torch.float32, device=ids.device)
+    lights_mod._launch("yrt_light_points_simple", scene, sampler, ids, seed,
+                       scene.pos, scene.light_pos, out)
+    return out
+
+
+def light_points_bwd_simple(scene, sampler, ids, seed, g, num_verts):
+    """K10's first form: (d_pos, d_light_pos) from the (L, N, 3) cotangent
+    ``g``, its f64 atomic sums rounded to f32 once."""
+    d_pos = torch.zeros((num_verts, 3), dtype=torch.float64,
+                        device=ids.device)
+    d_light_pos = torch.zeros((sampler["cdf"].shape[0], 3),
+                              dtype=torch.float64, device=ids.device)
+    lights_mod._launch("yrt_light_points_bwd_simple", scene, sampler, ids,
+                       seed, g, d_pos, d_light_pos)
+    return d_pos.to(torch.float32), d_light_pos.to(torch.float32)
+
+
 def compare_light_points(scene, sampler, ids, seed) -> dict:
-    """K8 and the plain light sampling on the same ids: {'points': ULP
-    gap}, 'max_abs_err' and 'equal' (bit for bit)."""
+    """K8, its first form and the plain light sampling on the same ids:
+    {'points': ULP gap to plain}, 'max_abs_err', 'equal' (bit for bit to
+    plain) and 'simple_equal' (bit for bit to the first form)."""
     with torch.no_grad():
         kern = lights_mod.sample_light_points_cuda(scene, sampler, ids, seed)
         plain = lights_mod.sample_light_points_plain(scene, sampler, ids,
                                                      seed)
+        simple = light_points_simple(scene, sampler, ids, seed)
     out = _gaps(("points",), (kern,), (plain,))
     out["equal"] = bool(torch.equal(kern, plain))
+    out["simple_equal"] = bool(torch.equal(kern, simple))
+    return out
+
+
+# K10 against the f64 reverse: entries at most this share of the output's
+# largest may be off by more than 1 ULP (a sum that cancels keeps the f64
+# rounding of its terms, which the summation order moves)
+LIGHT_BWD_FLOOR = 1e-9
+
+
+def compare_light_points_bwd(scene, sampler, ids, seed, g) -> dict:
+    """K10 on the (L, N, 3) cotangent ``g``, per output (d_pos,
+    d_light_pos): against ``light_points_bwd_plain`` (both f64 sums
+    rounded once), 'ulp' the largest ULP gap over the entries above
+    LIGHT_BWD_FLOOR times the largest and 'small_abs' the largest
+    difference on the others; against its first form, 'simple' (relative
+    errors, as ``relative_errors``); 'repeat' (a second run of K10 bit for
+    bit equal)."""
+    nv = scene.pos.shape[0]
+    args = (scene, sampler, ids, seed, g, nv)
+    with torch.no_grad():
+        kern = lights_mod.light_points_bwd(*args)
+        again = lights_mod.light_points_bwd(*args)
+        plain = lights_mod.light_points_bwd_plain(*args)
+        simple = light_points_bwd_simple(*args)
+    out = {}
+    for k, (a, p) in enumerate(zip(kern, plain)):
+        floor = LIGHT_BWD_FLOOR * float(p.abs().max()) if p.numel() else 0.0
+        big = p.abs() > floor
+        diff = (a - p).abs()
+        out[("d_pos", "d_light_pos")[k]] = dict(
+            ulp=ulp_gap(a[big], p[big]),
+            small_abs=float(diff[~big].max()) if (~big).any() else 0.0,
+            floor=floor, max_abs=float(diff.max()) if diff.numel() else 0.0)
+    names = ("pos", "light_pos")
+    out["simple"] = relative_errors(dict(zip(names, kern)),
+                                    dict(zip(names, simple)))
+    out["repeat"] = all(bool(torch.equal(a, b)) for a, b in zip(kern, again))
     return out
 
 

@@ -20,7 +20,10 @@ raytrace.cpp:129-130).
   plain version for CPU tensors (differentiable by torch autograd), K8
   (``kernels/csrc/lights.cu``) for CUDA tensors, with K10, its reverse, in
   the backward (``LightPointsFn``): the points' gradient goes to ``pos``
-  and, for a light whose shape has no element, to ``light_pos``.
+  and, for a light whose shape has no element, to ``light_pos``;
+* ``cdf_search_plain``: K8's binary-search element pick, written out, and
+  ``light_points_bwd_plain``: K10's explicit f64 reverse, as references
+  for the two kernels.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 from ..kernels import _build
-from ..ops import sampling
+from ..ops import intersect as isect, sampling
 from ..scene import PRIM_LINE, PRIM_TRIANGLE
 from . import camera as camera_mod
 
@@ -93,21 +96,43 @@ def build_light_sampler(host, leaves, meta, device="cuda"):
                 deg=put([d for _, _, d in lights], np.bool_))
 
 
-def sample_light_points_plain(scene, sampler, ids, seed: int):
-    """Plain torch light points: ids (N,) i32 -> (L, N, 3) shape-space
-    positions, from ``per_ray_uniform(seed ^ 0x85EBCA6B, ids, 3)`` (element
-    pick, then the element's own one or two coordinates)."""
+def _pick(scene, sampler, ids, seed: int):
+    """The plain pick: the (N, 3) variates of ``seed ^ 0x85EBCA6B`` and the
+    (L, N) prim each light samples (inverse CDF by the dense count of
+    strictly smaller entries, so a tie picks what the JAX function
+    picks)."""
     ruv = camera_mod.per_ray_uniform((seed & camera_mod.U32)
                                      ^ LIGHT_SEED_XOR, ids, 3)
     cdf = sampler["cdf"]                      # (L, E)
-    total = cdf[:, -1]
-    x = ruv[None, :, 0] * total[:, None]      # (L, N)
-    # inverse CDF: count of strictly smaller entries (a dense compare, so a
-    # tie picks what the JAX function picks)
+    x = ruv[None, :, 0] * cdf[:, -1:]         # (L, N)
     idx = (cdf[:, None, :] < x[..., None]).sum(dim=-1)
     idx = torch.minimum(idx, (sampler["n"] - 1)[:, None].to(idx.dtype))
     prim = torch.clamp(sampler["prim_lo"][:, None] + idx, 0,
                        scene.prim_v.shape[0] - 1)
+    return ruv, prim
+
+
+def cdf_search_plain(cdf, x):
+    """K8's element pick as ``lights.cu::cdf_count`` runs it: per row of
+    ``cdf`` (L, E) and value of ``x`` (L, N), the lower bound of the
+    predicate ``cdf[m] < x`` by binary search, with the kernel's steps.
+    On every row that ``build_light_sampler`` makes it equals the dense
+    count ``(cdf[:, None, :] < x[..., None]).sum(-1)`` (the kernel's
+    header gives the argument; the CPU tests check it)."""
+    lo = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+    e = cdf.shape[1]
+    while e > 1:
+        half = e >> 1
+        lo = torch.where(torch.gather(cdf, 1, lo + half) < x, lo + half, lo)
+        e -= half
+    return lo + (torch.gather(cdf, 1, lo) < x).to(torch.int64)
+
+
+def sample_light_points_plain(scene, sampler, ids, seed: int):
+    """Plain torch light points: ids (N,) i32 -> (L, N, 3) shape-space
+    positions, from ``per_ray_uniform(seed ^ 0x85EBCA6B, ids, 3)`` (element
+    pick, then the element's own one or two coordinates)."""
+    ruv, prim = _pick(scene, sampler, ids, seed)
     pv = scene.prim_v[prim]                   # (L, N, 3)
     ptype = scene.prim_type[prim]             # (L, N)
     v0 = scene.pos[pv[..., 0]]
@@ -124,10 +149,44 @@ def sample_light_points_plain(scene, sampler, ids, seed: int):
                        scene.light_pos[:, None, :], out)
 
 
+def light_points_bwd_plain(scene, sampler, ids, seed: int, g,
+                           num_verts: int):
+    """K10's explicit reverse: the (L, N, 3) cotangent ``g`` of the light
+    points -> (d_pos (V, 3), d_light_pos (L, 3)). Each term ``g * w`` is
+    formed in f32 (a triangle's weights (1 - a - b, a, b), a line's
+    (1 - u, u), a point's 1), added into f64 sums with ``index_add_``, and
+    every sum is rounded to f32 once; a light whose shape has no element
+    sums its ``g`` into ``d_light_pos``."""
+    ruv, prim = _pick(scene, sampler, ids, seed)
+    deg = sampler["deg"][:, None].expand(prim.shape)
+    ptype = scene.prim_type[prim]
+    pv = scene.prim_v[prim]
+    u = ruv[None, :, 1].expand(prim.shape)
+    v = ruv[None, :, 2].expand(prim.shape)
+    sq = isect.sqrt(u)
+    a = 1.0 - sq
+    b = v * sq
+    tri = ptype == PRIM_TRIANGLE
+    line = ptype == PRIM_LINE
+    one = torch.ones_like(u)
+    weights = (torch.where(tri, 1.0 - a - b, torch.where(line, 1.0 - u, one)),
+               torch.where(tri, a, u), b)
+    counts = torch.where(tri, 3, torch.where(line, 2, 1))
+    d_pos = torch.zeros((num_verts, 3), dtype=torch.float64,
+                        device=g.device)
+    for j, w in enumerate(weights):
+        sel = ~deg & (counts > j)
+        d_pos.index_add_(0, pv[..., j][sel],
+                         (g * w[..., None])[sel].to(torch.float64))
+    d_light_pos = torch.where(sampler["deg"][:, None],
+                              g.to(torch.float64).sum(dim=1), 0.0)
+    return d_pos.to(torch.float32), d_light_pos.to(torch.float32)
+
+
 def _launch(name, scene, sampler, ids, seed, *tail):
     """Check the tables and topology, then launch ``name`` (K8 or K10,
     which share their leading arguments: ids, seed, the tables, prim_v,
-    prim_type); ``tail`` holds the pointers that differ."""
+    prim_type); ``tail`` holds the tensors (and ints) that differ."""
     dev = ids.device
     n = ids.shape[0]
     cdf = sampler["cdf"]
@@ -148,7 +207,8 @@ def _launch(name, scene, sampler, ids, seed, *tail):
         ptr(ids), n, seed & camera_mod.U32, ptr(cdf), nl, ne,
         ptr(sampler["n"]), ptr(sampler["prim_lo"]), ptr(sampler["deg"]),
         ptr(scene.prim_v), ptr(scene.prim_type), scene.prim_v.shape[0],
-        *(ptr(t) for t in tail), _build.current_stream())
+        *(ptr(t) if isinstance(t, torch.Tensor) else t for t in tail),
+        _build.current_stream())
     _build.check_launch(err, name)
 
 
@@ -185,17 +245,22 @@ class LightPointsFn(torch.autograd.Function):
 
 def light_points_bwd(scene, sampler, ids, seed: int, g, num_verts: int):
     """K10 launch: the (L, N, 3) cotangent ``g`` of the light points ->
-    (d_pos (V, 3), d_light_pos (L, 3)), f64 sums rounded to f32 once. CUDA
+    (d_pos (V, 3), d_light_pos (L, 3)), f64 sums rounded to f32 once; the
+    kernel writes every word, and its scratch is allocated here. CUDA
     only."""
     dev = ids.device
     nl = sampler["cdf"].shape[0]
-    _build.check_tensor("g", g, torch.float32, (nl, ids.shape[0], 3), dev)
-    d_pos = torch.zeros((num_verts, 3), dtype=torch.float64, device=dev)
-    d_light_pos = torch.zeros((nl, 3), dtype=torch.float64, device=dev)
-    _launch("yrt_light_points_bwd", scene, sampler, ids, seed, g, d_pos,
-            d_light_pos)
+    n = ids.shape[0]
+    _build.check_tensor("g", g, torch.float32, (nl, n, 3), dev)
+    d_pos = torch.empty((num_verts, 3), dtype=torch.float32, device=dev)
+    d_light_pos = torch.empty((nl, 3), dtype=torch.float32, device=dev)
+    scratch = torch.empty(
+        (_build.library().yrt_light_points_bwd_scratch(n, nl, num_verts),),
+        dtype=torch.uint8, device=dev)
+    _launch("yrt_light_points_bwd", scene, sampler, ids, seed, g, num_verts,
+            scratch, d_pos, d_light_pos)
     _build.launches["light_points_bwd"] += 1
-    return d_pos.to(torch.float32), d_light_pos.to(torch.float32)
+    return d_pos, d_light_pos
 
 
 def sample_light_points_cuda(scene, sampler, ids, seed: int):

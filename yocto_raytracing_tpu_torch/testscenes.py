@@ -9,7 +9,10 @@ the same float arithmetic, so every scene equals the JAX package's.
 * ``make_textured_hair_scene``: the hair scene with kd and ks checker
   textures (floor and sphere), for the texture branch of shading and d_uv;
 * ``make_grad_scene``: one triangle over a ``kr=0.5`` mirror, one light;
-* ``make_random_scene``: random mixed-primitive multi-instance scenes.
+* ``make_random_scene``: random mixed-primitive multi-instance scenes;
+* ``panel_grid``: the vertices and triangles of a square lamp panel as a
+  grid of cells, for mesh area lights (the port's own; no JAX
+  counterpart).
 """
 
 from __future__ import annotations
@@ -107,6 +110,23 @@ def quad_floor(name, half=4.0, y=0.0) -> HostShape:
     tc = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
     tris = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
     return _shape(name, pos, triangles=tris, texcoord=tc)
+
+
+def panel_grid(center, size=1.0, cells=32):
+    """A ``size`` square around ``center`` in its horizontal plane as a
+    grid of ``cells`` x ``cells`` cells, two triangles each, facing down:
+    (pos ((cells + 1)^2, 3) f32, triangles (2 cells^2, 3) i32). At
+    ``cells=1`` it is the four-vertex, two-triangle quad."""
+    c = np.asarray(center, np.float32)
+    t = np.linspace(-0.5 * size, 0.5 * size, cells + 1, dtype=np.float32)
+    z, x = np.meshgrid(t, t, indexing="ij")
+    pos = np.stack([x, np.zeros_like(x), z], axis=-1).reshape(-1, 3) + c
+    k = np.arange(cells + 1) * (cells + 1)
+    v00 = (k[:-1, None] + np.arange(cells)[None, :]).reshape(-1)
+    v10, v01, v11 = v00 + 1, v00 + cells + 1, v00 + cells + 2
+    tris = np.stack([np.stack([v00, v10, v11], -1),
+                     np.stack([v00, v11, v01], -1)], axis=1).reshape(-1, 3)
+    return pos.astype(np.float32), tris.astype(np.int32)
 
 
 def point_light_shape(name, p) -> HostShape:
