@@ -16,20 +16,30 @@ positions; against its first form, ``shade_bwd_simple.cu``, too, timed in
 turns with it, its light gradients bit-identical over two runs), K6 camera
 backward, K9 thin-lens camera backward and K10 light-points backward
 (relative L2 error <= 1e-4 per gradient leaf of torch autograd), K7
-stochastic camera rays, K8 area-light points and K11 overlap query with
-its refit kernel (bit-equal). K8 and K10 are also held against their first
-forms (``lights_simple.cu``) and timed in turns with them on the area
-hair frame's lights (a quad and a polyline), the area mirror frame's quad
-and a lamp panel of 2,048 triangles: K8 bit-equal to both, K10 within 1
-ULP of the explicit f64 reverse and 1e-4 of autograd and the first form,
-bit-identical over two runs where every light spans at most 8 vertices.
+stochastic camera rays, K8 area-light points, K11 overlap query with
+its refit kernel and K12, the device loop's bounce update (bit-equal; K12
+also writes nothing under a zero alive word). K8 and K10 are also held
+against their first forms (``lights_simple.cu``) and timed in turns with
+them on the area hair frame's lights (a quad and a polyline), the area
+mirror frame's quad and a lamp panel of 2,048 triangles: K8 bit-equal to
+both, K10 within 1 ULP of the explicit f64 reverse and 1e-4 of autograd
+and the first form, bit-identical over two runs where every light spans
+at most 8 vertices.
 Then it drives the port's seven paths through their user entry points:
 
 * rendering, ``render_scene_file(..., device="cuda")``: the hair scene
   (lines + triangles + two point lights; the stand-in for the reference's
   lines/refl scenes) at 910x512 with 4x4 samples, depth 4, and the mirror
   scene (``make_grad_scene``, a kr=0.5 mirror) at 512x512, 4x4 samples,
-  depth 4;
+  depth 4. The frame runs as the device loop (``frame_device``: one CUDA
+  graph of a chunk, replayed; K1, K2, K3, K4 and K12 in it); the phase
+  ``frame_device_loop`` holds its f32 sums bit-equal to the eager
+  per-chunk loop's (``frame_eager``) on the hair, mirror, area hair and
+  area mirror frames, timed in turns with it, and prints each frame's
+  wall, device busy time, idle share, device ops, copies to the host (1),
+  dead bounces and their device time in the graph frame's own profile, and
+  ``render_scene_file``'s wall split into load, build, upload and
+  ``render_image``;
 * training, ``parallel.mesh.train_step`` on 2**20 rays per step (the JAX
   bench's training batch) of the same two frames, towards a target rendered
   with perturbed ``mat_kd`` and ``light_ke``: step 1 with every float leaf
@@ -71,7 +81,12 @@ Then it drives the port's seven paths through their user entry points:
   ``render_image``; a missing scene exits 1 with ``error:`` first.
 
 Each path runs with the launch counts set to 0 just before it and read just
-after, and fails if a kernel of the path never launched.
+after, and fails if a kernel of the path never launched. A CUDA graph's
+replays count the launches it captured, those of dead bounces too (they
+return at once on the card); the ``kernels`` line gives them apart
+(``skipped``, the main path's own count, ``kernels.skipped_launches``) and
+leaves them, and their time in the main path's own profile, out of the
+device time per launch.
 
 Every phase raises on failure, so the exit code is non-zero unless all of
 them pass. Without a CUDA device it exits non-zero before printing any
@@ -128,7 +143,7 @@ OPS_PER_RAY = {"camera_rays": 45, "pixel_finish": 6,
                "shade": 360, "shade_bwd": 1100, "shade_bwd_lights": 1100,
                "camera_bwd": 110, "camera_rays_stochastic": 150,
                "camera_bwd_stochastic": 210, "light_points": 60,
-               "light_points_bwd": 75}
+               "light_points_bwd": 75, "bounce": 15}
 # K11's operations per (query, prim) pair by prim type, counted from
 # overlap.cu (the triangle's cascade at its face case), and per (query,
 # instance) for the move into the instance frame
@@ -162,6 +177,18 @@ WALK_OPS = {"nodes": 50, "point_tests": 25, "line_tests": 60,
 # the kernels of one overlap_scene call on the card
 OVERLAP_KERNELS = ("overlap", "overlap_refit")
 K3_ROUNDS = 8            # K3 launches per profile
+BOUNCE_ROUNDS = 20       # K12 launches per profile
+# the bounce launches of the device loop, by launch-count key, whose dead
+# launches are reported apart
+BOUNCE_KERNELS = ("hit_nearest", "hit_any", "shade", "bounce")
+# the device functions of one bounce of the device loop in launch order,
+# each with its launch-count key: K1 nearest, K4 prep, K1 any hit, K4
+# finish, K12; a scene without lights launches no prep and no any hit
+BOUNCE_SEQUENCE = (("hit_nearest", "hit_nearest_kernel"),
+                   ("shade", "shade_prep_kernel"),
+                   ("hit_any", "hit_any_kernel"),
+                   ("shade", "shade_finish_kernel"),
+                   ("bounce", "bounce_kernel"))
 PANEL_CELLS = 32         # the lamp panel light: 32 x 32 cells, 2,048 triangles
 K3_BIG_SPP = 4900        # render_image's spp at --samples 70
 # idle host seconds on each side of a profiled call, their growth from one
@@ -215,12 +242,15 @@ def event_ms(fn) -> float:
     return start.elapsed_time(stop)
 
 
-def profile_summary(fn, label: str, expect=()) -> dict:
+def profile_summary(fn, label: str, expect=(), check=None) -> dict:
     """One call of ``fn`` under torch.profiler: wall ms (host clock, ends in
     a synchronize), device busy ms (sum of the trace's device events), the
     idle share of the wall, the number of device ops, the top ops, the
-    device microseconds of every op name (``by_name``) and the count of
-    every host event name (``host``).
+    device microseconds of every op name (``by_name``), the device events
+    in the order they started (``events``: name, us) and the count of
+    every host event name (``host``). ``check``, when given, is called on
+    ``events`` after the call; what it returns is kept as ``checked``, and
+    a ValueError from it says the trace lost events.
 
     The profiled window is padded with idle host time on each side of the
     call, so that device events whose converted timestamps land outside the
@@ -252,6 +282,14 @@ def profile_summary(fn, label: str, expect=()) -> dict:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us())
         lost = [k for k in expect if not device_us(by_name, k)]
+        events = [(e.name, e.time_range.elapsed_us()) for e in
+                  sorted(evs, key=lambda e: e.time_range.start)]
+        checked = None
+        if evs and not lost and check is not None:
+            try:
+                checked = check(events)
+            except ValueError as exc:
+                lost = [str(exc)]
         if evs and not lost:
             break
         log(f"profile {label}: attempt {attempt} of {PROFILE_ATTEMPTS} "
@@ -268,7 +306,9 @@ def profile_summary(fn, label: str, expect=()) -> dict:
     busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out = dict(wall_ms=wall, busy_ms=busy, idle=1.0 - busy / wall,
-               ops=len(evs), by_name=by_name, host=host)
+               ops=len(evs), by_name=by_name, events=events, host=host,
+               checked=checked,
+               d2h=sum(e.name.startswith("Memcpy DtoH") for e in evs))
     log(f"profile {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
         f"idle share {out['idle']:.3f}, device ops {len(evs)}; top: "
         + "; ".join(f"{n[:48]} {t / 1e3:.2f} ms" for n, t in top))
@@ -302,7 +342,8 @@ DEVICE_FUNCTIONS = {
     "light_points_bwd_simple": ("simple::light_points_bwd_kernel",),
     "overlap": ("overlap_kernel",),
     "overlap_refit": ("overlap_parent_kernel", "overlap_refit_kernel"),
-    "overlap_simple": ("simple::overlap_kernel",)}
+    "overlap_simple": ("simple::overlap_kernel",),
+    "bounce": ("bounce_kernel",)}
 
 
 def device_us(by_name: dict, kernel: str) -> float:
@@ -313,15 +354,58 @@ def device_us(by_name: dict, kernel: str) -> float:
                    f"yrt::{fn}(" for fn in DEVICE_FUNCTIONS[kernel])))
 
 
-def device_ms(prof: dict, kernel: str, launches: int) -> float:
+def device_ms(prof: dict, kernel: str, launches: int,
+              dead=(0, 0.0)) -> float:
     """Device milliseconds per launch of ``kernel`` in a profiled path run
     (its device functions' summed time over the wrapper's launches): the
-    kernel alone, without the host work around its launch."""
+    kernel alone, without the host work around its launch. ``dead`` =
+    (launches, their device us in the same profile) of the path's
+    dead-bounce launches, which returned at once: they are taken out, time
+    and count."""
     us = device_us(prof["by_name"], kernel)
     if us == 0:
         raise AssertionError(f"the profile of {kernel}'s path holds none "
                              f"of its device functions")
-    return us / 1e3 / launches
+    skipped, dead_us = dead
+    return (us - dead_us) / 1e3 / (launches - skipped)
+
+
+def dead_bounce_time(events, record) -> dict:
+    """The device loop's dead bounces in a profiled frame. ``events`` are
+    the trace's device events in the order they started
+    (``profile_summary``), ``record`` the frame's ``kernels.last_frame()``.
+    The launches of the bounce kernels go a bounce (BOUNCE_SEQUENCE) after
+    another, chunk after chunk, each bounce matched to its chunk's alive
+    word in the record: returns the dead bounces ("bounces"), their
+    launches by BOUNCE_KERNELS key ("launches"), their device us by key
+    ("us") and in all ("total_us"). Raises ValueError where the launches do
+    not fit the record (the tracer lost one)."""
+    ran = record["ran"].cpu()
+    chunks, depth = ran.shape[0], ran.shape[1] - 1
+    seq = [(k, fn) for k, fn in BOUNCE_SEQUENCE if record["lights"]
+           or fn not in ("shade_prep_kernel", "hit_any_kernel")]
+    fns = [fn for _, fn in seq]
+    launched = [(name[5:].split("(")[0], us) for name, us in events
+                if name.startswith(tuple(f"yrt::{fn}(" for fn in fns))]
+    m = len(seq)
+    if len(launched) != chunks * depth * m:
+        raise ValueError(f"{len(launched)} bounce launches, not "
+                         f"{chunks * depth * m}")
+    out = dict(bounces=0, launches=dict.fromkeys(BOUNCE_KERNELS, 0),
+               us=dict.fromkeys(BOUNCE_KERNELS, 0.0))
+    for b in range(chunks * depth):
+        group = launched[b * m:(b + 1) * m]
+        if [fn for fn, _ in group] != fns:
+            raise ValueError(f"bounce {b}: launches {[g[0] for g in group]}")
+        if ran[b // depth, b % depth]:
+            continue
+        out["bounces"] += 1
+        for key in dict.fromkeys(k for k, _ in seq):
+            out["launches"][key] += 1
+        for (key, _), (_, us) in zip(seq, group):
+            out["us"][key] += us
+    out["total_us"] = sum(out["us"].values())
+    return out
 
 
 def nbytes(*tensors) -> int:
@@ -857,17 +941,19 @@ def phase_hit_frame(name, scene, meta, width, **trace_kw) -> dict:
 
 
 def check_simple_k4_frame(name, scene, meta, width, height, **kw) -> None:
-    """The f32 frame of ``render_image`` (RES rows, SAMPLES, DEPTH,
-    CHUNK_PIXELS; ``kw`` for the stochastic modes) through K4 and through
-    its first form, the renderer's ``shade.shade_step`` swapped for
-    ``parity.shade_step_simple`` for the call: equal bit for bit."""
+    """The f32 sums of the eager frame (``frame_eager``: RES rows, SAMPLES,
+    DEPTH, CHUNK_PIXELS; ``kw`` for the stochastic modes) through K4 and
+    through its first form, the renderer's ``shade.shade_step`` swapped for
+    ``parity.shade_step_simple`` for the call: equal bit for bit. (The
+    device loop's frame, which launches K4 itself, equals the eager frame
+    bit for bit: ``phase_frame_device_loop``.)"""
     from yocto_raytracing_tpu_torch.kernels import parity
     from yocto_raytracing_tpu_torch.render import renderer, shade
 
     def frame():
-        return renderer.render_image(scene, meta, width, height, SAMPLES,
-                                     max_depth=DEPTH,
-                                     chunk_pixels=CHUNK_PIXELS, **kw)
+        return renderer.frame_eager(scene, meta, width, height, SAMPLES,
+                                    max_depth=DEPTH,
+                                    chunk_pixels=CHUNK_PIXELS, **kw)
 
     def simple(scene_, ro, rd, hits, amb, active, occluder,
                has_kd_textures=True, has_ks_textures=True, light_pos=None,
@@ -884,21 +970,25 @@ def check_simple_k4_frame(name, scene, meta, width, height, **kw) -> None:
     finally:
         shade.shade_step = shade_step
     same = np.array_equal(new.view(np.int32), old.view(np.int32))
-    log(f"frame {name}: the f32 frame through K4 bit-equal to the one "
-        f"through its first form: {same}")
+    log(f"frame {name}: the eager loop's f32 frame through K4 bit-equal to "
+        f"the one through its first form: {same}")
     if not same:
         raise AssertionError(f"frame {name}: K4 and its first form differ "
                              f"on {int((new != old).any(-1).sum())} pixels")
 
 
-FRAME_KERNELS = ("hit", "hit_any", "camera_rays", "pixel_finish", "shade")
+FRAME_KERNELS = ("hit", "hit_any", "camera_rays", "pixel_finish", "shade",
+                 "bounce")
 TRAIN_KERNELS = ("hit", "camera_rays", "shade", "shade_bwd", "camera_bwd")
 
 
 def phase_frame(path, resolution, samples, max_depth, device, dev_info,
                 name) -> dict:
-    """One frame through render_scene_file on the card, its launch counts,
-    and the first COMPARE_PIXELS pixels against the all-plain path."""
+    """One frame through render_scene_file on the card: its launch counts
+    and those of them that returned at once in dead bounces
+    (``kernels.skipped_launches``); a warm profile, in which the dead
+    bounces' launches are told apart (``dead_bounce_time``) and counted
+    alike; the first COMPARE_PIXELS pixels against the all-plain path."""
     from yocto_raytracing_tpu_torch import kernels
     from yocto_raytracing_tpu_torch.render import renderer
 
@@ -911,12 +1001,15 @@ def phase_frame(path, resolution, samples, max_depth, device, dev_info,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(kernels.launches)
+    skipped = kernels.skipped_launches()
     height, width = img.shape[:2]
     spp = samples * samples
     rays = width * height * spp
     log(f"frame {name}: {width}x{height} x {spp} spp = {rays} primary rays, "
         f"depth {max_depth}: {wall:.3f} s wall, {rays / wall / 1e6:.3f} "
-        f"Mrays/s on {dev_info['smi']}; launches {counts}")
+        f"Mrays/s on {dev_info['smi']}; launches {counts}; of them in "
+        f"{skipped['bounces']} dead bounces "
+        + str({k: v for k, v in skipped.items() if v and k != "bounces"}))
     if img.shape != (resolution, width, 4) or img.dtype != np.uint8:
         raise AssertionError(f"frame {name}: bad image {img.shape} "
                              f"{img.dtype}")
@@ -929,7 +1022,16 @@ def phase_frame(path, resolution, samples, max_depth, device, dev_info,
         path, resolution, samples, max_depth=max_depth,
         chunk_pixels=CHUNK_PIXELS, device=device, ldr=True),
         f"warm frame {name}",
-        ("hit_nearest", "hit_any", "camera_rays", "pixel_finish", "shade"))
+        ("hit_nearest", "hit_any", "camera_rays", "pixel_finish", "shade"),
+        check=lambda ev: dead_bounce_time(ev, kernels.last_frame()))
+    dead = prof["checked"]
+    log(f"frame {name}: in the warm profile {dead['bounces']} dead bounces, "
+        f"{dead['total_us']:.1f} us of device time ("
+        + ", ".join(f"{k} {dead['launches'][k]} launches {dead['us'][k]:.1f}"
+                    for k in BOUNCE_KERNELS) + " us)")
+    if dead["bounces"] != skipped["bounces"]:
+        raise AssertionError(f"frame {name}: {dead['bounces']} dead bounces "
+                             f"in the profile, {skipped['bounces']} counted")
 
     # all-plain path on the card, first COMPARE_PIXELS pixels
     npix = min(COMPARE_PIXELS, width * height)
@@ -953,11 +1055,13 @@ def phase_frame(path, resolution, samples, max_depth, device, dev_info,
     if d.max() > 1:
         raise AssertionError(f"frame {name}: {d.max()} u8 steps off plain")
     check_simple_k4_frame(name, scene, meta, width, height)
-    return dict(counts=counts, wall=wall, rays=rays, image=img, prof=prof)
+    skipped["hit_nearest"] = skipped["hit"] - skipped["hit_any"]
+    return dict(counts=counts, skipped=skipped, wall=wall, rays=rays,
+                image=img, prof=prof)
 
 
 STOCHASTIC_KERNELS = ("hit", "hit_any", "camera_rays_stochastic",
-                      "light_points", "shade", "pixel_finish")
+                      "light_points", "shade", "pixel_finish", "bounce")
 
 
 def set_geometry(shp, pos, lines=(), triangles=()):
@@ -1204,6 +1308,195 @@ def phase_point_light_area(path, deterministic, device):
     if not np.array_equal(img, deterministic):
         raise AssertionError("point-light area frame differs from the "
                              "deterministic frame")
+
+
+def bounce_state(seed: int, n: int, device) -> list:
+    """A random bounce at ``n`` rays on the card, made with numpy from a
+    seed: acc, thr, color, kr, p, refl_dir (N, 3) f32 and mask (N,) bool,
+    with dead lanes, kr of 0 and -0.0, NaN kr and NaN colors on masked
+    lanes."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    acc = rng.uniform(-1, 4, (n, 3)).astype(f)
+    thr = rng.uniform(0, 1, (n, 3)).astype(f)
+    color = rng.uniform(0, 2, (n, 3)).astype(f)
+    kr = rng.uniform(-0.2, 1, (n, 3)).astype(f)
+    pick = rng.integers(0, 6, (n, 3))
+    kr[pick == 0] = 0.0
+    kr[pick == 1] = -0.0
+    kr[(pick == 2) & (rng.uniform(size=(n, 3)) < 0.1)] = np.nan
+    p = rng.normal(size=(n, 3)).astype(f)
+    refl = rng.normal(size=(n, 3)).astype(f)
+    mask = rng.uniform(size=n) < 0.7
+    color[~mask & (rng.uniform(size=n) < 0.5)] = np.nan
+    return [torch.from_numpy(x).to(device)
+            for x in (acc, thr, color, kr, p, refl, mask)]
+
+
+def phase_bounce_kernel(device) -> dict:
+    """K12 against its plain version (``bounce_update_plain``) at a chunk's
+    524,288 rays (CHUNK_PIXELS at SAMPLES x SAMPLES): acc, thr, ro, rd and
+    tmax bit-equal, the next alive word set as any(cont); with a zero alive
+    word nothing written. Its timed call, plain time and device time per
+    launch, live and dead, beside its bound."""
+    from yocto_raytracing_tpu_torch.render import renderer
+
+    n = CHUNK_PIXELS * SAMPLES * SAMPLES
+    acc, thr, color, kr, p, refl, mask = bounce_state(SEED, n, device)
+    want = renderer.bounce_update_plain(acc, thr, color, kr, p, refl, mask)
+    state = [acc.clone(), thr.clone(), torch.zeros_like(acc),
+             torch.zeros_like(acc), torch.zeros(n, device=device)]
+    words = torch.tensor([1, 0, 0, 0], dtype=torch.int32, device=device)
+    ins = (color, kr, p, refl, mask)
+    renderer.bounce_update_cuda(*state, *ins, words[0:1], words[1:2])
+    tmax = torch.where(want[4], float(FLT_MAX), float(-FLT_MAX))
+    err = 0.0
+    for name, a, b in zip(("acc", "thr", "ro", "rd", "tmax"), state,
+                          (*want[:4], tmax)):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"K12 {name}: differs from plain on "
+                                 f"{int((a != b).sum())} values")
+        both = torch.isfinite(a) & torch.isfinite(b)
+        err = max(err, float((a[both] - b[both]).abs().max()))
+    if words[1].item() != int(want[4].any()):
+        raise AssertionError("K12: the next alive word is wrong")
+    before = [t.clone() for t in state]
+    renderer.bounce_update_cuda(*state, *ins, words[2:3], words[3:4])
+    if words[3].item() or not all(
+            torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for a, b in zip(state, before)):
+        raise AssertionError("K12 wrote under a zero alive word")
+
+    def launch(word):
+        return lambda: renderer.bounce_update_cuda(*state, *ins, word,
+                                                   words[1:2])
+
+    # the bytes this state needs: every lane reads color, kr, mask, acc and
+    # thr and writes acc, ro, rd and tmax; a lane that goes on also reads p
+    # and refl_dir and writes thr
+    live = int(want[4].sum())
+    moved = (nbytes(color, kr, mask, acc, thr)
+             + nbytes(state[0], state[2], state[3], state[4])
+             + live * 3 * 12)
+
+    dev_us = {}
+    for what, word in (("live", words[0:1]), ("dead", words[2:3])):
+        prof = profile_summary(
+            lambda f=launch(word): [f() for _ in range(BOUNCE_ROUNDS)],
+            f"K12 {what}", ("bounce",))
+        dev_us[what] = device_us(prof["by_name"], "bounce") / BOUNCE_ROUNDS
+    rec = dict(
+        max_abs_err=err, ms=cuda_ms(launch(words[0:1]), 20),
+        plain_ms=cuda_ms(lambda: renderer.bounce_update_plain(
+            acc, thr, color, kr, p, refl, mask), 5),
+        library_ms=None, device_us=dev_us["live"],
+        dead_device_us=dev_us["dead"],
+        **bound("bounce", moved, n))
+    log(f"K12 bounce: {n} rays, acc, thr, ro, rd and tmax bit-equal to "
+        f"plain, the alive word set, nothing written under a zero word; "
+        f"timed call {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms; "
+        f"device us per launch (profiler) {dev_us['live']:.2f}, dead "
+        f"{dev_us['dead']:.2f}; bound {rec['bound_ms'] * 1e3:.2f} us "
+        f"({rec['bound_by']}, {moved / n:.1f} bytes a ray, {live} of the "
+        f"rays go on)")
+    return rec
+
+
+def phase_frame_device_loop(frames, device, dev_info) -> None:
+    """The device loop (``frame_device``: a CUDA graph of a chunk, replayed
+    over the frame) against the eager per-chunk loop (``frame_eager``) on
+    the four frames (RES rows, SAMPLES, DEPTH, CHUNK_PIXELS; the area
+    frames stochastic with seed SEED), both ending in the frame's f32 sums
+    on the host: in turns (eager, graph, graph, eager), wall per call, and
+    for each graph call the host's enqueue time in the set-up, chunk 0, the
+    capture and the replays; one profile of each (device busy time, idle
+    share, device ops, copies to the host: 1 for the graph), the graph's
+    with its dead bounces' launches told apart and their device time
+    (``dead_bounce_time``); the growth of the reserved device memory over
+    the calls in turns; the f32 sums equal bit for bit. Also
+    ``render_scene_file``'s wall split into scene load, device scene and BVH
+    build, upload and ``render_image``."""
+    from yocto_raytracing_tpu_torch import kernels, scene as scene_lib
+    from yocto_raytracing_tpu_torch.render import lights, renderer
+
+    for name, path, area in frames:
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        host = scene_lib.load_scene(path)
+        t.append(time.perf_counter())
+        leaves, meta = scene_lib.build_device_scene(host)
+        t.append(time.perf_counter())
+        scene = scene_lib.to_torch(leaves, device)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        sampler = (lights.build_light_sampler(host, leaves, meta, device)
+                   if area else None)
+        width = renderer.image_width(host.cameras[0].aspect, RES)
+        kw = dict(max_depth=DEPTH, chunk_pixels=CHUNK_PIXELS,
+                  stochastic=area, seed=SEED, light_sampler=sampler)
+        renderer.render_image(scene, meta, width, RES, SAMPLES, ldr=True,
+                              **kw)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        split = np.diff(t) * 1e3
+        npix = width * RES
+
+        def graph():
+            return renderer.to_host(renderer.frame_device(
+                scene, meta, width, RES, SAMPLES, **kw)[:npix])
+
+        def eager():
+            return renderer.frame_eager(scene, meta, width, RES, SAMPLES,
+                                        **kw)
+
+        same = np.array_equal(graph().view(np.int32),
+                              eager().view(np.int32))
+        walls, host_ms = [], []
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        for fn in (eager, graph, graph, eager):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if fn is graph:
+                host_ms.append(kernels.last_frame()["host_ms"])
+        grown = (torch.cuda.memory_reserved() - reserved) / 2 ** 20
+        expect = ("hit_nearest", "hit_any", "shade", "pixel_finish",
+                  "camera_rays_stochastic" if area else "camera_rays")
+        g = profile_summary(
+            graph, f"frame {name} graph", expect + ("bounce",),
+            check=lambda ev: dead_bounce_time(ev, kernels.last_frame()))
+        chunks = kernels.last_frame()["ran"].shape[0]
+        e = profile_summary(eager, f"frame {name} eager", expect)
+        dead = g["checked"]
+        log(f"frame_device_loop {name}: {width}x{RES} x {SAMPLES ** 2} spp, "
+            f"depth {DEPTH}, {chunks} chunks; f32 sums graph == "
+            f"eager bit for bit: {same}; wall ms in turns (eager, graph, "
+            f"graph, eager) " + ", ".join(f"{w:.2f}" for w in walls)
+            + f"; device busy ms graph {g['busy_ms']:.3f} / eager "
+            f"{e['busy_ms']:.3f}, idle share {g['idle']:.3f} / "
+            f"{e['idle']:.3f}, device ops {g['ops']} / {e['ops']}, copies "
+            f"to the host {g['d2h']} / {e['d2h']}; dead bounces in the "
+            f"graph's profile {dead['bounces']} of {chunks * DEPTH}, "
+            f"{dead['total_us'] / 1e3:.3f} ms of its device time ("
+            + ", ".join(f"{k} {dead['launches'][k]} launches "
+                        f"{dead['us'][k]:.1f} us" for k in BOUNCE_KERNELS)
+            + "); frame_device's host ms (enqueue) in the two graph calls "
+            + "; ".join(", ".join(f"{k} {v:.2f}" for k, v in h.items())
+                        for h in host_ms)
+            + f"; reserved device memory grew {grown:.1f} MiB over the "
+            f"four calls in turns; render_scene_file split ms: load "
+            f"{split[0]:.2f}, device scene and BVH {split[1]:.2f}, upload "
+            f"{split[2]:.2f}, render_image {split[3]:.2f}; on "
+            f"{dev_info['smi']}")
+        if not same:
+            raise AssertionError(f"frame_device_loop {name}: the graph's "
+                                 f"f32 sums differ from the eager loop's")
+        if g["d2h"] != 1:
+            raise AssertionError(f"frame_device_loop {name}: {g['d2h']} "
+                                 f"copies to the host, not 1")
 
 
 def phase_small_reference(path, device):
@@ -2686,6 +2979,7 @@ def run_phases(dev_info, device, shade_regs, plain_walk, t_start) -> None:
                                  device)
         width = renderer.image_width(hair.cameras[0].aspect, RES)
         rec = phase_frame_kernels(hscene, width, RES, SAMPLES, device)
+        rec["bounce"] = phase_bounce_kernel(device)
         rec.update(phase_hit_frame("hair", hscene, hmeta, width))
         # (name, scene, meta, width, height, bounce, rays from the end)
         cases = [("hair", hscene, hmeta, width, RES, 1, False),
@@ -2722,6 +3016,10 @@ def run_phases(dev_info, device, shade_regs, plain_walk, t_start) -> None:
                                             "area hair")
         phase_area_frame(area_mirror_obj, device, dev_info, "area mirror")
         phase_point_light_area(hair_obj, main_frame["image"], device)
+        phase_frame_device_loop(
+            [("hair", hair_obj, False), ("mirror", grad_obj, False),
+             ("area hair", area_hair_obj, True),
+             ("area mirror", area_mirror_obj, True)], device, dev_info)
         rec.update(phase_reverse_kernels(scene_lib.load_scene(area_hair_obj),
                                          device))
         panel_obj = os.path.join(tmp, "area_hair_panel.obj")
@@ -2790,12 +3088,22 @@ def run_phases(dev_info, device, shade_regs, plain_walk, t_start) -> None:
         "overlap_refit": ("overlap.cu",
                           "yocto_raytracing_tpu/ops/overlap.py:244",
                           overlap_path),
+        "bounce": ("bounce.cu", "yocto_raytracing_tpu/render/renderer.py:179",
+                   main_frame),
     }
-    kernels_rec = [dict(name=k, route="cuda", source=src + f, replaces=r,
-                        launches=path["counts"][k], **rec[k],
-                        device_ms=device_ms(path["prof"], k,
-                                            path["counts"][k]))
-                   for k, (f, r, path) in table.items()]
+    # the launches of the main path's dead bounces (returned at once):
+    # counted in its run (``skipped``), told apart in its profile, and taken
+    # out of the device time per launch
+    kernels_rec = []
+    for k, (f, r, path) in table.items():
+        skipped = path.get("skipped", {}).get(k, 0)
+        dead = path["prof"]["checked"] if "skipped" in path else None
+        dead_us = dead["us"].get(k, 0.0) if dead else 0.0
+        kernels_rec.append(dict(
+            name=k, route="cuda", source=src + f, replaces=r,
+            launches=path["counts"][k], skipped=skipped, **rec[k],
+            device_ms=device_ms(path["prof"], k, path["counts"][k],
+                                (skipped, dead_us))))
     by_name = {r["name"]: r for r in kernels_rec}
     k4_regs = {k: v for k, v in shade_regs.items() if "bwd" not in k
                and "light_sum" not in k}
@@ -2875,7 +3183,8 @@ def run_phases(dev_info, device, shade_regs, plain_walk, t_start) -> None:
         f"{p['library_device_us']:.2f}, bound {p['bound_ms'] * 1e3:.2f}; on "
         f"{dev_info['smi']}")
     for r in kernels_rec:
-        log(f"{r['name']}: {r['launches']} launches on its path; per "
+        log(f"{r['name']}: {r['launches']} launches on its path, "
+            f"{r['skipped']} of them in dead bounces; per live "
             f"launch there, device {r['device_ms'] * 1e3:.1f} us (profiler) "
             f"against a bound of {r['bound_ms'] * 1e3:.2f} us at the "
             f"timed shape; timed call {r['ms']:.4f} ms (CUDA events around "

@@ -34,7 +34,13 @@ wrapper synchronising no host, and its refit kernel word for word equal to
 the plain refit;
 ``train_step_sharded`` in a one-rank NCCL group equal to ``train_step``,
 and the CLI on the card writing the host tonemap of ``render_image`` (also
-checkpointed and resumed, and ``--sharded``).
+checkpointed and resumed, and ``--sharded``); the device loop: K12
+bit-equal to ``bounce_update_plain`` with and without a zero alive word,
+K1 and K4 under a zero alive word leaving their outputs as they were, the
+frame of ``frame_device`` (a CUDA graph of a chunk, replayed) bit-equal
+to the eager loop's in f32 sums and u8 on the hair, mirror, area hair and
+area mirror frames with its launch counts the eager loop's plus its dead
+bounces' launches, and two ``render_image`` calls the same bits.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed:
@@ -53,6 +59,7 @@ import pytest
 import torch
 
 import light_pick_rows
+from bounce_states import random_bounce
 from torch_card import cuda_device  # noqa: F401  (fixture)
 from yocto_raytracing_tpu_torch import kernels
 from yocto_raytracing_tpu_torch import scene as scene_lib, testscenes
@@ -1035,3 +1042,231 @@ def test_cli_on_the_card(cuda_device, tmp_path):
         assert cli.main(base + extra + [obj]) == 0
         np.testing.assert_array_equal(image.load_image4b(png), want,
                                       err_msg=" ".join(extra))
+
+
+# --------------------------------------------------------------------------
+# the device loop: K12, the alive word, the CUDA graph of a chunk
+# --------------------------------------------------------------------------
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("word", [None, 1, 0], ids=["no_word", "alive",
+                                                    "dead"])
+def test_bounce_kernel_matches_plain(cuda_device, word):
+    """K12 in place == bounce_update_plain bit for bit, tmax and the next
+    alive word too; with a zero alive word it writes nothing."""
+    n = 100_003
+    acc, thr, color, kr, p, refl, mask = (
+        torch.from_numpy(x).to(cuda_device) for x in random_bounce(11, n))
+    want = renderer.bounce_update_plain(acc, thr, color, kr, p, refl, mask)
+    state = [acc.clone(), thr.clone(),
+             torch.full((n, 3), 7.0, device=cuda_device),
+             torch.full((n, 3), 7.0, device=cuda_device),
+             torch.zeros(n, device=cuda_device)]
+    before = [t.clone() for t in state]
+    alive = torch.tensor([0 if word is None else word, 0],
+                         dtype=torch.int32, device=cuda_device)
+    kernels.reset_launches()
+    renderer.bounce_update(*state, color, kr, p, refl, mask,
+                           None if word is None else alive[0:1], alive[1:2])
+    torch.cuda.synchronize()
+    assert kernels.launches["bounce"] == 1
+    if word == 0:
+        assert all(_same_bits(a, b) for a, b in zip(state, before))
+        assert alive.tolist() == [0, 0]
+        return
+    for name, a, b in zip(("acc", "thr", "ro", "rd"), state, want):
+        assert _same_bits(a, b), name
+    tmax = torch.where(want[4], float(FLT_MAX), float(-FLT_MAX))
+    assert _same_bits(state[4], tmax)
+    assert alive[1].item() == int(want[4].any())
+
+
+@pytest.mark.cuda
+def test_dead_word_leaves_hit_and_shade_outputs(cuda_device):
+    """K1 (both kinds) and K4 (prep and finish) with a zero alive word
+    leave every output as it was; with a word of 1 they give the answers
+    of the launches without a word."""
+    import ctypes
+
+    from yocto_raytracing_tpu_torch.kernels import _build
+    from yocto_raytracing_tpu_torch.ops import hit_records, shade_records
+
+    ts, meta = _scene(testscenes.make_hair_scene(64), cuda_device)
+    n = 5_000
+    ro, rd, tmin, tmax = _rays(1, n, cuda_device)
+    zero = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    one = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    recs = hit_records.pack(ts)
+    lib = _build.library()
+    ptr = _build.ptr
+    for any_hit in (False, True):
+        outs = [torch.ones(n, dtype=torch.bool, device=cuda_device),
+                torch.full((n,), -7, dtype=torch.int32, device=cuda_device),
+                torch.full((n,), -7, dtype=torch.int32, device=cuda_device),
+                torch.full((n,), 123.0, device=cuda_device)]
+        before = [t.clone() for t in outs]
+        err = lib.yrt_hit(
+            ptr(recs.nodes), ptr(recs.prims), ptr(recs.insts),
+            ptr(recs.node_count), recs.insts.shape[0], ptr(ro), ptr(rd),
+            ptr(tmin), ptr(tmax), n, int(any_hit), *(ptr(t) for t in outs),
+            ptr(zero), _build.current_stream())
+        _build.check_launch(err, "yrt_hit")
+        torch.cuda.synchronize()
+        assert all(_same_bits(a, b) for a, b in zip(outs, before))
+        a = traverse.intersect_scene_cuda(ts, ro, rd, tmin, tmax, any_hit,
+                                          records=recs, alive=one)
+        b = traverse.intersect_scene_cuda(ts, ro, rd, tmin, tmax, any_hit,
+                                          records=recs)
+        assert all(_same_bits(a[k], b[k]) for k in a)
+    # K4 on the camera rays' hits
+    ids = torch.arange(96 * 54, dtype=torch.int32, device=cuda_device)
+    _, cro, crd = camera.camera_rays(ts, ids, 96, 54, 1)
+    m = ids.shape[0]
+    ctmin = torch.full((m,), 1e-4, device=cuda_device)
+    hits = traverse.intersect_scene_cuda(
+        ts, cro, crd, ctmin, torch.full((m,), float(FLT_MAX),
+                                        device=cuda_device), records=recs)
+    amb = torch.full((3,), 0.1, device=cuda_device)
+    srec = shade_records.pack(ts)
+    leaves = {k: getattr(ts, k) for k in shade.GRAD_LEAVES}
+    nl = ts.light_ke.shape[0]
+    args = shade._shade_args(ts, leaves, amb, meta.has_kd_textures,
+                             meta.has_ks_textures, None, m, srec, zero)
+    io = (ptr(cro), ptr(crd), ptr(hits["inst"]), ptr(hits["prim"]),
+          ptr(hits["hit"]))
+    sh = [torch.full((nl, m, 3), 123.0, device=cuda_device),
+          torch.full((nl, m, 3), 123.0, device=cuda_device),
+          torch.full((nl, m), 123.0, device=cuda_device),
+          torch.full((nl, m), 123.0, device=cuda_device)]
+    fin = [torch.full((m, 3), 123.0, device=cuda_device) for _ in range(4)]
+    before = [t.clone() for t in sh + fin]
+    occ = torch.zeros((nl, m), dtype=torch.bool, device=cuda_device)
+    err = lib.yrt_shade_prep(ctypes.byref(args), *io, m,
+                             *(ptr(t) for t in sh), _build.current_stream())
+    _build.check_launch(err, "yrt_shade_prep")
+    err = lib.yrt_shade_finish(ctypes.byref(args), *io, ptr(occ), m,
+                               *(ptr(t) for t in fin),
+                               _build.current_stream())
+    _build.check_launch(err, "yrt_shade_finish")
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(sh + fin, before))
+
+    def occluder(p, d, tmin_, tmax_, mask):
+        res = traverse.intersect_scene_cuda(
+            ts, p.reshape(-1, 3), d.reshape(-1, 3), tmin_.reshape(-1),
+            torch.where(mask, tmax_, -float(FLT_MAX)).reshape(-1),
+            any_hit=True, records=recs)
+        return res["hit"].reshape(p.shape[:-1])
+
+    got = shade.shade_bounce_cuda(ts, cro, crd, hits, amb, occluder, one,
+                                  meta.has_kd_textures, meta.has_ks_textures,
+                                  None, srec)
+    want = shade.shade_step(ts, cro, crd, hits, amb,
+                            torch.ones(m, dtype=torch.bool,
+                                       device=cuda_device), occluder,
+                            meta.has_kd_textures, meta.has_ks_textures,
+                            records=srec)
+    assert all(_same_bits(a, b) for a, b in zip(got, want[:4]))
+
+
+def _area_hair_host():
+    """The hair scene with light1 an emissive 1 m quad and light2 an
+    emissive 4-segment polyline, aperture 0.1 (chip_smoke's area hair
+    frame, at 64 strands)."""
+    host = testscenes.make_hair_scene(64)
+    for name, pos, kw in (
+            ("light1", [[1.5, 4, 2.5], [2.5, 4, 2.5], [2.5, 4, 3.5],
+                        [1.5, 4, 3.5]], dict(triangles=[[0, 1, 2],
+                                                        [0, 2, 3]])),
+            ("light2", [[-2.5 + dx, 3.5 + 0.1 * dx * dx, -1 + 0.3 * dx]
+                        for dx in (-0.8, -0.3, 0.0, 0.4, 0.9)],
+             dict(lines=[[0, 1], [1, 2], [2, 3], [3, 4]]))):
+        ist = next(i for i in host.instances if i.name == name)
+        shp = host.shapes[ist.shape]
+        shp.pos = np.asarray(pos, np.float32)
+        shp.points = np.zeros(0, np.int32)
+        shp.lines = np.asarray(kw.get("lines", ()), np.int32).reshape(-1, 2)
+        shp.triangles = np.asarray(kw.get("triangles", ()),
+                                   np.int32).reshape(-1, 3)
+        shp.norm = np.zeros((0, 3), np.float32)
+        shp.texcoord = np.zeros((len(pos), 2), np.float32)
+        shp.radius = np.zeros(0, np.float32)
+    host.cameras[0].aperture = 0.1
+    return scene_lib.finalize_scene(host)
+
+
+# name: (host, area lights); 160 x 90 at 2 x 2 samples, depth 4, chunks of
+# 2,000 pixels: 7 whole chunks and a tail of 400
+LOOP_FRAMES = {
+    "hair": (lambda: testscenes.make_hair_scene(64), False),
+    "mirror": (testscenes.make_grad_scene, False),
+    "area_hair": (_area_hair_host, True),
+    "area_mirror": (_area_grad_scene, True),
+}
+LOOP_W, LOOP_H, LOOP_CHUNK = 160, 90, 2000
+
+
+def _loop_case(name, device):
+    make, area = LOOP_FRAMES[name]
+    host = make()
+    leaves, meta = scene_lib.build_device_scene(host)
+    ts = scene_lib.to_torch(leaves, device)
+    kw = dict(max_depth=4, chunk_pixels=LOOP_CHUNK)
+    if area:
+        kw.update(stochastic=True, seed=7, light_sampler=lights.
+                  build_light_sampler(host, leaves, meta, device))
+    return ts, meta, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(LOOP_FRAMES))
+def test_graph_frame_matches_eager(cuda_device, name):
+    """The device loop (a CUDA graph of a chunk, replayed) gives the eager
+    loop's f32 sums and u8 pixels bit for bit, and its launch counts are
+    the eager loop's plus the launches of its dead bounces."""
+    ts, meta, kw = _loop_case(name, cuda_device)
+    npix = LOOP_W * LOOP_H
+    for ldr in (False, True):
+        kernels.reset_launches()
+        eager = renderer.frame_eager(ts, meta, LOOP_W, LOOP_H, 2, ldr=ldr,
+                                     **kw)
+        counts_eager = dict(kernels.launches)
+        kernels.reset_launches()
+        dev = renderer.frame_device(ts, meta, LOOP_W, LOOP_H, 2, ldr=ldr,
+                                    **kw)
+        counts = dict(kernels.launches)
+        got = dev[:npix].cpu().numpy()
+        assert np.array_equal(got.view(np.uint8), eager.view(np.uint8)), ldr
+        dead = kernels.skipped_launches()
+        ran = kernels.last_frame()["ran"].cpu()
+        chunks = -(-npix // LOOP_CHUNK)
+        assert ran.shape == (chunks, kw["max_depth"] + 1)
+        assert dead["bounces"] == chunks * kw["max_depth"] - int(
+            ran[:, :-1].sum())
+        assert counts_eager["bounce"] == 0
+        assert counts["bounce"] == chunks * kw["max_depth"]
+        assert counts["bounce"] - dead["bounces"] == counts_eager["hit"] - \
+            counts_eager["hit_any"]   # live bounces: one nearest query each
+        for k, v in counts_eager.items():
+            if k != "bounce":
+                assert counts[k] == v + dead.get(k, 0), k
+    if name == "mirror":
+        assert int(ran[:, 1].sum()) > 0   # a second bounce ran somewhere
+    if name == "hair":
+        assert dead["bounces"] == chunks * (kw["max_depth"] - 1)
+
+
+@pytest.mark.cuda
+def test_graph_frame_repeats(cuda_device):
+    """Two render_image calls through the device loop: the same bits."""
+    ts, meta, kw = _loop_case("area_hair", cuda_device)
+    a = renderer.render_image(ts, meta, LOOP_W, LOOP_H, 2, **kw)
+    b = renderer.render_image(ts, meta, LOOP_W, LOOP_H, 2, **kw)
+    assert np.array_equal(a.view(np.int32), b.view(np.int32))

@@ -16,6 +16,8 @@
 * K10 ``lights.cu`` reverse of the light points    (render/lights.py)
 * K11 ``overlap.cu``  closest element within a distance, per query point
                                                    (ops/overlap.py)
+* K12 ``bounce.cu`` the depth loop's state update and alive word
+                                                   (render/renderer.py)
 
 ``hit_simple.cu``, ``shade_simple.cu`` and ``shade_bwd_simple.cu`` are the
 first, simple forms of K1, K4 and K5, on the scene's own arrays: only
@@ -26,6 +28,8 @@ first, simple forms of K1, K4 and K5, on the scene's own arrays: only
 first use.
 """
 
-from ._build import BuildInfo, build, launches, reset_launches
+from ._build import (BuildInfo, build, last_frame, launches, reset_launches,
+                     skipped_launches)
 
-__all__ = ["BuildInfo", "build", "launches", "reset_launches"]
+__all__ = ["BuildInfo", "build", "last_frame", "launches", "reset_launches",
+           "skipped_launches"]

@@ -9,8 +9,8 @@ and a finished build is reused.
 
 Numerics: ``--fmad=false`` (no a*b+c contraction, like eager torch) and no
 fast-math, so division and sqrt are IEEE-rounded. The kernels are held
-bit-equal (K1, K2, K4, K7, K8, K11) or within a stated tolerance (K3, K5,
-K6, K9, K10) to their plain torch versions. ``hit_simple.cu``,
+bit-equal (K1, K2, K4, K7, K8, K11, K12) or within a stated tolerance (K3,
+K5, K6, K9, K10) to their plain torch versions. ``hit_simple.cu``,
 ``shade_simple.cu``, ``shade_bwd_simple.cu``, ``lights_simple.cu`` and
 ``overlap_simple.cu`` are the first forms of K1, K4, K5, K8 with K10, and
 K11, built for the same-card comparisons of ``chip_smoke.py`` and the card
@@ -18,7 +18,8 @@ tests only.
 
 Each wrapper counts its launches in ``launches``; a run resets the counts
 with ``reset_launches`` and reads them afterwards to show which kernels it
-went through.
+went through, and ``skipped_launches`` for those of them that returned at
+once in the device loop's dead bounces.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("hit.cu", "hit_simple.cu", "camera.cu", "pixel.cu", "shade.cu",
            "shade_simple.cu", "shade_bwd.cu", "shade_bwd_simple.cu",
            "stochastic.cu", "lights.cu", "lights_simple.cu", "overlap.cu",
-           "overlap_simple.cu")
+           "overlap_simple.cu", "bounce.cu")
 HEADERS = ("common.cuh", "shade.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
@@ -48,17 +49,67 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 # launches of each kernel since the last reset_launches(); "hit" counts K1's
 # nearest and any-hit launches, "hit_any" its any-hit launches alone; K5
 # with per-ray light positions counts apart from K5 with the fixed ones;
-# "overlap_refit" counts the refit of K11's records
+# "overlap_refit" counts the refit of K11's records; "bounce" counts K12.
+# A CUDA graph of the device loop's chunk adds, for each replay, what its
+# capture counted: the launches of a dead bounce, which return at once on
+# the card, count like the others (``skipped_launches`` gives them apart)
 launches = {"hit": 0, "hit_any": 0, "camera_rays": 0, "pixel_finish": 0,
             "shade": 0, "shade_bwd": 0, "shade_bwd_lights": 0, "camera_bwd": 0,
             "camera_rays_stochastic": 0, "camera_bwd_stochastic": 0,
             "light_points": 0, "light_points_bwd": 0, "overlap": 0,
-            "overlap_refit": 0}
+            "overlap_refit": 0, "bounce": 0}
+# the device loop's dead bounces since the last reset_launches(), tallied on
+# the card (no sync): device -> (2,) i64, the bounces of frames without and
+# with lights; and the record of the last frame (``note_frame``)
+_dead_bounces: dict = {}
+_last_frame: dict = {}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    _dead_bounces.clear()
+
+
+def note_frame(ran: torch.Tensor, lights: bool, host_ms: dict) -> None:
+    """Record a device-loop frame: ``ran`` is its (chunks, max_depth + 1)
+    i32 alive words, a chunk a row (1 where the bounce ran), ``lights``
+    whether its scene has lights, ``host_ms`` the host's milliseconds in
+    its stages. On CUDA its dead bounces join the tally, on the card."""
+    _last_frame.clear()
+    _last_frame.update(ran=ran, lights=lights, host_ms=host_ms)
+    if ran.device.type != "cuda":   # the CPU launches no kernel
+        return
+    tally = _dead_bounces.get(ran.device)
+    if tally is None:
+        tally = _dead_bounces[ran.device] = torch.zeros(
+            2, dtype=torch.int64, device=ran.device)
+    bounces = ran[:, :-1]
+    tally[int(lights)].add_(bounces.numel() - bounces.sum())
+
+
+def last_frame() -> dict:
+    """The last device-loop frame's record (``note_frame``): "ran",
+    "lights", "host_ms"."""
+    return dict(_last_frame)
+
+
+def skipped_launches() -> dict:
+    """The launches counted since the last reset_launches() that returned
+    at once on the card, in the device loop's dead bounces, by launch-count
+    key, and the dead bounces ("bounces"). Reads the tally: a copy to the
+    host, which waits for the frames. A bounce of the device loop
+    (``render/renderer.py::frame_device``) launches K1 nearest, K4 and K12,
+    and K1 any hit where the scene has lights."""
+    out = dict.fromkeys(launches, 0)
+    out["bounces"] = 0
+    for tally in _dead_bounces.values():
+        for lights, dead in enumerate(tally.tolist()):
+            for k in ("bounces", "hit", "shade", "bounce"):
+                out[k] += dead
+            out["hit"] += lights * dead
+            out["hit_any"] += lights * dead
+    return out
 
 
 @dataclass
@@ -148,7 +199,7 @@ def library() -> ctypes.CDLL:
     lib.yrt_error_string.argtypes = [i32]
     lib.yrt_hit.restype = i32
     lib.yrt_hit.argtypes = ([vp] * 4 + [i32] + [vp] * 4 + [i32] * 2
-                            + [vp] * 5)
+                            + [vp] * 6)
     lib.yrt_hit_simple.restype = i32
     lib.yrt_hit_simple.argtypes = ([vp] * 15 + [vp] * 4 + [i32, i32]
                                    + [vp] * 4 + [vp])
@@ -177,7 +228,9 @@ def library() -> ctypes.CDLL:
     lib.yrt_shade_bwd_simple.argtypes = ([shade_p, grads_p] + [vp] * 6
                                          + [i32] + [vp] * 7)
     lib.yrt_pixel_finish.restype = i32
-    lib.yrt_pixel_finish.argtypes = [vp, i32, i32, i32, vp, vp, vp]
+    lib.yrt_pixel_finish.argtypes = [vp, i32, i32, i32, vp, vp, vp, vp]
+    lib.yrt_bounce.restype = i32
+    lib.yrt_bounce.argtypes = [vp] * 5 + [i32] + [vp] * 8
     u32 = ctypes.c_uint32
     lib.yrt_camera_rays_stochastic.restype = i32
     lib.yrt_camera_rays_stochastic.argtypes = ([vp, i32, i32, i32, i32, u32]
@@ -219,7 +272,7 @@ class ShadeScene(ctypes.Structure):
         "inst_o", "inst_mat", "inst_is_lines", "mat_kd", "mat_ks", "mat_kr",
         "mat_rs", "mat_kd_txt", "mat_ks_txt", "tex_quad", "tex_w", "tex_h",
         "light_pos", "light_axes", "light_o", "light_ke", "amb",
-        "light_pos_ray", "prim_rec", "inst_rec", "mat_rec")]
+        "light_pos_ray", "prim_rec", "inst_rec", "mat_rec", "alive")]
         + [(name, ctypes.c_int) for name in (
             "tex_th", "tex_tw", "num_lights", "has_kd_tex", "has_ks_tex")]
         + [(name, ctypes.c_float) for name in (

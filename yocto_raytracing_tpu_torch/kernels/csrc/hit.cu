@@ -218,14 +218,19 @@ __device__ __forceinline__ void hit_ray(const HitView& s, const HitIO& io,
   io.t[i] = t;
 }
 
+// `alive`: the device loop's alive word of this bounce (bounce.cu), or
+// null; a launch that reads 0 returns at once and writes nothing.
 __global__ void __launch_bounds__(kHitThreads)
-    hit_nearest_kernel(HitView s, HitIO io, int n) {
+    hit_nearest_kernel(HitView s, HitIO io, int n,
+                       const int* __restrict__ alive) {
+  if (alive != nullptr && *alive == 0) return;
   const int i = blockIdx.x * kHitThreads + threadIdx.x;
   if (i < n) hit_ray<false>(s, io, i);
 }
 
 __global__ void __launch_bounds__(kHitThreads)
-    hit_any_kernel(HitView s, HitIO io, int n) {
+    hit_any_kernel(HitView s, HitIO io, int n, const int* __restrict__ alive) {
+  if (alive != nullptr && *alive == 0) return;
   const int i = blockIdx.x * kHitThreads + threadIdx.x;
   if (i < n) hit_ray<true>(s, io, i);
 }
@@ -241,7 +246,7 @@ extern "C" int yrt_hit(const float* nodes, const float* prims,
                        const float* ro, const float* rd, const float* tmin,
                        const float* tmax, int n, int any_hit,
                        uint8_t* out_hit, int* out_inst, int* out_prim,
-                       float* out_t, void* stream) {
+                       float* out_t, const int* alive, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const yrt::HitView s{reinterpret_cast<const float4*>(nodes),
                        reinterpret_cast<const float4*>(prims),
@@ -251,9 +256,10 @@ extern "C" int yrt_hit(const float* nodes, const float* prims,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = yrt::blocks_for(n, yrt::kHitThreads);
   if (any_hit != 0) {
-    yrt::hit_any_kernel<<<blocks, yrt::kHitThreads, 0, st>>>(s, io, n);
+    yrt::hit_any_kernel<<<blocks, yrt::kHitThreads, 0, st>>>(s, io, n, alive);
   } else {
-    yrt::hit_nearest_kernel<<<blocks, yrt::kHitThreads, 0, st>>>(s, io, n);
+    yrt::hit_nearest_kernel<<<blocks, yrt::kHitThreads, 0, st>>>(s, io, n,
+                                                                alive);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,6 +21,10 @@
 // every ray reads its own (L, 3) light positions, 12 bytes per light in each
 // launch, instead of the per-light light_pos; nothing else changes.
 //
+// In the device loop (render/renderer.py::frame_device) both launches read
+// the bounce's alive word (ShadeScene::alive, bounce.cu) and return at once,
+// writing nothing, when no ray of the batch is active.
+//
 // Recomputing the hit in the second launch costs a few hundred flops per ray
 // and saves writing and re-reading ~20 floats per ray of intermediates.
 //
@@ -66,6 +70,7 @@ __global__ void __launch_bounds__(kShadeThreads)
                       float* __restrict__ sh_tmax) {
   __shared__ __align__(16) float stage_p[kShadeWarps][96];
   __shared__ __align__(16) float stage_d[kShadeWarps][96];
+  if (s.alive != nullptr && *s.alive == 0) return;  // a dead bounce
   const int lane = threadIdx.x & 31;
   const long long base =
       static_cast<long long>(blockIdx.x) * kShadeThreads + (threadIdx.x - lane);
@@ -105,6 +110,7 @@ __global__ void __launch_bounds__(kShadeThreads)
                         float* __restrict__ color_o, float* __restrict__ kr_o,
                         float* __restrict__ p_o, float* __restrict__ refl_o) {
   __shared__ __align__(16) float stage[kShadeWarps][96];
+  if (s.alive != nullptr && *s.alive == 0) return;  // a dead bounce
   const int lane = threadIdx.x & 31;
   const long long base =
       static_cast<long long>(blockIdx.x) * kShadeThreads + (threadIdx.x - lane);

@@ -61,6 +61,10 @@ struct ShadeScene {
   const float4* prim_rec;
   const float4* inst_rec;
   const float4* mat_rec;
+  // the device loop's alive word of this bounce (bounce.cu), or null: K4's
+  // launches return at once when it reads 0; K5 and the first forms never
+  // read it
+  const int* alive;
   int tex_th, tex_tw, num_lights, has_kd_tex, has_ks_tex;
   float gamma;        // 2.2: texel sRGB decode exponent
   float rs_exp;       // 4.0: ns = 2 / rs^4 - 2

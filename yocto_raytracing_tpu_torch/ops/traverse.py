@@ -181,11 +181,17 @@ def intersect_scene_plain(scene: TorchScene, ro, rd, tmin, tmax,
 
 def intersect_scene_cuda(scene: TorchScene, ro, rd, tmin, tmax,
                          any_hit: bool = False, *,
-                         records: hit_records.HitRecords | None = None
-                         ) -> dict:
+                         records: hit_records.HitRecords | None = None,
+                         alive: torch.Tensor | None = None,
+                         out: dict | None = None) -> dict:
     """K1 launch: same contract as ``intersect_scene_plain``, CUDA only.
 
-    ``records``: ``hit_records.pack(scene)``, packed here when not given."""
+    ``records``: ``hit_records.pack(scene)``, packed here when not given.
+    ``alive``: a (1,) i32 device word, the device loop's alive word of the
+    bounce (``render/renderer.py::frame_device``); where it reads 0 on the
+    card the launch writes nothing, and the outputs keep whatever their
+    memory held. ``out``: the four output tensors (``hit``, ``inst``,
+    ``prim``, ``t``) to write, else new ones."""
     dev = ro.device
     n = ro.shape[0]
     f32, i32 = torch.float32, torch.int32
@@ -204,17 +210,25 @@ def intersect_scene_cuda(scene: TorchScene, ro, rd, tmin, tmax,
           (records.nodes.shape[0],), dev)
     if any(x.data_ptr() % 16 for x in records[:3]):
         raise ValueError("records: not 16-byte aligned")
+    if alive is not None:
+        check("alive", alive, i32, (1,), dev)
 
-    hit = torch.empty(n, dtype=torch.bool, device=dev)
-    inst = torch.empty(n, dtype=i32, device=dev)
-    prim = torch.empty(n, dtype=i32, device=dev)
-    t = torch.empty(n, dtype=f32, device=dev)
+    if out is None:
+        out = dict(hit=torch.empty(n, dtype=torch.bool, device=dev),
+                   inst=torch.empty(n, dtype=i32, device=dev),
+                   prim=torch.empty(n, dtype=i32, device=dev),
+                   t=torch.empty(n, dtype=f32, device=dev))
+    for name, dtype in (("hit", torch.bool), ("inst", i32), ("prim", i32),
+                        ("t", f32)):
+        check(name, out[name], dtype, (n,), dev)
+    hit, inst, prim, t = out["hit"], out["inst"], out["prim"], out["t"]
     ptr = _build.ptr
     err = _build.library().yrt_hit(
         ptr(records.nodes), ptr(records.prims), ptr(records.insts),
         ptr(records.node_count), ni, ptr(ro), ptr(rd), ptr(tmin), ptr(tmax),
         n, int(any_hit),
-        ptr(hit), ptr(inst), ptr(prim), ptr(t), _build.current_stream())
+        ptr(hit), ptr(inst), ptr(prim), ptr(t),
+        None if alive is None else ptr(alive), _build.current_stream())
     _build.check_launch(err, "yrt_hit")
     _build.launches["hit"] += 1
     _build.launches["hit_any"] += int(any_hit)

@@ -94,27 +94,8 @@ class CameraRaysFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ids, cam_axes, cam_o, h, w, focus, width, height,
                 samples):
-        dev = ids.device
-        n = ids.shape[0]
-        f32 = torch.float32
-        check = _build.check_tensor
-        check("ids", ids, torch.int32, (n,), dev)
-        check("cam_axes", cam_axes, f32, (3, 3), dev)
-        check("cam_o", cam_o, f32, (3,), dev)
-        for name, t in (("h", h), ("w", w), ("focus", focus)):
-            check(name, t, f32, (), dev)
-        if min(width, height, samples) < 1:
-            raise ValueError(f"bad frame {width}x{height}, samples {samples}")
-        uv = torch.empty((n, 2), dtype=f32, device=dev)
-        ro = torch.empty((n, 3), dtype=f32, device=dev)
-        rd = torch.empty((n, 3), dtype=f32, device=dev)
-        ptr = _build.ptr
-        err = _build.library().yrt_camera_rays(
-            ptr(ids), n, width, height, samples, ptr(cam_axes), ptr(cam_o),
-            ptr(h), ptr(w), ptr(focus), ptr(uv), ptr(ro), ptr(rd),
-            _build.current_stream())
-        _build.check_launch(err, "yrt_camera_rays")
-        _build.launches["camera_rays"] += 1
+        uv, ro, rd = camera_rays_launch(ids, cam_axes, cam_o, h, w, focus,
+                                        width, height, samples)
         ctx.mark_non_differentiable(uv)
         ctx.save_for_backward(uv, cam_axes, cam_o, h, w, focus)
         return uv, ro, rd
@@ -126,6 +107,44 @@ class CameraRaysFn(torch.autograd.Function):
                               cam_axes, cam_o, h, w, focus)
         return (None, out[0:9].reshape(3, 3), out[9:12], out[12], out[13],
                 out[14], None, None, None)
+
+
+def camera_rays_launch(ids, cam_axes, cam_o, h, w, focus, width, height,
+                       samples, out=None):
+    """K2 launch, no autograd: (uv, ro, rd), written into ``out`` (three
+    tensors of those shapes) when given. CUDA only."""
+    dev = ids.device
+    n = ids.shape[0]
+    f32 = torch.float32
+    check = _build.check_tensor
+    check("ids", ids, torch.int32, (n,), dev)
+    check("cam_axes", cam_axes, f32, (3, 3), dev)
+    check("cam_o", cam_o, f32, (3,), dev)
+    for name, t in (("h", h), ("w", w), ("focus", focus)):
+        check(name, t, f32, (), dev)
+    if min(width, height, samples) < 1:
+        raise ValueError(f"bad frame {width}x{height}, samples {samples}")
+    uv, ro, rd = _outputs(out, n, dev)
+    ptr = _build.ptr
+    err = _build.library().yrt_camera_rays(
+        ptr(ids), n, width, height, samples, ptr(cam_axes), ptr(cam_o),
+        ptr(h), ptr(w), ptr(focus), ptr(uv), ptr(ro), ptr(rd),
+        _build.current_stream())
+    _build.check_launch(err, "yrt_camera_rays")
+    _build.launches["camera_rays"] += 1
+    return uv, ro, rd
+
+
+def _outputs(out, n, dev):
+    """The (uv (n, 2), ro (n, 3), rd (n, 3)) f32 outputs of a camera
+    launch: ``out``, checked, or new tensors."""
+    shapes = ((n, 2), (n, 3), (n, 3))
+    if out is None:
+        return [torch.empty(sh, dtype=torch.float32, device=dev)
+                for sh in shapes]
+    for name, t, sh in zip(("uv", "ro", "rd"), out, shapes):
+        _build.check_tensor(name, t, torch.float32, sh, dev)
+    return list(out)
 
 
 def camera_rays_bwd(uv, g_ro, g_rd, cam_axes, cam_o, h, w, focus):
@@ -288,21 +307,9 @@ class CameraRaysStochasticFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ids, cam_axes, cam_o, h, w, focus, aperture, width,
                 height, samples, seed):
-        _check_stochastic_args(ids, cam_axes, cam_o, h, w, focus, aperture,
-                               width, height, samples)
-        dev = ids.device
-        n = ids.shape[0]
-        f32 = torch.float32
-        uv = torch.empty((n, 2), dtype=f32, device=dev)
-        ro = torch.empty((n, 3), dtype=f32, device=dev)
-        rd = torch.empty((n, 3), dtype=f32, device=dev)
-        ptr = _build.ptr
-        err = _build.library().yrt_camera_rays_stochastic(
-            ptr(ids), n, width, height, samples, seed & U32, ptr(cam_axes),
-            ptr(cam_o), ptr(h), ptr(w), ptr(focus), ptr(aperture), ptr(uv),
-            ptr(ro), ptr(rd), _build.current_stream())
-        _build.check_launch(err, "yrt_camera_rays_stochastic")
-        _build.launches["camera_rays_stochastic"] += 1
+        uv, ro, rd = camera_rays_stochastic_launch(
+            ids, cam_axes, cam_o, h, w, focus, aperture, width, height,
+            samples, seed)
         ctx.mark_non_differentiable(uv)
         ctx.frame = (width, height, samples, seed)
         ctx.save_for_backward(ids, cam_axes, cam_o, h, w, focus, aperture)
@@ -314,6 +321,24 @@ class CameraRaysStochasticFn(torch.autograd.Function):
                                          g_ro.contiguous(), g_rd.contiguous())
         return (None, out[0:9].reshape(3, 3), out[9:12], out[12], out[13],
                 out[14], out[15], None, None, None, None)
+
+
+def camera_rays_stochastic_launch(ids, cam_axes, cam_o, h, w, focus,
+                                  aperture, width, height, samples, seed,
+                                  out=None):
+    """K7 launch, no autograd: (uv, ro, rd), written into ``out`` when
+    given. CUDA only."""
+    _check_stochastic_args(ids, cam_axes, cam_o, h, w, focus, aperture,
+                           width, height, samples)
+    uv, ro, rd = _outputs(out, ids.shape[0], ids.device)
+    ptr = _build.ptr
+    err = _build.library().yrt_camera_rays_stochastic(
+        ptr(ids), ids.shape[0], width, height, samples, seed & U32,
+        ptr(cam_axes), ptr(cam_o), ptr(h), ptr(w), ptr(focus), ptr(aperture),
+        ptr(uv), ptr(ro), ptr(rd), _build.current_stream())
+    _build.check_launch(err, "yrt_camera_rays_stochastic")
+    _build.launches["camera_rays_stochastic"] += 1
+    return uv, ro, rd
 
 
 def camera_rays_stochastic_bwd(ids, cam_axes, cam_o, h, w, focus, aperture,

@@ -220,16 +220,7 @@ class LightPointsFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, scene, sampler, ids, seed, pos, light_pos):
-        dev = ids.device
-        nl = sampler["cdf"].shape[0]
-        _build.check_tensor("pos", pos, torch.float32, (-1, 3), dev)
-        _build.check_tensor("light_pos", light_pos, torch.float32, (nl, 3),
-                            dev)
-        out = torch.empty((nl, ids.shape[0], 3), dtype=torch.float32,
-                          device=dev)
-        _launch("yrt_light_points", scene, sampler, ids, seed, pos,
-                light_pos, out)
-        _build.launches["light_points"] += 1
+        out = light_points_launch(scene, sampler, ids, seed, pos, light_pos)
         ctx.scene, ctx.sampler, ctx.seed = scene, sampler, seed
         ctx.save_for_backward(ids, pos)
         return out
@@ -241,6 +232,24 @@ class LightPointsFn(torch.autograd.Function):
                                               ctx.seed, g.contiguous(),
                                               pos.shape[0])
         return None, None, None, None, d_pos, d_light_pos
+
+
+def light_points_launch(scene, sampler, ids, seed: int, pos, light_pos,
+                        out=None):
+    """K8 launch, no autograd: the (L, N, 3) points, written into ``out``
+    when given. CUDA only."""
+    dev = ids.device
+    shape = (sampler["cdf"].shape[0], ids.shape[0], 3)
+    _build.check_tensor("pos", pos, torch.float32, (-1, 3), dev)
+    _build.check_tensor("light_pos", light_pos, torch.float32,
+                        (shape[0], 3), dev)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+    _build.check_tensor("out", out, torch.float32, shape, dev)
+    _launch("yrt_light_points", scene, sampler, ids, seed, pos, light_pos,
+            out)
+    _build.launches["light_points"] += 1
+    return out
 
 
 def light_points_bwd(scene, sampler, ids, seed: int, g, num_verts: int):

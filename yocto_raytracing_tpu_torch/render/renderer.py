@@ -10,13 +10,26 @@ pixels:
 * with a light sampler (area lights), one shape-space point per (light,
   ray) for the whole path (``lights.sample_light_points``, K8), which K4
   shades with in place of the lights' fixed positions;
-* a host loop over depth: nearest hit (``traverse.intersect_scene``, K1),
+* a loop over depth: nearest hit (``traverse.intersect_scene``, K1),
   shading (``shade.shade_step``, K4) with stacked shadow rays (K1
-  any-hit), mirror rays with ``kr`` throughput; it stops at ``max_depth`` or
-  when no ray is active. With ``differentiable=True`` the loop keeps the
-  autograd graph (K5 and K6 in the backward; K9 and K10 with the
-  stochastic modes);
+  any-hit), mirror rays with ``kr`` throughput (``bounce_update_plain``);
+  it stops at ``max_depth`` or when no ray is active. With
+  ``differentiable=True`` the loop keeps the autograd graph (K5 and K6 in
+  the backward; K9 and K10 with the stochastic modes);
 * per-pixel spp sums, or the tonemap to u8 (``pixel_finish``, K3).
+
+Two loops run the frame. ``frame_eager`` runs ``trace_rays`` chunk by
+chunk with the depth loop on the host (a sync a bounce, a copy to the host
+a chunk): the checkpointed frame, ``trace_rays`` itself and the sharded
+paths. ``frame_device``, the port of the JAX package's
+``_render_chunks_fused`` and its device loop over depth, runs a frame on
+the card without a host sync: ray ids from a device chunk index, a fixed
+``max_depth`` of bounces whose launches read a device alive word and
+return at once when no ray is active (K12, ``bounce_update``, sets it),
+each chunk's pixels written in place into one frame buffer by K3, and one
+CUDA graph of a chunk replayed over the frame; ``render_image`` takes it
+without ``checkpoint`` (on the CPU through the plain versions, a chunk at a
+time). The frames are the same bits.
 
 Pixels go in scanline order. Each wrapper runs its plain torch version on
 CPU tensors and its kernel on CUDA tensors; ``trace_rays(plain=True)`` runs
@@ -29,6 +42,7 @@ from __future__ import annotations
 import functools
 import math
 import os
+import time
 
 import numpy as np
 import torch
@@ -74,32 +88,125 @@ def pixel_finish_plain(rgb, spp: int, ldr: bool):
     return (torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
 
 
-def pixel_finish_cuda(rgb, spp: int, ldr: bool):
-    """K3 launch: same contract as ``pixel_finish_plain``, CUDA only."""
+def pixel_finish_cuda(rgb, spp: int, ldr: bool, out=None, chunk=None):
+    """K3 launch: same contract as ``pixel_finish_plain``, CUDA only.
+
+    With ``out`` (a frame buffer of (rows, 3), u8 with ``ldr``, else f32)
+    and ``chunk`` (a (1,) i32 device chunk index), K3 writes the npix
+    pixels into ``out``'s rows chunk * npix.., reading the index on the
+    card, and returns ``out``."""
     dev = rgb.device
     _build.check_tensor("rgb", rgb, torch.float32, (-1, 3), dev)
     if spp < 1 or rgb.shape[0] % spp:
         raise ValueError(f"{rgb.shape[0]} rays are not whole pixels of "
                          f"{spp} samples")
     npix = rgb.shape[0] // spp
-    out_sum = torch.empty((0 if ldr else npix, 3), dtype=torch.float32,
-                          device=dev)
-    out_u8 = torch.empty((npix if ldr else 0, 3), dtype=torch.uint8,
-                         device=dev)
+    if (out is None) != (chunk is None):
+        raise ValueError("out and chunk go together")
+    dtype = torch.uint8 if ldr else torch.float32
+    if out is None:
+        out = torch.empty((npix, 3), dtype=dtype, device=dev)
+    else:
+        _build.check_tensor("out", out, dtype, (-1, 3), dev)
+        _build.check_tensor("chunk", chunk, torch.int32, (1,), dev)
+        if out.shape[0] % npix:
+            raise ValueError(f"out: {out.shape[0]} rows are not whole "
+                             f"chunks of {npix} pixels")
+    ptr = _build.ptr
     err = _build.library().yrt_pixel_finish(
-        _build.ptr(rgb), npix, spp, int(ldr), _build.ptr(out_sum),
-        _build.ptr(out_u8), _build.current_stream())
+        ptr(rgb), npix, spp, int(ldr), None if ldr else ptr(out),
+        ptr(out) if ldr else None, None if chunk is None else ptr(chunk),
+        _build.current_stream())
     _build.check_launch(err, "yrt_pixel_finish")
     _build.launches["pixel_finish"] += 1
-    return out_u8 if ldr else out_sum
+    return out
 
 
-def pixel_finish(rgb, spp: int, ldr: bool):
-    """Per-pixel spp sum (and tonemap with ``ldr``). CPU tensors take the
-    plain version; CUDA tensors launch K3 (or raise)."""
-    if _build.device_kind(rgb) == "cpu":
-        return pixel_finish_plain(rgb, spp, ldr)
-    return pixel_finish_cuda(rgb, spp, ldr)
+def pixel_finish(rgb, spp: int, ldr: bool, out=None, chunk=None):
+    """Per-pixel spp sum (and tonemap with ``ldr``); with ``out`` and
+    ``chunk`` written into a frame buffer at the chunk's rows, as
+    ``pixel_finish_cuda`` says. CPU tensors take the plain version; CUDA
+    tensors launch K3 (or raise)."""
+    if _build.device_kind(rgb) == "cuda":
+        return pixel_finish_cuda(rgb, spp, ldr, out, chunk)
+    px = pixel_finish_plain(rgb, spp, ldr)
+    if out is None:
+        return px
+    row = int(chunk) * px.shape[0]
+    out[row:row + px.shape[0]] = px
+    return out
+
+
+# --------------------------------------------------------------------------
+# K12: a bounce's state update
+# --------------------------------------------------------------------------
+
+
+def bounce_update_plain(acc, thr, color, kr, p, refl_dir, mask):
+    """The depth loop's state after a bounce (the JAX body's update,
+    renderer.py:297-304): (acc, thr, ro, rd, cont). ``cont``, the lanes
+    that go on (a hit and some ``kr > 0``), is the next bounce's
+    ``active``; dead lanes get a constant ray (0, 1), as their shading is
+    masked out."""
+    acc = acc + thr * color
+    cont = mask & (kr > 0).any(dim=-1)
+    thr = torch.where(cont[:, None], thr * kr, thr)
+    ro = torch.where(cont[:, None], p, 0.0).contiguous()
+    rd = torch.where(cont[:, None], refl_dir, 1.0).contiguous()
+    return acc, thr, ro, rd, cont
+
+
+def bounce_update_cuda(acc, thr, ro, rd, tmax, color, kr, p, refl_dir, mask,
+                       alive_in=None, alive_out=None) -> None:
+    """K12 launch, CUDA only: ``bounce_update`` in place."""
+    n = acc.shape[0]
+    dev = acc.device
+    f32 = torch.float32
+    check = _build.check_tensor
+    for name, t in (("acc", acc), ("thr", thr), ("ro", ro), ("rd", rd),
+                    ("color", color), ("kr", kr), ("p", p),
+                    ("refl_dir", refl_dir)):
+        check(name, t, f32, (n, 3), dev)
+    check("tmax", tmax, f32, (n,), dev)
+    check("mask", mask, torch.bool, (n,), dev)
+    for name, t in (("alive_in", alive_in), ("alive_out", alive_out)):
+        if t is not None:
+            check(name, t, torch.int32, (1,), dev)
+    ptr = _build.ptr
+    err = _build.library().yrt_bounce(
+        ptr(color), ptr(kr), ptr(p), ptr(refl_dir), ptr(mask), n, ptr(acc),
+        ptr(thr), ptr(ro), ptr(rd), ptr(tmax),
+        None if alive_in is None else ptr(alive_in),
+        None if alive_out is None else ptr(alive_out),
+        _build.current_stream())
+    _build.check_launch(err, "yrt_bounce")
+    _build.launches["bounce"] += 1
+
+
+def bounce_update(acc, thr, ro, rd, tmax, color, kr, p, refl_dir, mask,
+                  alive_in=None, alive_out=None) -> None:
+    """``bounce_update_plain`` in place on the device loop's state (acc,
+    thr, ro, rd (N, 3) f32; tmax (N,) f32, the next nearest-hit query's:
+    FLT_MAX on the lanes that go on, else -FLT_MAX), from one bounce's
+    shading (color, kr, p, refl_dir (N, 3) f32, mask (N,) bool).
+
+    ``alive_in`` and ``alive_out`` are (1,) i32 words (or None): where
+    ``alive_in`` is 0 nothing is written (the bounce is dead), else
+    ``alive_out`` is set to 1 if any lane goes on. CPU tensors take the
+    plain version; CUDA tensors launch K12 (or raise)."""
+    if _build.device_kind(acc) == "cuda":
+        bounce_update_cuda(acc, thr, ro, rd, tmax, color, kr, p, refl_dir,
+                           mask, alive_in, alive_out)
+        return
+    if alive_in is not None and not bool(alive_in):
+        return
+    new = bounce_update_plain(acc, thr, color, kr, p, refl_dir, mask)
+    cont = new[-1]
+    for dst, src in zip((acc, thr, ro, rd), new):
+        dst.copy_(src)
+    tmax.copy_(torch.where(cont, FLT_MAX, -FLT_MAX))
+    if alive_out is not None and bool(cont.any()):
+        alive_out.fill_(1)
 
 
 # --------------------------------------------------------------------------
@@ -216,13 +323,8 @@ def trace_rays(scene, ray_ids, ambient, width: int, height: int,
                 scene, ro, rd, hits, ambient, active, occluder,
                 has_kd_textures=has_kd_textures,
                 has_ks_textures=has_ks_textures, light_pos=light_pos)
-            acc = acc + thr * color
-            cont = mask & (kr > 0).any(dim=-1)
-            thr = torch.where(cont[:, None], thr * kr, thr)
-            # dead lanes get a constant ray; their shading is masked out
-            ro = torch.where(cont[:, None], p, 0.0).contiguous()
-            rd = torch.where(cont[:, None], refl_dir, 1.0).contiguous()
-            active = cont
+            acc, thr, ro, rd, active = bounce_update_plain(
+                acc, thr, color, kr, p, refl_dir, mask)
         return acc
 
 
@@ -246,6 +348,11 @@ def render_image(scene, meta, width: int, height: int, samples: int,
     ``trace_rays``: the frame is a function of the seed, the same for any
     ``chunk_pixels``.
 
+    Without ``checkpoint`` the frame runs as ``frame_device``: on CUDA a
+    CUDA graph of a chunk, replayed over the frame, with no host sync and
+    one copy to the host. With ``checkpoint`` it runs as ``frame_eager``;
+    the pixels are the same bits.
+
     ``checkpoint``: path of a snapshot of the per-pixel sums, written after
     every chunk (write, then rename). If it exists and was written under
     the same configuration (every knob that changes pixels), its pixels are
@@ -256,10 +363,39 @@ def render_image(scene, meta, width: int, height: int, samples: int,
     """
     spp = samples * samples
     npix = width * height
+    device_ldr = ldr and not checkpoint
+    args = (scene, meta, width, height, samples, ambient, max_depth,
+            chunk_pixels, device_ldr, stochastic, seed, light_sampler)
+    if not checkpoint:
+        out = to_host(frame_device(*args)[:npix])
+    else:
+        out = frame_eager(*args, checkpoint=checkpoint)
+    if device_ldr:
+        img = np.full((npix, 4), 255, np.uint8)
+        img[:, :3] = out
+        return img.reshape(height, width, 4)
+    img = np.ones((npix, 4), np.float32)
+    img[:, :3] = out / np.float32(spp)
+    img = img.reshape(height, width, 4)
+    if ldr:
+        return image_mod.tonemap(img)
+    return img
+
+
+def frame_eager(scene, meta, width: int, height: int, samples: int,
+                ambient: float = 0.1, max_depth: int = 8,
+                chunk_pixels: int = 1 << 15, ldr: bool = False,
+                stochastic: bool = False, seed: int = 0, light_sampler=None,
+                checkpoint: str | None = None) -> np.ndarray:
+    """The frame's (npix, 3) per-pixel sums (f32), or with ``ldr`` K3's u8
+    tonemap, on the host: ``trace_rays`` and ``pixel_finish`` chunk by
+    chunk, each chunk copied to the host, with ``render_image``'s
+    ``checkpoint`` (which resumes after a snapshot's pixels)."""
+    spp = samples * samples
+    npix = width * height
     dev = scene.device
     amb = torch.full((3,), ambient, dtype=torch.float32, device=dev)
     chunk_pixels = min(chunk_pixels, npix)
-    device_ldr = ldr and not checkpoint
     # the scene does not change during the frame: K1's and K4's records once
     # for all its chunks (trace_rays would pack them per chunk)
     isect = (functools.partial(
@@ -267,7 +403,7 @@ def render_image(scene, meta, width: int, height: int, samples: int,
         records=hit_records.pack(scene_lib.detached(scene)))
         if dev.type == "cuda" else None)
     srec = shade_records_lib.pack(scene) if dev.type == "cuda" else None
-    out = np.empty((npix, 3), np.uint8 if device_ldr else np.float32)
+    out = np.empty((npix, 3), np.uint8 if ldr else np.float32)
     done = 0
     if checkpoint:
         # every knob that changes per-chunk pixel values is in the key, or
@@ -293,20 +429,213 @@ def render_image(scene, meta, width: int, height: int, samples: int,
                          has_ks_textures=meta.has_ks_textures,
                          intersect=isect, stochastic=stochastic, seed=seed,
                          light_sampler=light_sampler, shade_records=srec)
-        px = pixel_finish(rgb.contiguous(), spp, device_ldr)
+        px = pixel_finish(rgb.contiguous(), spp, ldr)
         out[start:stop] = px[:stop - start].cpu().numpy()
         if checkpoint:
             _atomic_savez(checkpoint, key=cfg_key, done=stop, acc=out[:stop])
-    if device_ldr:
-        img = np.full((npix, 4), 255, np.uint8)
-        img[:, :3] = out
-        return img.reshape(height, width, 4)
-    img = np.ones((npix, 4), np.float32)
-    img[:, :3] = out / np.float32(spp)
-    img = img.reshape(height, width, 4)
-    if ldr:
-        return image_mod.tonemap(img)
-    return img
+    return out
+
+
+def frame_device(scene, meta, width: int, height: int, samples: int,
+                 ambient: float = 0.1, max_depth: int = 8,
+                 chunk_pixels: int = 1 << 15, ldr: bool = False,
+                 stochastic: bool = False, seed: int = 0,
+                 light_sampler=None) -> torch.Tensor:
+    """The frame's per-pixel sums (f32), or with ``ldr`` K3's u8 tonemap,
+    as a (chunks * chunk_pixels, 3) tensor on the scene's device: rows past
+    width * height repeat the last pixel (the caller drops them). The same
+    bits as ``frame_eager``.
+
+    The port of the JAX package's ``_render_chunks_fused`` (its
+    ``lax.map`` over chunks, ray ids from ``lax.iota``) and of
+    ``trace_rays``' device loop over depth (renderer.py:113-163, 337-353).
+    A chunk is: ray ids from a device chunk index (clamped to the last
+    ray); camera rays (K2, or K7 with ``stochastic``); with a light sampler
+    the light points (K8), one set for every bounce; ``max_depth`` bounces,
+    each K1 nearest, K4 prep, K1 any hit, K4 finish and K12, every launch
+    reading the bounce's alive word and writing nothing when it is 0
+    (``bounce_update``), so a bounce with no active ray is the identity and
+    the fixed depth gives the bits of ``trace_rays``' early break; K3 into
+    the chunk's rows; the chunk index advanced. Nothing in it waits on the
+    host, and on CUDA nothing in it allocates: every buffer is made once,
+    before chunk 0, and written in place. On CUDA chunk 0 runs eagerly (it
+    loads every kernel), the next is captured into a CUDA graph
+    (``torch.cuda.CUDAGraph``, for this call only), and the graph is
+    replayed for every chunk after the first; the launch counts gain the
+    captured launches once per replay. On the CPU the chunks run one after
+    another through the plain versions, a dead bounce skipped whole on the
+    host.
+
+    Each chunk copies its alive words into a row of a (chunks, max_depth +
+    1) record, which the frame leaves with ``kernels._build.note_frame``
+    (``kernels.last_frame``), with the host's milliseconds in the set-up,
+    chunk 0, the capture and the replays (enqueue time: nothing here waits
+    for the card); on CUDA the frame's dead bounces join the device tally
+    that ``kernels.skipped_launches`` reads.
+    """
+    t0 = time.perf_counter()
+    spp = samples * samples
+    npix = width * height
+    dev = scene.device
+    cuda = dev.type == "cuda"
+    chunk_pixels = min(chunk_pixels, npix)
+    n_chunks = -(-npix // chunk_pixels)
+    n = chunk_pixels * spp
+    i32, f32 = torch.int32, torch.float32
+    kd_tex, ks_tex = meta.has_kd_textures, meta.has_ks_textures
+    nl = scene.light_ke.shape[0]
+    fixed = scene_lib.detached(scene)
+    # what the chunks share, made before the first: the graph bakes their
+    # pointers in, and a capture that allocates nothing takes no memory of
+    # its own
+    amb = torch.full((3,), ambient, dtype=f32, device=dev)
+    lane = torch.arange(n, dtype=i32, device=dev)
+    tmin = torch.full((n,), RAY_EPS, dtype=f32, device=dev)
+    chunk = torch.zeros((1,), dtype=i32, device=dev)
+    out = torch.empty((n_chunks * chunk_pixels, 3),
+                      dtype=torch.uint8 if ldr else f32, device=dev)
+    ids = torch.empty((n,), dtype=i32, device=dev)
+    acc = torch.empty((n, 3), dtype=f32, device=dev)
+    thr = torch.empty((n, 3), dtype=f32, device=dev)
+    tmax = torch.empty((n,), dtype=f32, device=dev)
+    alive = torch.empty((max_depth + 1,), dtype=i32, device=dev)
+    ran = torch.empty((n_chunks, max_depth + 1), dtype=i32, device=dev)
+    row = torch.zeros((1,), dtype=torch.int64, device=dev)   # ran's index
+    if cuda:
+        hrec = hit_records.pack(fixed)
+        srec = shade_records_lib.pack(scene)
+        h, w = camera_mod.camera_frame(scene)
+        rays = [torch.empty((n, k), dtype=f32, device=dev) for k in (2, 3, 3)]
+        points = (None if light_sampler is None else
+                  torch.empty((nl, n, 3), dtype=f32, device=dev))
+        bufs = shade_mod.forward_buffers(nl, n, dev)
+
+        def hit_buffers(m):
+            return dict(hit=torch.empty(m, dtype=torch.bool, device=dev),
+                        inst=torch.empty(m, dtype=i32, device=dev),
+                        prim=torch.empty(m, dtype=i32, device=dev),
+                        t=torch.empty(m, dtype=f32, device=dev))
+
+        hits_near, hits_any = hit_buffers(n), hit_buffers(nl * n)
+    else:
+        cam_fn = (camera_mod.camera_rays_stochastic_plain if stochastic
+                  else camera_mod.camera_rays_plain)
+        if stochastic:
+            cam_fn = functools.partial(cam_fn, seed=seed)
+        plain_occluder = make_occluder(fixed, traverse.intersect_scene_plain)
+
+    def device_occluder(word):
+        # K4 prep writes tmax = -FLT_MAX on the masked lanes' shadow rays,
+        # so make_occluder's where(mask, tmax, -FLT_MAX) is the identity here
+        def occluder(p, d, tmin_, tmax_, mask):
+            res = traverse.intersect_scene_cuda(
+                fixed, p.reshape(-1, 3), d.reshape(-1, 3), tmin_.reshape(-1),
+                tmax_.reshape(-1), any_hit=True, records=hrec, alive=word,
+                out=hits_any)
+            return res["hit"].reshape(p.shape[:-1])
+        return occluder
+
+    def camera_cuda():
+        if stochastic:
+            return camera_mod.camera_rays_stochastic_launch(
+                ids, scene.cam_axes, scene.cam_o, h, w, scene.cam_focus,
+                scene.cam_aperture, width, height, samples, seed, out=rays)
+        return camera_mod.camera_rays_launch(
+            ids, scene.cam_axes, scene.cam_o, h, w, scene.cam_focus, width,
+            height, samples, out=rays)
+
+    def run_chunk():
+        torch.add(lane, chunk, alpha=n, out=ids).clamp_(max=npix * spp - 1)
+        if cuda:
+            _, ro, rd = camera_cuda()
+            light_pos = points
+            if light_sampler is not None:
+                lights_mod.light_points_launch(scene, light_sampler, ids,
+                                               seed, scene.pos,
+                                               scene.light_pos, light_pos)
+        else:
+            _, ro, rd = cam_fn(scene, ids, width, height, samples)
+            ro, rd = ro.contiguous(), rd.contiguous()
+            light_pos = (None if light_sampler is None else
+                         lights_mod.sample_light_points_plain(
+                             scene, light_sampler, ids, seed))
+        acc.zero_()
+        thr.fill_(1.0)
+        tmax.fill_(FLT_MAX)
+        alive.zero_()
+        alive[:1].fill_(1)
+        for k in range(max_depth):
+            word = alive[k:k + 1]
+            if cuda:
+                # the mask is the hit flag: dead lanes ask with tmax < tmin
+                hits = traverse.intersect_scene_cuda(
+                    fixed, ro, rd, tmin, tmax, records=hrec, alive=word,
+                    out=hits_near)
+                color, kr, p, refl = shade_mod.shade_bounce_cuda(
+                    scene, ro, rd, hits, amb, device_occluder(word), word,
+                    kd_tex, ks_tex, light_pos, srec, bufs)
+            else:
+                if not bool(word):   # the card reads the word per launch
+                    continue
+                hits = traverse.intersect_scene_plain(fixed, ro, rd, tmin,
+                                                      tmax)
+                color, kr, p, refl, _ = shade_mod.shade_step_plain(
+                    scene, ro, rd, hits, amb, hits["hit"], plain_occluder,
+                    kd_tex, ks_tex, light_pos)
+            bounce_update(acc, thr, ro, rd, tmax, color, kr, p, refl,
+                          hits["hit"], word, alive[k + 1:k + 2])
+        ran.index_copy_(0, row, alive[None])
+        row.add_(1)
+        pixel_finish(acc, spp, ldr, out=out, chunk=chunk)
+        chunk.add_(1)
+
+    marks = [t0, time.perf_counter()]
+    with torch.no_grad():
+        run_chunk()
+        marks.append(time.perf_counter())
+        if n_chunks > 1 and cuda:
+            marks.append(_replay(run_chunk, n_chunks - 1))
+        else:
+            marks.append(marks[-1])   # no capture
+            for _ in range(n_chunks - 1):
+                run_chunk()
+    marks.append(time.perf_counter())
+    _build.note_frame(ran, nl > 0, dict(zip(
+        ("setup", "chunk0", "capture", "replay"), np.diff(marks) * 1e3)))
+    return out
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy; from the card in one copy into
+    page-locked memory (torch caches it): a fresh pageable buffer pays its
+    page faults in the copy."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t).numpy()
+
+
+def _replay(run_chunk, times: int) -> float:
+    """Capture one call of ``run_chunk`` into a CUDA graph and replay it
+    ``times`` times on the current stream. The capture runs on a stream of
+    its own and waits for nothing: it only records. The launch counts gain
+    the captured launches once per replay. Returns the host clock at the
+    end of the capture."""
+    before = dict(_build.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(torch.cuda.Stream()):
+        graph.capture_begin()
+        try:
+            run_chunk()
+        finally:
+            graph.capture_end()
+    captured = {k: v - before[k] for k, v in _build.launches.items()}
+    done = time.perf_counter()
+    for _ in range(times):
+        graph.replay()
+    for k, v in captured.items():   # the capture counted one
+        _build.launches[k] += v * (times - 1)
+    return done
 
 
 def _atomic_savez(path: str, **arrays) -> None:

@@ -247,14 +247,17 @@ _INT_LEAVES = ("prim_v", "prim_type", "inst_mat", "inst_is_lines",
 
 
 def _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
-                light_pos_ray=None, n=0, records=None):
+                light_pos_ray=None, n=0, records=None, alive=None):
     """The ``ShadeScene`` struct of a launch, after checking every array.
 
     ``leaves`` maps the GRAD_LEAVES names to the tensors to shade with (the
     autograd inputs); the integer leaves come from ``scene``.
     ``light_pos_ray`` is the optional per-ray (L, n, 3) light position.
     ``records`` (``shade_records.pack`` of those leaves) is what K4 and K5
-    read; without it the struct serves the first forms only.
+    read; without it the struct serves the first forms only. ``alive``, a
+    (1,) i32 device word, is the device loop's alive word of the bounce:
+    K4's launches write nothing where it reads 0 (the first forms ignore
+    it).
     """
     dev = amb.device
     f32, i32 = torch.float32, torch.int32
@@ -273,6 +276,8 @@ def _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
         check(name, t, f32 if name in GRAD_LEAVES else i32, shapes[name],
               dev)
     check("amb", amb, f32, (3,), dev)
+    if alive is not None:
+        check("alive", alive, i32, (1,), dev)
     if light_pos_ray is not None:
         check("light_pos (per ray)", light_pos_ray, f32,
               (leaves["light_ke"].shape[0], n, 3), dev)
@@ -295,6 +300,7 @@ def _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
         **{k: t.data_ptr() for k, t in arrays.items()}, amb=amb.data_ptr(),
         light_pos_ray=(None if light_pos_ray is None
                        else light_pos_ray.data_ptr()), **rec_ptrs,
+        alive=None if alive is None else alive.data_ptr(),
         tex_th=scene.tex_quad.shape[1], tex_tw=scene.tex_quad.shape[2],
         num_lights=leaves["light_ke"].shape[0],
         has_kd_tex=int(has_kd_textures), has_ks_tex=int(has_ks_textures),
@@ -302,26 +308,49 @@ def _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
     return args
 
 
+def forward_buffers(nl: int, n: int, dev) -> dict:
+    """The buffers of one bounce's forward (``forward_launches``) at ``nl``
+    lights and ``n`` rays: the stacked shadow rays, the occlusion where
+    there is no shadow ray (all False; else None: the occluder's) and the
+    four (n, 3) outputs."""
+    f32 = torch.float32
+    return dict(
+        sh_o=torch.empty((nl, n, 3), dtype=f32, device=dev),
+        sh_d=torch.empty((nl, n, 3), dtype=f32, device=dev),
+        sh_tmin=torch.empty((nl, n), dtype=f32, device=dev),
+        sh_tmax=torch.empty((nl, n), dtype=f32, device=dev),
+        occ=(None if nl and n else
+             torch.zeros((nl, n), dtype=torch.bool, device=dev)),
+        outs=[torch.empty((n, 3), dtype=f32, device=dev) for _ in range(4)])
+
+
 def forward_launches(prep, finish, args, ro, rd, inst, prim, mask,
-                     occluder):
+                     occluder, bufs=None):
     """One bounce's forward on the card: ``prep`` (the shadow rays), the
     ``occluder``'s any-hit query (K1), ``finish``; ``prep`` and ``finish``
     are the library's K4 entry points (or its first form's, which
-    ``kernels.parity`` passes). Returns (the (L, N) occlusion, [color, kr,
-    p, refl_dir])."""
+    ``kernels.parity`` passes). ``bufs``: ``forward_buffers`` to write,
+    else new ones. Returns (the (L, N) occlusion, [color, kr, p,
+    refl_dir])."""
     n = ro.shape[0]
     dev = ro.device
-    f32 = torch.float32
     ptr = _build.ptr
     stream = _build.current_stream()
     nl = args.num_lights
-    if not (nl and n):
-        occ = torch.zeros((nl, n), dtype=torch.bool, device=dev)
+    if bufs is None:
+        bufs = forward_buffers(nl, n, dev)
     else:
-        sh_o = torch.empty((nl, n, 3), dtype=f32, device=dev)
-        sh_d = torch.empty((nl, n, 3), dtype=f32, device=dev)
-        sh_tmin = torch.empty((nl, n), dtype=f32, device=dev)
-        sh_tmax = torch.empty((nl, n), dtype=f32, device=dev)
+        f32 = torch.float32
+        for name, shape in (("sh_o", (nl, n, 3)), ("sh_d", (nl, n, 3)),
+                            ("sh_tmin", (nl, n)), ("sh_tmax", (nl, n))):
+            _build.check_tensor(name, bufs[name], f32, shape, dev)
+        for o in bufs["outs"]:
+            _build.check_tensor("out", o, f32, (n, 3), dev)
+    sh_o, sh_d, sh_tmin, sh_tmax = (bufs[k] for k in (
+        "sh_o", "sh_d", "sh_tmin", "sh_tmax"))
+    if not (nl and n):
+        occ = bufs["occ"]
+    else:
         err = prep(ctypes.byref(args), ptr(ro), ptr(rd), ptr(inst), ptr(prim),
                    ptr(mask), n, ptr(sh_o), ptr(sh_d), ptr(sh_tmin),
                    ptr(sh_tmax), stream)
@@ -329,7 +358,7 @@ def forward_launches(prep, finish, args, ro, rd, inst, prim, mask,
         occ = occluder(sh_o, sh_d, sh_tmin, sh_tmax,
                        mask[None].expand(nl, n)).contiguous()
         _build.check_tensor("occluder result", occ, torch.bool, (nl, n), dev)
-    outs = [torch.empty((n, 3), dtype=f32, device=dev) for _ in range(4)]
+    outs = bufs["outs"]
     err = finish(ctypes.byref(args), ptr(ro), ptr(rd), ptr(inst), ptr(prim),
                  ptr(mask), ptr(occ), n, *(ptr(o) for o in outs), stream)
     _build.check_launch(err, finish.__name__)
@@ -475,6 +504,33 @@ def shade_step_bwd(scene, leaves, amb, ro, rd, inst, prim, mask, occ,
     _build.check_launch(err, "yrt_shade_bwd")
     _build.launches["shade_bwd" if d_lpr is None else "shade_bwd_lights"] += 1
     return d_ro, d_rd, bwd_results(sums, leaves, d_lpr)
+
+
+def shade_bounce_cuda(scene, ro, rd, hits, amb, occluder, alive,
+                      has_kd_textures=True, has_ks_textures=True,
+                      light_pos=None, records=None, bufs=None):
+    """K4 forward of one bounce of the device loop
+    (``render/renderer.py::frame_device``), no autograd: (color, kr, p,
+    refl_dir), ``shade_step_cuda``'s first four outputs, shaded on
+    ``hits["hit"]`` as the mask. The loop queries dead lanes with tmax =
+    -FLT_MAX, which K1 answers with no hit, so ``hits["hit"]`` is
+    ``active & hits["hit"]`` there. Both launches, and the ``occluder``'s
+    K1 any hit, read the bounce's ``alive`` word and write nothing where it
+    is 0. ``bufs``: ``forward_buffers`` to write, else new ones."""
+    mask = hits["hit"]
+    inst, prim = hits["inst"], hits["prim"]
+    check_rays(ro, rd, inst, prim, mask)
+    leaves = {k: getattr(scene, k) for k in GRAD_LEAVES}
+    if records is None:
+        records = shade_records.pack(scene)
+    args = _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
+                       light_pos, ro.shape[0], records, alive)
+    lib = _build.library()
+    _, outs = forward_launches(lib.yrt_shade_prep, lib.yrt_shade_finish,
+                               args, ro, rd, inst, prim, mask, occluder,
+                               bufs)
+    _build.launches["shade"] += 1
+    return outs
 
 
 def shade_step_cuda(scene, ro, rd, hits, amb, active, occluder,
