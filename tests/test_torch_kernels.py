@@ -17,9 +17,13 @@ error where that is larger), update ``d - lr * g``; K7 (stochastic camera
 rays), K8 (area-light points) and K4 with per-ray light positions
 bit-equal to their plain versions, and a stochastic area-light frame
 through them within 1 u8 step of the all-plain path; the reverses of the
-stochastic modes, K5 with per-ray light positions, K9 (thin-lens rays,
-also against K6 at aperture 0) and K10 (light points), within 1e-4 of
-torch autograd of their plain versions; K8 also bit-equal to its first
+stochastic modes, K5 with per-ray light positions, K9 (thin-lens rays)
+and K10 (light points), within 1e-4 of torch autograd of their plain
+versions; K6 and K9 bit-equal to ``camera.ordered_camera_sums`` of their
+plain per-ray terms computed on the card (1 to 2^20 + 3 rays), within 1e-4
+of their first forms (``camera_bwd_simple.cu``), the same bits from launch
+to launch (also after a launch of no ray or of another batch), and K9's 15
+shared sums at aperture 0 bit-equal to K6's on the same uv; K8 also bit-equal to its first
 form (``lights_simple.cu``) and K10 within 1 ULP of the explicit f64
 reverse and 1e-4 of its first form, bit-identical over two runs where
 every light spans at most 8 vertices, with 1, 2 and 8 lights, shared
@@ -662,7 +666,8 @@ def test_camera_stochastic_bwd_matches_autograd(cuda_device, aperture):
 
 @pytest.mark.cuda
 def test_camera_stochastic_bwd_zero_aperture_is_k6(cuda_device):
-    """At aperture 0, K9's 15 shared sums are K6's on the same uv."""
+    """At aperture 0, K9's 15 shared sums are K6's on the same uv, bit for
+    bit: one order of sums, and per-ray terms of the same value."""
     ts, _, _ = _area_case(cuda_device, aperture=0.0)
     n = 64 * 64 * 4
     ids = torch.arange(n, dtype=torch.int32, device=cuda_device)
@@ -676,9 +681,92 @@ def test_camera_stochastic_bwd_zero_aperture_is_k6(cuda_device):
     k9 = camera.camera_rays_stochastic_bwd(
         ids, ts.cam_axes, ts.cam_o, h, w, ts.cam_focus, ts.cam_aperture, 64,
         64, 2, 5, g_ro, g_rd)
-    rel = float(torch.linalg.vector_norm(k9[:15] - k6)
-                / torch.linalg.vector_norm(k6))
-    assert rel <= GRAD_RTOL, rel
+    assert torch.equal(k9[:15], k6)
+
+
+# the camera reverses' batches: one ray, one short warp block, one tile of
+# a block and a ray, the training batch and three
+CAMERA_BWD_RAYS = [1, 255, camera.CAM_THREADS * camera.CAM_RAYS + 1,
+                   (1 << 20) + 3]
+
+
+def _camera_bwd_case(device, n, seed):
+    """(K6's and K9's sums, and their ordered sums of the plain per-ray
+    terms on the card) for n rays of a 910x512 frame at 4x4 samples: K6
+    on the hair scene's K2 uv, K9 on the area scene at aperture 0.3."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    # ids spread over the frame's 7,454,720
+    ids = torch.arange(n, dtype=torch.int32, device=device) * 7 % (
+        910 * 512 * 16)
+    g_ro, g_rd = (torch.randn((n, 3), device=device, generator=gen)
+                  for _ in range(2))
+    hs, _ = _scene(testscenes.make_hair_scene(64), device)
+    with torch.no_grad():
+        uv = camera.camera_rays(hs, ids, 910, 512, 4)[0]
+    h, w = camera.camera_frame(hs)
+    k6_args = (uv, g_ro, g_rd, hs.cam_axes, hs.cam_o, h, w, hs.cam_focus)
+    ts, _, _ = _area_case(device, aperture=0.3)
+    h, w = camera.camera_frame(ts)
+    k9_args = (ids, ts.cam_axes, ts.cam_o, h, w, ts.cam_focus,
+               ts.cam_aperture, 910, 512, 4, 7, g_ro, g_rd)
+    return k6_args, k9_args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", CAMERA_BWD_RAYS)
+def test_camera_bwd_kernels_equal_ordered_sums(cuda_device, n):
+    """K6 and K9 bit-equal to ``ordered_camera_sums`` of the plain per-ray
+    terms computed on the card, and within 1e-4 of their first forms."""
+    k6_args, k9_args = _camera_bwd_case(cuda_device, n, n % 1000)
+    before = dict(kernels.launches)
+    k6 = camera.camera_rays_bwd(*k6_args)
+    k9 = camera.camera_rays_stochastic_bwd(*k9_args)
+    assert kernels.launches["camera_bwd"] == before["camera_bwd"] + 1
+    assert kernels.launches["camera_bwd_stochastic"] == \
+        before["camera_bwd_stochastic"] + 1
+    terms6 = camera.camera_bwd_terms_plain(*k6_args)
+    terms9 = camera.camera_stochastic_bwd_terms_plain(*k9_args)
+    assert torch.equal(k6, camera.ordered_camera_sums(terms6)[:15])
+    assert torch.equal(k9, camera.ordered_camera_sums(terms9))
+    for kern, simple in ((k6, parity.camera_bwd_simple(*k6_args)),
+                         (k9, parity.camera_stochastic_bwd_simple(*k9_args))):
+        rel = float(torch.linalg.vector_norm(kern - simple)
+                    / torch.linalg.vector_norm(simple))
+        assert rel <= GRAD_RTOL, rel
+    assert kernels.launches == {**before, "camera_bwd":
+                                before["camera_bwd"] + 1,
+                                "camera_bwd_stochastic":
+                                before["camera_bwd_stochastic"] + 1}
+
+
+@pytest.mark.cuda
+def test_camera_bwd_kernels_repeat(cuda_device):
+    """Two launches on the same inputs give the same bits, also right after
+    a launch of no ray (16 zeros) and after one of another batch: each
+    launch's last block sets its counter back to 0."""
+    small = _camera_bwd_case(cuda_device, 255, 1)
+    k6_args, k9_args = _camera_bwd_case(cuda_device, (1 << 20) + 3, 2)
+    first = (camera.camera_rays_bwd(*k6_args),
+             camera.camera_rays_stochastic_bwd(*k9_args))
+    again = (camera.camera_rays_bwd(*k6_args),
+             camera.camera_rays_stochastic_bwd(*k9_args))
+    empty6 = tuple(x[:0] for x in k6_args[:3]) + k6_args[3:]
+    empty9 = (k9_args[0][:0],) + k9_args[1:11] + tuple(
+        x[:0] for x in k9_args[11:])
+    zeros = (camera.camera_rays_bwd(*empty6),
+             camera.camera_rays_stochastic_bwd(*empty9))
+    after_empty = (camera.camera_rays_bwd(*k6_args),
+                   camera.camera_rays_stochastic_bwd(*k9_args))
+    camera.camera_rays_bwd(*small[0])
+    camera.camera_rays_stochastic_bwd(*small[1])
+    after_other = (camera.camera_rays_bwd(*k6_args),
+                   camera.camera_rays_stochastic_bwd(*k9_args))
+    assert zeros[0].shape == (15,) and zeros[1].shape == (16,)
+    assert not zeros[0].any() and not zeros[1].any()
+    for out in (again, after_empty, after_other):
+        for a, b in zip(first, out):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert not camera._counters[k6_args[0].device].any()
 
 
 @pytest.mark.cuda

@@ -9,12 +9,13 @@ and a finished build is reused.
 
 Numerics: ``--fmad=false`` (no a*b+c contraction, like eager torch) and no
 fast-math, so division and sqrt are IEEE-rounded. The kernels are held
-bit-equal (K1, K2, K4, K7, K8, K11, K12) or within a stated tolerance (K3,
-K5, K6, K9, K10) to their plain torch versions. ``hit_simple.cu``,
-``shade_simple.cu``, ``shade_bwd_simple.cu``, ``lights_simple.cu`` and
-``overlap_simple.cu`` are the first forms of K1, K4, K5, K8 with K10, and
-K11, built for the same-card comparisons of ``chip_smoke.py`` and the card
-tests only.
+bit-equal (K1, K2, K4, K6, K7, K8, K9, K11, K12: K6 and K9 to their order of
+sums, ``render/camera.py::ordered_camera_sums``) or within a stated
+tolerance (K3, K5, K10) to their plain torch versions. ``hit_simple.cu``,
+``camera_bwd_simple.cu``, ``shade_simple.cu``, ``shade_bwd_simple.cu``,
+``lights_simple.cu`` and ``overlap_simple.cu`` are the first forms of K1,
+K6 with K9, K4, K5, K8 with K10, and K11, built for the same-card
+comparisons of ``chip_smoke.py`` and the card tests only.
 
 Each wrapper counts its launches in ``launches``; a run resets the counts
 with ``reset_launches`` and reads them afterwards to show which kernels it
@@ -37,10 +38,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("hit.cu", "hit_simple.cu", "camera.cu", "pixel.cu", "shade.cu",
-           "shade_simple.cu", "shade_bwd.cu", "shade_bwd_simple.cu",
-           "stochastic.cu", "lights.cu", "lights_simple.cu", "overlap.cu",
-           "overlap_simple.cu", "bounce.cu")
+SOURCES = ("hit.cu", "hit_simple.cu", "camera.cu", "camera_bwd_simple.cu",
+           "pixel.cu", "shade.cu", "shade_simple.cu", "shade_bwd.cu",
+           "shade_bwd_simple.cu", "stochastic.cu", "lights.cu",
+           "lights_simple.cu", "overlap.cu", "overlap_simple.cu", "bounce.cu")
 HEADERS = ("common.cuh", "shade.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
@@ -208,7 +209,11 @@ def library() -> ctypes.CDLL:
     lib.yrt_camera_bwd_scratch.restype = i32
     lib.yrt_camera_bwd_scratch.argtypes = [i32]
     lib.yrt_camera_bwd.restype = i32
-    lib.yrt_camera_bwd.argtypes = [vp, vp, vp, i32] + [vp] * 8
+    lib.yrt_camera_bwd.argtypes = [vp, vp, vp, i32] + [vp] * 9
+    lib.yrt_camera_bwd_simple_scratch.restype = i32
+    lib.yrt_camera_bwd_simple_scratch.argtypes = [i32]
+    lib.yrt_camera_bwd_simple.restype = i32
+    lib.yrt_camera_bwd_simple.argtypes = [vp, vp, vp, i32] + [vp] * 8
     shade_p = ctypes.POINTER(ShadeScene)
     lib.yrt_shade_prep.restype = i32
     lib.yrt_shade_prep.argtypes = [shade_p] + [vp] * 5 + [i32] + [vp] * 5
@@ -232,14 +237,16 @@ def library() -> ctypes.CDLL:
     lib.yrt_bounce.restype = i32
     lib.yrt_bounce.argtypes = [vp] * 5 + [i32] + [vp] * 8
     u32 = ctypes.c_uint32
+    u32p = ctypes.POINTER(u32)   # magic_divisor's numbers
     lib.yrt_camera_rays_stochastic.restype = i32
-    lib.yrt_camera_rays_stochastic.argtypes = ([vp, i32, i32, i32, i32, u32]
-                                               + [vp] * 10)
-    lib.yrt_camera_stochastic_bwd_scratch.restype = i32
-    lib.yrt_camera_stochastic_bwd_scratch.argtypes = [i32]
+    lib.yrt_camera_rays_stochastic.argtypes = ([vp, i32, i32, i32, i32, u32p,
+                                                u32] + [vp] * 10)
     lib.yrt_camera_stochastic_bwd.restype = i32
-    lib.yrt_camera_stochastic_bwd.argtypes = ([vp, i32, i32, i32, i32, u32]
-                                              + [vp] * 11)
+    lib.yrt_camera_stochastic_bwd.argtypes = ([vp, i32, i32, i32, i32, u32p,
+                                               u32] + [vp] * 12)
+    lib.yrt_camera_stochastic_bwd_simple.restype = i32
+    lib.yrt_camera_stochastic_bwd_simple.argtypes = ([vp, i32, i32, i32, i32,
+                                                      u32] + [vp] * 11)
     light_args = [vp, i32, u32, vp, i32, i32] + [vp] * 5 + [i32]
     for name in ("yrt_light_points", "yrt_light_points_simple",
                  "yrt_light_points_bwd_simple"):

@@ -21,15 +21,18 @@
 // the JAX package's training step): per ray, the adjoint of
 // d = normalize((u-.5)*w*x + (v-.5)*h*y - focus*z) and of ro = o, reduced
 // over the batch into d_cam_axes (3, 3), d_cam_o (3), d_h, d_w and d_focus.
-// The reduction has two stages, per-block partials then one fixed-order sum,
-// so the result does not depend on scheduling. What bounds it: reading 32
-// bytes per ray and a shuffle tree of 15 values per warp.
+// What bounds it on an H100: reading 32 bytes per ray (uv, g_ro, g_rd),
+// about 10 us for 2^20 rays at 3.35 TB/s; its ~110 operations a ray take
+// less (1.7 us at 67 TFLOP/s). Its first form (camera_bwd_simple.cu) took a shuffle tree per sum,
+// 75 shuffles a thread, and a second launch of one block for the column
+// sums. Here each thread takes kCamRays rays and one launch sums the batch
+// (common.cuh, camera_block_sums): 16 shuffles a warp, and the last block
+// adds the column-major partials, in an order that depends on n alone. The
+// per-ray terms are the first form's, op for op; the 16th slot is 0, so K9
+// sums its 15 shared slots in the same order.
 #include "common.cuh"
 
 namespace yrt {
-
-constexpr int kCamGrads = 15;  // axes (9), o (3), h, w, focus
-constexpr int kCamBwdThreads = 256;
 
 __global__ void camera_rays_kernel(const int* __restrict__ ids, int n,
                                    int width, int height, int samples,
@@ -82,36 +85,43 @@ __global__ void camera_rays_kernel(const int* __restrict__ ids, int n,
   rd[3 * k + 2] = d.z;
 }
 
-// Stage 1: one thread per ray, then block_partial_sums: partials[block][15].
-__global__ void __launch_bounds__(kCamBwdThreads)
-    camera_bwd_partial_kernel(const float* __restrict__ uv,
-                              const float* __restrict__ g_ro,
-                              const float* __restrict__ g_rd, int n,
-                              const float* __restrict__ axes,
-                              const float* __restrict__ org,
-                              const float* __restrict__ h_p,
-                              const float* __restrict__ w_p,
-                              const float* __restrict__ focus_p,
-                              float* __restrict__ partials) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  float gr[kCamGrads];
+// K6: kCamRays rays a thread, 15 terms a ray (slot 15 stays 0), then the
+// block's sums; the last block writes out.
+__global__ void __launch_bounds__(kCamThreads, kCamMinBlocks)
+    camera_bwd_kernel(const float* __restrict__ uv,
+                      const float* __restrict__ g_ro,
+                      const float* __restrict__ g_rd, int n,
+                      const float* __restrict__ axes,
+                      const float* __restrict__ org,
+                      const float* __restrict__ h_p,
+                      const float* __restrict__ w_p,
+                      const float* __restrict__ focus_p,
+                      float* __restrict__ partials, float* __restrict__ out,
+                      int* __restrict__ counter) {
+  const float h = __ldg(h_p), w = __ldg(w_p), focus = __ldg(focus_p);
+  const V3 x = load3(axes, 0);
+  const V3 yn = load3(axes, 1);
+  const V3 y = make(-yn.x, -yn.y, -yn.z);
+  const V3 z = load3(axes, 2);
+  const V3 o = load3(org, 0);
+  float acc[kCamSlots];
 #pragma unroll
-  for (int j = 0; j < kCamGrads; ++j) gr[j] = 0.0f;
-  if (k < n) {
+  for (int j = 0; j < kCamSlots; ++j) acc[j] = 0.0f;
+#pragma unroll 1
+  for (int ray = 0; ray < kCamRays; ++ray) {
+    const int k = camera_ray(ray);
+    if (k >= n) break;   // the rays of a thread go up with ray
+    // the ray's inputs, all loaded before its terms: one wait a ray
     const float u = uv[2 * k], v = uv[2 * k + 1];
-    const float h = __ldg(h_p), w = __ldg(w_p), focus = __ldg(focus_p);
-    const V3 x = load3(axes, 0);
-    const V3 yn = load3(axes, 1);
-    const V3 y = make(-yn.x, -yn.y, -yn.z);
-    const V3 z = load3(axes, 2);
-    const V3 o = load3(org, 0);
+    const V3 g = load3(g_rd, k);
+    const V3 gro = load3(g_ro, k);
+    float gr[kCamSlots];
     const float cu = (u - 0.5f) * w;
     const float cv = (v - 0.5f) * h;
     const V3 q = sub(add(add(o, mul(x, cu)), mul(y, cv)), mul(z, focus));
     const V3 d = sub(q, o);
     const float nrm = sqrtf(dot(d, d));
     const V3 rd = make(d.x / nrm, d.y / nrm, d.z / nrm);
-    const V3 g = load3(g_rd, k);
     // rd = d / |d|: d_d = (g - rd (g . rd)) / |d|
     const float c = dot(g, rd);
     const V3 gq = make((g.x - rd.x * c) / nrm, (g.y - rd.y * c) / nrm,
@@ -126,21 +136,16 @@ __global__ void __launch_bounds__(kCamBwdThreads)
     gr[6] = -gq.x * focus;
     gr[7] = -gq.y * focus;
     gr[8] = -gq.z * focus;
-    const V3 gro = load3(g_ro, k);
     gr[9] = gro.x;
     gr[10] = gro.y;
     gr[11] = gro.z;
     gr[12] = (v - 0.5f) * dot(gq, y);
     gr[13] = (u - 0.5f) * dot(gq, x);
     gr[14] = -dot(gq, z);
+    gr[15] = 0.0f;
+    camera_add_ray(acc, gr);
   }
-  block_partial_sums<kCamGrads, kCamBwdThreads>(gr, partials);
-}
-
-// Stage 2: one block, warp j sums column j of the partials in a fixed order.
-__global__ void camera_bwd_sum_kernel(const float* __restrict__ partials,
-                                      int nblocks, float* __restrict__ out) {
-  column_sums<kCamGrads>(partials, nblocks, out);
+  camera_block_sums(acc, partials, out, counter);
 }
 
 }  // namespace yrt
@@ -160,29 +165,24 @@ extern "C" int yrt_camera_rays(const int* ids, int n, int width, int height,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Number of f32 partials yrt_camera_bwd needs as scratch for n rays.
+// Number of f32 partials yrt_camera_bwd and yrt_camera_stochastic_bwd need
+// as scratch for n rays: 16 a block.
 extern "C" int yrt_camera_bwd_scratch(int n) {
-  return static_cast<int>(yrt::blocks_for(n, yrt::kCamBwdThreads)) *
-         yrt::kCamGrads;
+  return yrt::camera_blocks(n) * yrt::kCamSlots;
 }
 
-// out (15,) = [d_axes (9, row-major), d_o (3), d_h, d_w, d_focus]
+// K6. out (16,) = [d_axes (9, row-major), d_o (3), d_h, d_w, d_focus, 0].
+// counter: one i32, 0 before the launch and after it; launches that share it
+// must not overlap.
 extern "C" int yrt_camera_bwd(const float* uv, const float* g_ro,
                               const float* g_rd, int n, const float* cam_axes,
                               const float* cam_o, const float* h,
                               const float* w, const float* focus,
-                              float* partials, float* out, void* stream) {
-  const int nblocks = n > 0 ? static_cast<int>(
-                                  yrt::blocks_for(n, yrt::kCamBwdThreads))
-                            : 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nblocks > 0) {
-    yrt::camera_bwd_partial_kernel<<<nblocks, yrt::kCamBwdThreads, 0, st>>>(
-        uv, g_ro, g_rd, n, cam_axes, cam_o, h, w, focus, partials);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  yrt::camera_bwd_sum_kernel<<<1, 32 * yrt::kCamGrads, 0, st>>>(
-      partials, nblocks, out);
+                              float* partials, float* out, int* counter,
+                              void* stream) {
+  yrt::camera_bwd_kernel<<<yrt::camera_blocks(n), yrt::kCamThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      uv, g_ro, g_rd, n, cam_axes, cam_o, h, w, focus, partials, out,
+      counter);
   return static_cast<int>(cudaGetLastError());
 }

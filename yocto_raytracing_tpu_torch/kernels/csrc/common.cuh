@@ -167,43 +167,112 @@ __host__ __device__ inline unsigned int blocks_for(long long n, int threads) {
   return static_cast<unsigned int>((n + threads - 1) / threads);
 }
 
-// Deterministic batch sums of K per-thread values (the camera reverses K6
-// and K9), in two stages with a fixed order. Stage 1, in a block of
-// kThreads threads: each warp sums its lanes with a shuffle tree, then the
-// block's warps are added in order into partials[blockIdx.x][K].
-template <int K, int kThreads>
-__device__ __forceinline__ void block_partial_sums(const float (&v)[K],
-                                                   float* __restrict__ partials) {
-  __shared__ float warp_part[kThreads / 32][K];
+// Deterministic batch sums of the camera reverses K6 and K9: kCamSlots
+// values a ray (K6 leaves its 16th at 0), summed over n rays in one launch,
+// in an order that depends on n alone, so the result repeats bit for bit on
+// any card. A block of kCamThreads threads covers a tile of kCamThreads *
+// kCamRays rays; thread t takes rays tile + t + kCamThreads * r, r <
+// kCamRays (coalesced loads), and adds each ray's slots into registers in r
+// order (camera_add_ray). camera_block_sums then reduces the block:
+//   1. across the warp by recursive halving: against lane ^ 16 a lane trades
+//      8 of its 16 slots and keeps the other 8, then 4 against lane ^ 8, 2
+//      against lane ^ 4, 1 against lane ^ 2 and 1 against lane ^ 1: 16
+//      shuffles where one tree a slot takes 80. Lanes 2s and 2s + 1 end with
+//      slot s's warp sum, the sum of the tree lane + (lane ^ 16), then ^ 8,
+//      ^ 4, ^ 2, ^ 1 (a float add is commutative, so every lane of a pair
+//      holds the same bits);
+//   2. the warps' sums, in warp order, into the block's partial, written
+//      column-major, partials[slot * gridDim.x + block];
+//   3. after a __threadfence each block adds 1 to *counter; the block that
+//      comes last sums every column in block order (lane l the blocks l,
+//      l + 32, ..., then the tree ^ 16, ..., ^ 1), one warp a column,
+//      writes out[16] and sets *counter back to 0 for the next launch, so
+//      two launches that share a counter must not overlap.
+// The grid is ceil(n / (kCamThreads * kCamRays)) blocks, at least one, so
+// n = 0 writes zeros. render/camera.py::ordered_camera_sums repeats this
+// order with torch adds. 8 rays a thread and at most 64 registers (4
+// blocks an SM) make 2^20 rays one wave of 512 blocks on an H100's 4 x 132
+// places; camera_bwd_ablation.py times 1 to 16 rays and 1 to 6 blocks.
+constexpr int kCamSlots = 16;
+constexpr int kCamThreads = 256;
+constexpr int kCamRays = 8;
+constexpr int kCamMinBlocks = 4;
+constexpr int kCamWarps = kCamThreads / 32;
+
+__host__ __device__ inline int camera_blocks(int n) {
+  const long long tile = static_cast<long long>(kCamThreads) * kCamRays;
+  return n > 0 ? static_cast<int>((n + tile - 1) / tile) : 1;
+}
+
+// The id of ray r (< kCamRays) of this thread.
+__device__ __forceinline__ int camera_ray(int r) {
+  return blockIdx.x * (kCamThreads * kCamRays) + r * kCamThreads +
+         static_cast<int>(threadIdx.x);
+}
+
+__device__ __forceinline__ void camera_add_ray(float (&acc)[kCamSlots],
+                                               const float (&t)[kCamSlots]) {
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    float s = v[j];
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    if ((threadIdx.x & 31) == 0) warp_part[threadIdx.x / 32][j] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < K) {
-    float s = 0.0f;
-    for (int wi = 0; wi < kThreads / 32; ++wi) s += warp_part[wi][threadIdx.x];
-    partials[static_cast<long long>(blockIdx.x) * K + threadIdx.x] = s;
+  for (int j = 0; j < kCamSlots; ++j) acc[j] += t[j];
+}
+
+// One step of the warp's recursive halving: each lane keeps kHalf of its
+// 2 kHalf slots (the upper ones where lane & 2 kHalf is set) and adds the
+// lane ^ 2 kHalf's copy of them, which it trades for the other kHalf.
+template <int kHalf>
+__device__ __forceinline__ void camera_halve(float (&v)[kCamSlots], int lane) {
+  const bool upper = (lane & (2 * kHalf)) != 0;
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float keep = upper ? v[i + kHalf] : v[i];
+    const float send = upper ? v[i] : v[i + kHalf];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * kHalf);
   }
 }
 
-// Stage 2, in one block of 32 * K threads: warp j sums column j of the
-// nblocks partials (lane-strided, then a shuffle tree) into out[j].
-template <int K>
-__device__ __forceinline__ void column_sums(const float* __restrict__ partials,
-                                            int nblocks,
-                                            float* __restrict__ out) {
-  const int j = threadIdx.x / 32;
+__device__ __forceinline__ void camera_block_sums(float (&v)[kCamSlots],
+                                                  float* __restrict__ partials,
+                                                  float* __restrict__ out,
+                                                  int* __restrict__ counter) {
+  __shared__ float warp_sums[kCamWarps][kCamSlots];
+  __shared__ bool last;
   const int lane = threadIdx.x & 31;
-  float s = 0.0f;
-  for (int b = lane; b < nblocks; b += 32)
-    s += partials[static_cast<long long>(b) * K + j];
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) out[j] = s;
+  const int warp = threadIdx.x >> 5;
+  // 1. 16 slots -> 8 -> 4 -> 2 -> 1 a lane, then the pair's sum
+  camera_halve<8>(v, lane);
+  camera_halve<4>(v, lane);
+  camera_halve<2>(v, lane);
+  camera_halve<1>(v, lane);
+  const float s = v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+  if ((lane & 1) == 0) warp_sums[warp][lane >> 1] = s;
+  __syncthreads();
+  // 2. the block's partial, warps in order
+  const int nb = gridDim.x;
+  if (threadIdx.x < kCamSlots) {
+    float p = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kCamWarps; ++w) p += warp_sums[w][threadIdx.x];
+    partials[threadIdx.x * nb + blockIdx.x] = p;
+    __threadfence();
+  }
+  __syncthreads();
+  // 3. the last block sums the partials
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1) == nb - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int c = warp; c < kCamSlots; c += kCamWarps) {
+    const float* col = partials + c * nb;
+    float t = 0.0f;
+    for (int b = lane; b < nb; b += 32) t += __ldcg(col + b);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      t += __shfl_xor_sync(0xffffffffu, t, off);
+    if (lane == 0) out[c] = t;
+  }
+  if (threadIdx.x == 0) *counter = 0;
 }
 
 }  // namespace yrt

@@ -9,9 +9,10 @@
 // cam_aperture / 2.
 //
 // One thread per ray runs the whole chain; nothing is shared between rays.
+// Ray ids are in [0, 2^31).
 // The arithmetic repeats the plain torch chain of render/camera.py op for op
 // (u32 hashing that wraps, IEEE divides by the run-time width, height and
-// samples, sqrtf, cosf/sinf of the f32 2*pi*r0, the thin-lens origin and the
+// samples, sqrtf, sincosf of the f32 2*pi*r0, the thin-lens origin and the
 // normalized direction to the pinhole target), built with --fmad=false, so
 // K7 is held bit-equal to it on the card. With aperture 0 the origin is the
 // camera origin and the ray equals K2's for the same uv. The frame scalars
@@ -32,19 +33,47 @@
 //   rd = (q - ro) / |q - ro|
 // The per-ray origin carries g_ro into o, x, y and the aperture, and
 // d = q - ro sends -g_d into it. The 16 sums (d_axes 9, d_o 3, d_h, d_w,
-// d_focus, d_aperture) are reduced like K6's 15, per-block partials then
-// one fixed-order sum, so the result does not depend on scheduling; h and w
-// go back to fovy, aspect and focus through torch. With aperture 0 the
-// shared sums are K6's. What bounds it: reading 4 + 24 bytes per ray (the id
-// and two cotangents) and K7's recompute plus ~60 operations per ray.
+// d_focus, d_aperture) are reduced like K6's, kCamRays rays a thread and one
+// launch (common.cuh, camera_block_sums), in an order that depends on n
+// alone; h and w go back to fovy, aspect and focus through torch. With
+// aperture 0 every shared term is K6's value on the same uv, and so are
+// the 15 shared sums, bit for bit.
+//
+// What bounds K9 on an H100: reading 4 + 24 bytes per ray (the id and two
+// cotangents), 8.8 us for 2^20 rays, and issuing the recompute: four PCG
+// hashes, sqrtf, sincosf, and nine IEEE divides by run-time values a
+// ray. Its first form (camera_bwd_simple.cu) also paid six integer
+// divisions or remainders by run-time divisors, about 20 instructions each;
+// here stochastic_sample divides by the launch's spp, samples and width
+// with multipliers the host computes (Divisor: exact for every id in
+// [0, 2^31)), so K7 takes them too and stays bit-equal to the plain chain.
 #include "common.cuh"
 
 namespace yrt {
 
 constexpr unsigned int kLensSeedXor = 0x9E3779B9u;
 constexpr float kTwoPi = 2.0f * 3.14159265358979323846f;  // f32 2 * f32 pi
-constexpr int kCamStochGrads = 16;  // axes (9), o (3), h, w, focus, aperture
-constexpr int kCamStochBwdThreads = 256;
+
+// Division by a divisor d in [1, 2^31) that is the same for a whole launch,
+// exact for every dividend n in [0, 2^31): n / d = (m * n) >> (31 + l) with
+// l = ceil(log2 d) and m = ceil(2^(31 + l) / d) < 2^32, the round-up method
+// of Granlund and Montgomery ("Division by invariant integers using
+// multiplication", PLDI 1994, section 4). The host computes m and l
+// (render/camera.py::magic_divisor); __umulhi(m, 2 n) is (m * n) >> 31.
+struct Divisor {
+  unsigned int m, l;
+  int d;
+};
+
+__device__ __forceinline__ int quotient(int n, Divisor dv) {
+  return static_cast<int>(
+      __umulhi(dv.m, static_cast<unsigned int>(n) << 1) >> dv.l);
+}
+
+// The launch's divisors: spp = samples^2, samples and width.
+struct FrameDivisors {
+  Divisor spp, samples, width;
+};
 
 // Jittered uv and unit-disk lens sample (dx, dy) of ray `id`.
 struct StochasticSample {
@@ -52,30 +81,35 @@ struct StochasticSample {
 };
 
 __device__ __forceinline__ StochasticSample stochastic_sample(
-    int id, int width, int height, int samples, unsigned int seed) {
+    int id, const FrameDivisors& dv, int height, unsigned int seed) {
   const float j0 = per_ray_uniform(seed, id, 0u);
   const float j1 = per_ray_uniform(seed, id, 1u);
   const float l0 = per_ray_uniform(seed ^ kLensSeedXor, id, 0u);
   const float l1 = per_ray_uniform(seed ^ kLensSeedXor, id, 1u);
 
   // stratified-jittered uv: offsets (k + u01) / samples
-  const int spp = samples * samples;
-  const int pix = id / spp;
-  const int sample = id % spp;
-  const int jj = sample / samples;
-  const int ii = sample % samples;
-  const float s = static_cast<float>(samples);
-  const float u = (static_cast<float>(pix % width) +
+  const int pix = quotient(id, dv.spp);
+  const int sample = id - pix * dv.spp.d;
+  const int jj = quotient(sample, dv.samples);
+  const int ii = sample - jj * dv.samples.d;
+  const int row = quotient(pix, dv.width);
+  const int col = pix - row * dv.width.d;
+  const float s = static_cast<float>(dv.samples.d);
+  const float u = (static_cast<float>(col) +
                    (static_cast<float>(ii) + j0) / s) /
-                  static_cast<float>(width);
-  const float v = (static_cast<float>(pix / width) +
+                  static_cast<float>(dv.width.d);
+  const float v = (static_cast<float>(row) +
                    (static_cast<float>(jj) + j1) / s) /
                   static_cast<float>(height);
 
-  // sample_disk: r = sqrt(r1), phi = 2 pi r0
+  // sample_disk: r = sqrt(r1), phi = 2 pi r0; sincosf's values are cosf's
+  // and sinf's (camera_bwd_ablation.py: every ray id of the smoke run's
+  // area frames)
   const float r = sqrtf(l1);
   const float phi = kTwoPi * l0;
-  return StochasticSample{u, v, cosf(phi) * r, sinf(phi) * r};
+  float sin_phi, cos_phi;
+  sincosf(phi, &sin_phi, &cos_phi);
+  return StochasticSample{u, v, cos_phi * r, sin_phi * r};
 }
 
 // The camera frame of a launch, read from device memory.
@@ -125,7 +159,7 @@ __device__ __forceinline__ LensRay lens_ray(const CamFrame& c,
 }
 
 __global__ void camera_rays_stochastic_kernel(
-    const int* __restrict__ ids, int n, int width, int height, int samples,
+    const int* __restrict__ ids, int n, FrameDivisors dv, int height,
     unsigned int seed, const float* __restrict__ axes,
     const float* __restrict__ org, const float* __restrict__ h_p,
     const float* __restrict__ w_p, const float* __restrict__ focus_p,
@@ -133,8 +167,7 @@ __global__ void camera_rays_stochastic_kernel(
     float* __restrict__ ro, float* __restrict__ rd) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
-  const StochasticSample sm =
-      stochastic_sample(ids[k], width, height, samples, seed);
+  const StochasticSample sm = stochastic_sample(ids[k], dv, height, seed);
   const CamFrame c = cam_frame(axes, org, h_p, w_p, focus_p, aperture_p);
   const LensRay r = lens_ray(c, sm);
   uv[2 * k] = sm.u;
@@ -147,33 +180,38 @@ __global__ void camera_rays_stochastic_kernel(
   rd[3 * k + 2] = r.d.z / r.nrm;
 }
 
-// K9 stage 1: one thread per ray, then block_partial_sums:
-// partials[block][16].
-__global__ void __launch_bounds__(kCamStochBwdThreads)
-    camera_stochastic_bwd_partial_kernel(
-        const int* __restrict__ ids, int n, int width, int height,
-        int samples, unsigned int seed, const float* __restrict__ g_ro,
+// K9: kCamRays rays a thread, 16 terms a ray, then the block's sums; the
+// last block writes out.
+__global__ void __launch_bounds__(kCamThreads, kCamMinBlocks)
+    camera_stochastic_bwd_kernel(
+        const int* __restrict__ ids, int n, FrameDivisors dv, int height,
+        unsigned int seed, const float* __restrict__ g_ro,
         const float* __restrict__ g_rd, const float* __restrict__ axes,
         const float* __restrict__ org, const float* __restrict__ h_p,
         const float* __restrict__ w_p, const float* __restrict__ focus_p,
-        const float* __restrict__ aperture_p, float* __restrict__ partials) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  float gr[kCamStochGrads];
+        const float* __restrict__ aperture_p, float* __restrict__ partials,
+        float* __restrict__ out, int* __restrict__ counter) {
+  const CamFrame c = cam_frame(axes, org, h_p, w_p, focus_p, aperture_p);
+  float acc[kCamSlots];
 #pragma unroll
-  for (int j = 0; j < kCamStochGrads; ++j) gr[j] = 0.0f;
-  if (k < n) {
-    const StochasticSample sm =
-        stochastic_sample(ids[k], width, height, samples, seed);
-    const CamFrame c = cam_frame(axes, org, h_p, w_p, focus_p, aperture_p);
+  for (int j = 0; j < kCamSlots; ++j) acc[j] = 0.0f;
+#pragma unroll 1
+  for (int ray = 0; ray < kCamRays; ++ray) {
+    const int k = camera_ray(ray);
+    if (k >= n) break;   // the rays of a thread go up with ray
+    // the ray's inputs, all loaded before its terms: one wait a ray
+    const int id = ids[k];
+    const V3 g = load3(g_rd, k);
+    const V3 gro = load3(g_ro, k);
+    float gr[kCamSlots];
+    const StochasticSample sm = stochastic_sample(id, dv, height, seed);
     const LensRay r = lens_ray(c, sm);
     const V3 rdn = make(r.d.x / r.nrm, r.d.y / r.nrm, r.d.z / r.nrm);
     // rd = d / |d|: g_d = (g - rd (g . rd)) / |d|; q gets g_d, e gets
     // g_ro - g_d
-    const V3 g = load3(g_rd, k);
     const float cg = dot(g, rdn);
     const V3 gq = make((g.x - rdn.x * cg) / r.nrm, (g.y - rdn.y * cg) / r.nrm,
                        (g.z - rdn.z * cg) / r.nrm);
-    const V3 gro = load3(g_ro, k);
     const V3 ge = sub(gro, gq);
     const float cu = (sm.u - 0.5f) * c.w;
     const float cv = (sm.v - 0.5f) * c.h;
@@ -197,63 +235,53 @@ __global__ void __launch_bounds__(kCamStochBwdThreads)
     gr[13] = (sm.u - 0.5f) * dot(gq, c.x);
     gr[14] = -dot(gq, c.z);
     gr[15] = dot(ge, add(mul(c.x, sm.dx), mul(c.y, sm.dy))) / 2.0f;
+    camera_add_ray(acc, gr);
   }
-  block_partial_sums<kCamStochGrads, kCamStochBwdThreads>(gr, partials);
-}
-
-// K9 stage 2: one block, warp j sums column j of the partials in a fixed
-// order.
-__global__ void camera_stochastic_bwd_sum_kernel(
-    const float* __restrict__ partials, int nblocks, float* __restrict__ out) {
-  column_sums<kCamStochGrads>(partials, nblocks, out);
+  camera_block_sums(acc, partials, out, counter);
 }
 
 }  // namespace yrt
 
+namespace {
+
+// magic: [m, l] of spp, then of samples, then of width (magic_divisor).
+yrt::FrameDivisors frame_divisors(const unsigned int* magic, int width,
+                                  int samples) {
+  return yrt::FrameDivisors{{magic[0], magic[1], samples * samples},
+                            {magic[2], magic[3], samples},
+                            {magic[4], magic[5], width}};
+}
+
+}  // namespace
+
 extern "C" int yrt_camera_rays_stochastic(
     const int* ids, int n, int width, int height, int samples,
-    unsigned int seed, const float* cam_axes, const float* cam_o,
-    const float* h, const float* w, const float* focus, const float* aperture,
-    float* uv, float* ro, float* rd, void* stream) {
+    const unsigned int* magic, unsigned int seed, const float* cam_axes,
+    const float* cam_o, const float* h, const float* w, const float* focus,
+    const float* aperture, float* uv, float* ro, float* rd, void* stream) {
   if (n > 0) {
     constexpr int kThreads = 256;
     yrt::camera_rays_stochastic_kernel<<<yrt::blocks_for(n, kThreads),
                                          kThreads, 0,
                                          static_cast<cudaStream_t>(stream)>>>(
-        ids, n, width, height, samples, seed, cam_axes, cam_o, h, w, focus,
-        aperture, uv, ro, rd);
+        ids, n, frame_divisors(magic, width, samples), height, seed, cam_axes,
+        cam_o, h, w, focus, aperture, uv, ro, rd);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Number of f32 partials yrt_camera_stochastic_bwd needs as scratch for n
-// rays.
-extern "C" int yrt_camera_stochastic_bwd_scratch(int n) {
-  return static_cast<int>(yrt::blocks_for(n, yrt::kCamStochBwdThreads)) *
-         yrt::kCamStochGrads;
-}
-
 // K9. out (16,) = [d_axes (9, row-major), d_o (3), d_h, d_w, d_focus,
-// d_aperture] for the cotangents g_ro, g_rd (N, 3) of K7's rays.
+// d_aperture] for the cotangents g_ro, g_rd (N, 3) of K7's rays; partials
+// and counter as for yrt_camera_bwd (yrt_camera_bwd_scratch floats).
 extern "C" int yrt_camera_stochastic_bwd(
     const int* ids, int n, int width, int height, int samples,
-    unsigned int seed, const float* g_ro, const float* g_rd,
-    const float* cam_axes, const float* cam_o, const float* h, const float* w,
-    const float* focus, const float* aperture, float* partials, float* out,
-    void* stream) {
-  const int nblocks =
-      n > 0 ? static_cast<int>(yrt::blocks_for(n, yrt::kCamStochBwdThreads))
-            : 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nblocks > 0) {
-    yrt::camera_stochastic_bwd_partial_kernel<<<
-        nblocks, yrt::kCamStochBwdThreads, 0, st>>>(
-        ids, n, width, height, samples, seed, g_ro, g_rd, cam_axes, cam_o, h,
-        w, focus, aperture, partials);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  yrt::camera_stochastic_bwd_sum_kernel<<<1, 32 * yrt::kCamStochGrads, 0,
-                                          st>>>(partials, nblocks, out);
+    const unsigned int* magic, unsigned int seed, const float* g_ro,
+    const float* g_rd, const float* cam_axes, const float* cam_o,
+    const float* h, const float* w, const float* focus, const float* aperture,
+    float* partials, float* out, int* counter, void* stream) {
+  yrt::camera_stochastic_bwd_kernel<<<yrt::camera_blocks(n), yrt::kCamThreads,
+                                      0, static_cast<cudaStream_t>(stream)>>>(
+      ids, n, frame_divisors(magic, width, samples), height, seed, g_ro, g_rd,
+      cam_axes, cam_o, h, w, focus, aperture, partials, out, counter);
   return static_cast<int>(cudaGetLastError());
 }

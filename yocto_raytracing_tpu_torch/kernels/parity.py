@@ -39,6 +39,12 @@ The comparisons that ``chip_smoke.py`` and the card tests
 * ``overlap_simple``: K11's first form (``csrc/overlap_simple.cu``), the
   other side of its same-card comparisons; it counts no launch, and no
   path of the package calls it;
+* ``camera_bwd_simple`` / ``camera_stochastic_bwd_simple``: K6's and K9's
+  first forms (``csrc/camera_bwd_simple.cu``), the other side of their
+  same-card comparisons; they count no launch, and no path of the package
+  calls them; ``compare_camera_sums``: K6 or K9 against
+  ``camera.ordered_camera_sums`` of the plain per-ray terms (bit for bit)
+  and, beside the first form, against the f64 sum of those terms;
 * ``compare_loss_grads`` (from ``loss_grads``, ``recorder``,
   ``replayer`` and ``as_dtype``): the gradient of the MSE render loss of
   ``mesh.render_loss`` (with the stochastic modes, if asked) on the kernel
@@ -554,6 +560,60 @@ def overlap_simple(scene, meta, queries, dist_max) -> dict:
         *(ptr(out[k]) for k in ("found", "dist", "inst", "prim", "euv")),
         _build.current_stream())
     _build.check_launch(err, "yrt_overlap_simple")
+    return out
+
+
+def _simple_scratch(n, dev):
+    return torch.empty(_build.library().yrt_camera_bwd_simple_scratch(n),
+                       dtype=torch.float32, device=dev)
+
+
+def camera_bwd_simple(uv, g_ro, g_rd, cam_axes, cam_o, h, w, focus):
+    """K6's first form: (15,) sums, the contract of
+    ``camera.camera_rays_bwd``; CUDA only."""
+    n, dev = uv.shape[0], uv.device
+    out = torch.empty(15, dtype=torch.float32, device=dev)
+    ptr = _build.ptr
+    err = _build.library().yrt_camera_bwd_simple(
+        ptr(uv), ptr(g_ro), ptr(g_rd), n, ptr(cam_axes), ptr(cam_o), ptr(h),
+        ptr(w), ptr(focus), ptr(_simple_scratch(n, dev)), ptr(out),
+        _build.current_stream())
+    _build.check_launch(err, "yrt_camera_bwd_simple")
+    return out
+
+
+def camera_stochastic_bwd_simple(ids, cam_axes, cam_o, h, w, focus,
+                                 aperture, width, height, samples, seed,
+                                 g_ro, g_rd):
+    """K9's first form: (16,) sums, the contract of
+    ``camera.camera_rays_stochastic_bwd``; CUDA only."""
+    n, dev = ids.shape[0], ids.device
+    out = torch.empty(16, dtype=torch.float32, device=dev)
+    ptr = _build.ptr
+    err = _build.library().yrt_camera_stochastic_bwd_simple(
+        ptr(ids), n, width, height, samples, seed & camera_mod.U32,
+        ptr(g_ro), ptr(g_rd), ptr(cam_axes), ptr(cam_o), ptr(h), ptr(w),
+        ptr(focus), ptr(aperture), ptr(_simple_scratch(n, dev)), ptr(out),
+        _build.current_stream())
+    _build.check_launch(err, "yrt_camera_stochastic_bwd_simple")
+    return out
+
+
+def compare_camera_sums(kern, simple, terms) -> dict:
+    """K6's or K9's sums ``kern`` and its first form's ``simple`` for the
+    per-ray terms ``terms`` (N, 16) of the plain version on the same
+    inputs: 'equal' (``kern`` bit for bit ``ordered_camera_sums(terms)``),
+    and each one's relative L2 error against the f64 sum of the terms
+    ('rel', 'simple_rel') and largest gap ('max_abs', 'simple_max_abs')."""
+    k = kern.shape[0]
+    ordered = camera_mod.ordered_camera_sums(terms)[:k]
+    ref = terms.double().sum(0)[:k]
+    norm = float(torch.linalg.vector_norm(ref))
+    out = dict(equal=bool(torch.equal(kern, ordered)))
+    for name, x in (("", kern), ("simple_", simple)):
+        gap = x.double() - ref
+        out[name + "rel"] = float(torch.linalg.vector_norm(gap)) / norm
+        out[name + "max_abs"] = float(gap.abs().max())
     return out
 
 

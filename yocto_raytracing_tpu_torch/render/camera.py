@@ -15,10 +15,21 @@ is ``camera_rays_stochastic``: stateless PCG variates keyed by ray id
 (``pcg_hash``, ``per_ray_uniform``), ``pixel_uv_jittered``, a unit-disk
 lens sample and ``eval_camera_dof``; the plain chain for CPU tensors, K7
 (``kernels/csrc/stochastic.cu``) for CUDA tensors, with K9 as its backward
-(``CameraRaysStochasticFn``).
+(``CameraRaysStochasticFn``). K7 and K9 divide ray ids by the frame's spp,
+samples and width with ``magic_divisor``'s multipliers.
+
+K6 and K9 sum their per-ray terms in one launch, in an order that depends
+on the batch size alone (``kernels/csrc/common.cuh``, ``camera_block_sums``).
+``camera_bwd_terms_plain``, ``camera_stochastic_bwd_terms_plain`` and
+``ordered_camera_sums`` repeat their terms and that order with torch ops, so
+the kernels are held to them bit for bit; no path of the package calls
+them.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -29,6 +40,11 @@ from ..scene import TorchScene
 
 U32 = 0xFFFFFFFF
 LENS_SEED_XOR = 0x9E3779B9   # lens variates: seed ^ this (renderer.py:224)
+# K6's and K9's sums (kernels/csrc/common.cuh): slots a ray, threads a
+# block, rays a thread
+CAM_SLOTS = 16
+CAM_THREADS = 256
+CAM_RAYS = 8
 
 
 def pixel_uv(width: int, height: int, samples: int, ray_ids):
@@ -149,7 +165,8 @@ def _outputs(out, n, dev):
 
 def camera_rays_bwd(uv, g_ro, g_rd, cam_axes, cam_o, h, w, focus):
     """K6 launch: (15,) f32 = [d_cam_axes (9), d_cam_o (3), d_h, d_w,
-    d_focus], summed over the batch in a fixed order. CUDA only."""
+    d_focus], summed over the batch in one launch, in the order of
+    ``ordered_camera_sums``. CUDA only."""
     dev = uv.device
     n = uv.shape[0]
     f32 = torch.float32
@@ -160,14 +177,93 @@ def camera_rays_bwd(uv, g_ro, g_rd, cam_axes, cam_o, h, w, focus):
     lib = _build.library()
     partials = torch.empty(lib.yrt_camera_bwd_scratch(n), dtype=f32,
                            device=dev)
-    out = torch.empty(15, dtype=f32, device=dev)
+    out = torch.empty(CAM_SLOTS, dtype=f32, device=dev)
     ptr = _build.ptr
     err = lib.yrt_camera_bwd(
         ptr(uv), ptr(g_ro), ptr(g_rd), n, ptr(cam_axes), ptr(cam_o), ptr(h),
-        ptr(w), ptr(focus), ptr(partials), ptr(out), _build.current_stream())
+        ptr(w), ptr(focus), ptr(partials), ptr(out), _counter(dev, 0),
+        _build.current_stream())
     _build.check_launch(err, "yrt_camera_bwd")
     _build.launches["camera_bwd"] += 1
-    return out
+    return out[:15]
+
+
+# device -> (2,) i32: K6's and K9's counters of finished blocks
+_counters: dict = {}
+
+
+def _counter(device, which: int) -> ctypes.c_void_p:
+    """The counter of K6 (``which`` 0) or K9 (1) on ``device``: an i32 at
+    0, which each launch's last block sets back to 0, allocated once per
+    device. Launches of one kernel on one device share it, so they must not
+    overlap: the wrappers launch on the current stream."""
+    c = _counters.get(device)
+    if c is None:
+        c = _counters[device] = torch.zeros(2, dtype=torch.int32,
+                                            device=device)
+    return ctypes.c_void_p(c.data_ptr() + 4 * which)
+
+
+def camera_bwd_terms_plain(uv, g_ro, g_rd, cam_axes, cam_o, h, w, focus):
+    """K6's per-ray terms, (N, 16) f32 (slot 15 is 0): the adjoint of
+    ``eval_camera`` for the cotangents (g_ro, g_rd), op for op as
+    ``camera.cu::camera_bwd_kernel`` computes them."""
+    x, y, z, o = cam_axes[0], -cam_axes[1], cam_axes[2], cam_o
+    u, v = uv[:, 0:1], uv[:, 1:2]
+    cu = (u - 0.5) * w
+    cv = (v - 0.5) * h
+    q = o + x * cu + y * cv - z * focus
+    d = q - o
+    nrm = isect.sqrt(isect.dot(d, d))[:, None]
+    rd = d / nrm
+    c = isect.dot(g_rd, rd)[:, None]
+    gq = (g_rd - rd * c) / nrm
+    return torch.cat([gq * cu, -gq * cv, -gq * focus, g_ro,
+                      (v - 0.5) * isect.dot(gq, y)[:, None],
+                      (u - 0.5) * isect.dot(gq, x)[:, None],
+                      -isect.dot(gq, z)[:, None], torch.zeros_like(u)],
+                     dim=1)
+
+
+def _lanes_sum(x):
+    """x (..., 32, S) -> (..., S): the sum over a warp's lanes in the
+    kernels' tree, lane + (lane ^ 16), then ^ 8, ^ 4, ^ 2, ^ 1."""
+    for half in (16, 8, 4, 2, 1):
+        x = x.reshape(*x.shape[:-2], 2, half, x.shape[-1])
+        x = x[..., 0, :, :] + x[..., 1, :, :]
+    return x[..., 0, :]
+
+
+def ordered_camera_sums(terms):
+    """(N, 16) per-ray terms -> (16,) sums in K6's and K9's order
+    (``common.cuh``, ``camera_block_sums``), with elementwise adds: a tile
+    of CAM_THREADS * CAM_RAYS rays a block, a thread's rays added in turn,
+    its warp's lanes in the tree of ``_lanes_sum``, the block's warps in
+    order, then lane l of the last block the blocks l, l + 32, ... and the
+    lanes' tree. Padding with zeros adds nothing: each sum starts at +0, so
+    it is never -0."""
+    n = terms.shape[0]
+    tile = CAM_THREADS * CAM_RAYS
+    nb = max(1, -(-n // tile))
+    kw = dict(dtype=terms.dtype, device=terms.device)
+    t = torch.zeros((nb * tile, CAM_SLOTS), **kw)
+    t[:n] = terms
+    t = t.view(nb, CAM_RAYS, CAM_THREADS, CAM_SLOTS)
+    acc = torch.zeros((nb, CAM_THREADS, CAM_SLOTS), **kw)
+    for r in range(CAM_RAYS):
+        acc = acc + t[:, r]
+    warps = _lanes_sum(acc.view(nb, CAM_THREADS // 32, 32, CAM_SLOTS))
+    part = torch.zeros((nb, CAM_SLOTS), **kw)
+    for wi in range(CAM_THREADS // 32):
+        part = part + warps[:, wi]
+    rows = -(-nb // 32)
+    p = torch.zeros((rows * 32, CAM_SLOTS), **kw)
+    p[:nb] = part
+    p = p.view(rows, 32, CAM_SLOTS)
+    lanes = torch.zeros((32, CAM_SLOTS), **kw)
+    for row in range(rows):
+        lanes = lanes + p[row]
+    return _lanes_sum(lanes)
 
 
 def camera_rays_cuda(scene: TorchScene, ids, width: int, height: int,
@@ -218,6 +314,32 @@ def per_ray_uniform(seed: int, ray_ids, n: int):
         h = pcg_hash(base ^ pcg_hash((seed + k) & U32))
         cols.append((h >> 8).to(torch.float32) * 2.0 ** -24)
     return torch.stack(cols, dim=-1)
+
+
+def magic_divisor(d: int) -> tuple:
+    """(m, l) with n // d == (m * n) >> (31 + l) for every n in [0, 2^31):
+    l = ceil(log2 d) and m = ceil(2^(31 + l) / d) < 2^32, the round-up
+    method of Granlund and Montgomery ("Division by invariant integers
+    using multiplication", PLDI 1994, section 4). K7 and K9 divide by d as
+    ``__umulhi(m, 2 n) >> l``, the same quotient."""
+    if not 1 <= d < 2 ** 31:
+        raise ValueError(f"divisor {d} not in [1, 2^31)")
+    l = (d - 1).bit_length()
+    return -(-(1 << (31 + l)) // d), l
+
+
+@functools.lru_cache(maxsize=64)
+def _frame_magic(width: int, samples: int) -> tuple:
+    if samples * samples >= 2 ** 31:
+        raise ValueError(f"samples {samples}: spp not below 2^31")
+    return (*magic_divisor(samples * samples), *magic_divisor(samples),
+            *magic_divisor(width))
+
+
+def _magic_arg(width: int, samples: int):
+    """K7's and K9's divisors of a frame, [m, l] of spp, samples and width,
+    as the u32 array their entry points take."""
+    return (ctypes.c_uint32 * 6)(*_frame_magic(width, samples))
 
 
 def pixel_uv_jittered(width: int, height: int, samples: int, ray_ids,
@@ -333,7 +455,8 @@ def camera_rays_stochastic_launch(ids, cam_axes, cam_o, h, w, focus,
     uv, ro, rd = _outputs(out, ids.shape[0], ids.device)
     ptr = _build.ptr
     err = _build.library().yrt_camera_rays_stochastic(
-        ptr(ids), ids.shape[0], width, height, samples, seed & U32,
+        ptr(ids), ids.shape[0], width, height, samples,
+        _magic_arg(width, samples), seed & U32,
         ptr(cam_axes), ptr(cam_o), ptr(h), ptr(w), ptr(focus), ptr(aperture),
         ptr(uv), ptr(ro), ptr(rd), _build.current_stream())
     _build.check_launch(err, "yrt_camera_rays_stochastic")
@@ -344,8 +467,9 @@ def camera_rays_stochastic_launch(ids, cam_axes, cam_o, h, w, focus,
 def camera_rays_stochastic_bwd(ids, cam_axes, cam_o, h, w, focus, aperture,
                                width, height, samples, seed, g_ro, g_rd):
     """K9 launch: (16,) f32 = [d_cam_axes (9), d_cam_o (3), d_h, d_w,
-    d_focus, d_aperture], summed over the batch in a fixed order, for the
-    cotangents of K7's (ro, rd). CUDA only."""
+    d_focus, d_aperture], summed over the batch in one launch, in the order
+    of ``ordered_camera_sums``, for the cotangents of K7's (ro, rd). CUDA
+    only."""
     _check_stochastic_args(ids, cam_axes, cam_o, h, w, focus, aperture,
                            width, height, samples)
     dev = ids.device
@@ -354,17 +478,52 @@ def camera_rays_stochastic_bwd(ids, cam_axes, cam_o, h, w, focus, aperture,
     _build.check_tensor("g_ro", g_ro, f32, (n, 3), dev)
     _build.check_tensor("g_rd", g_rd, f32, (n, 3), dev)
     lib = _build.library()
-    partials = torch.empty(lib.yrt_camera_stochastic_bwd_scratch(n),
-                           dtype=f32, device=dev)
-    out = torch.empty(16, dtype=f32, device=dev)
+    partials = torch.empty(lib.yrt_camera_bwd_scratch(n), dtype=f32,
+                           device=dev)
+    out = torch.empty(CAM_SLOTS, dtype=f32, device=dev)
     ptr = _build.ptr
     err = lib.yrt_camera_stochastic_bwd(
-        ptr(ids), n, width, height, samples, seed & U32, ptr(g_ro),
-        ptr(g_rd), ptr(cam_axes), ptr(cam_o), ptr(h), ptr(w), ptr(focus),
-        ptr(aperture), ptr(partials), ptr(out), _build.current_stream())
+        ptr(ids), n, width, height, samples, _magic_arg(width, samples),
+        seed & U32, ptr(g_ro), ptr(g_rd), ptr(cam_axes), ptr(cam_o), ptr(h),
+        ptr(w), ptr(focus), ptr(aperture), ptr(partials), ptr(out),
+        _counter(dev, 1), _build.current_stream())
     _build.check_launch(err, "yrt_camera_stochastic_bwd")
     _build.launches["camera_bwd_stochastic"] += 1
     return out
+
+
+def camera_stochastic_bwd_terms_plain(ids, cam_axes, cam_o, h, w, focus,
+                                      aperture, width, height, samples, seed,
+                                      g_ro, g_rd):
+    """K9's per-ray terms, (N, 16) f32: the jittered uv and lens sample of
+    the plain chain, then the adjoint of ``eval_camera_dof`` for the
+    cotangents (g_ro, g_rd), op for op as
+    ``stochastic.cu::camera_stochastic_bwd_kernel`` computes them."""
+    _, uv = pixel_uv_jittered(width, height, samples, ids, seed)
+    lens_uv = sampling.sample_disk(per_ray_uniform(
+        (seed & U32) ^ LENS_SEED_XOR, ids, 2))
+    x, y, z, o = cam_axes[0], -cam_axes[1], cam_axes[2], cam_o
+    u, v = uv[:, 0:1], uv[:, 1:2]
+    dx, dy = lens_uv[:, 0:1], lens_uv[:, 1:2]
+    lens = aperture / 2.0
+    q = o + x * ((u - 0.5) * w) + y * ((v - 0.5) * h) - z * focus
+    e = o + (x * dx + y * dy) * lens
+    d = q - e
+    nrm = isect.sqrt(isect.dot(d, d))[:, None]
+    rdn = d / nrm
+    cg = isect.dot(g_rd, rdn)[:, None]
+    gq = (g_rd - rdn * cg) / nrm
+    ge = g_ro - gq
+    cu = (u - 0.5) * w
+    cv = (v - 0.5) * h
+    gel = ge * lens
+    gx = gq * cu + gel * dx
+    gy = gq * cv + gel * dy
+    return torch.cat([gx, -gy, -gq * focus, g_ro,
+                      (v - 0.5) * isect.dot(gq, y)[:, None],
+                      (u - 0.5) * isect.dot(gq, x)[:, None],
+                      -isect.dot(gq, z)[:, None],
+                      isect.dot(ge, x * dx + y * dy)[:, None] / 2.0], dim=1)
 
 
 def camera_rays_stochastic_cuda(scene: TorchScene, ids, width: int,
