@@ -30,7 +30,7 @@ mirror frame's quad and a lamp panel of 2,048 triangles: K8 bit-equal to
 both, K10 within 1 ULP of the explicit f64 reverse and 1e-4 of autograd
 and the first form, bit-identical over two runs where every light spans
 at most 8 vertices.
-Then it drives the port's seven paths through their user entry points:
+Then it drives the port's eight paths through their user entry points:
 
 * rendering, ``render_scene_file(..., device="cuda")``: the hair scene
   (lines + triangles + two point lights; the stand-in for the reference's
@@ -79,11 +79,22 @@ Then it drives the port's seven paths through their user entry points:
   ``train_step_sharded`` on 2**20 rays against ``train_step``, and a
   profiled sharded step with K1, K2, K4, K5, K6 and one all_reduce for the
   loss and one per float leaf; the all_reduce's time beside its bound;
+* glTF scenes (``phase_gltf``): the textured hair scene saved as .glb
+  and .gltf and rendered with ``render_scene_file(..., device="cuda")``
+  at the main frame's size, f32 bit-equal to the in-memory scene's frame,
+  u8 within 1 step of the all-plain path (K1-K4 and K12 counted on the
+  .glb frame); the hair scene's .gltf with a LINEAR translation channel
+  on the sphere's node, played at t = 0, 0.5 and 1 (graph playback, the
+  device scene rebuilt, a graph captured per frame; t = 0 bit-equal to
+  the file without the channel, t = 1 different, each within 1 u8 step
+  of the all-plain path); ``io.gltf.skin_vertices`` on the card
+  bit-equal to the CPU;
 * the CLI, ``python -m yocto_raytracing_tpu_torch.cli`` in subprocesses:
   the hair frame as PNG, plain, with ``--checkpoint`` (and resumed from a
   snapshot cut to half), ``--sharded``, and ``--sharded`` under
-  ``torch.distributed.run``, each bit-equal to ``image.tonemap`` of
-  ``render_image``; a missing scene exits 1 with ``error:`` first.
+  ``torch.distributed.run``, and plain on its ``.glb`` twin, each
+  bit-equal to ``image.tonemap`` of ``render_image``; a missing scene
+  exits 1 with ``error:`` first.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails if a kernel of the path never launched. A CUDA graph's
@@ -1174,30 +1185,42 @@ def phase_frame(path, resolution, samples, max_depth, device, dev_info,
                              f"in the profile, {skipped['bounces']} counted")
 
     # all-plain path on the card, first COMPARE_PIXELS pixels
-    npix = min(COMPARE_PIXELS, width * height)
+    check_plain_pixels(f"frame {name}", img, scene, meta, samples, max_depth,
+                       0, min(COMPARE_PIXELS, width * height))
+    check_simple_k4_frame(name, scene, meta, width, height)
+    skipped["hit_nearest"] = skipped["hit"] - skipped["hit_any"]
+    return dict(counts=counts, skipped=skipped, wall=wall, rays=rays,
+                image=img, prof=prof)
+
+
+def check_plain_pixels(what, img, scene, meta, samples, max_depth, start,
+                       stop) -> None:
+    """Pixels [start, stop) of the u8 frame ``img`` (device tonemap) against
+    the all-plain path on the card (plain torch walk, shading and pixel
+    finish): within 1 u8 step."""
+    from yocto_raytracing_tpu_torch.render import renderer
+
+    height, width = img.shape[:2]
+    spp = samples * samples
     amb = torch.full((3,), 0.1, dtype=torch.float32, device=scene.device)
     parts = []
     t0 = time.perf_counter()
-    for start in range(0, npix, CHUNK_PIXELS):
-        stop = min(start + CHUNK_PIXELS, npix)
-        ids = torch.arange(start * spp, stop * spp, dtype=torch.int32,
+    for lo in range(start, stop, CHUNK_PIXELS):
+        hi = min(lo + CHUNK_PIXELS, stop)
+        ids = torch.arange(lo * spp, hi * spp, dtype=torch.int32,
                            device=scene.device)
         rgb = renderer.trace_rays(scene, ids, amb, width, height, samples,
                                   max_depth, meta.has_kd_textures,
                                   meta.has_ks_textures, plain=True)
         parts.append(renderer.pixel_finish_plain(rgb, spp, True))
     plain = torch.cat(parts).cpu().numpy()
-    got = img.reshape(-1, 4)[:npix, :3]
+    got = img.reshape(-1, 4)[start:stop, :3]
     d = np.abs(plain.astype(np.int32) - got)
-    log(f"frame {name}: kernel vs all-plain on {npix} pixels: max "
+    log(f"{what}: kernel vs all-plain on pixels {start}-{stop}: max "
         f"{d.max()} u8 steps, {int((d > 0).any(axis=1).sum())} pixels "
         f"differ ({time.perf_counter() - t0:.1f} s)")
     if d.max() > 1:
-        raise AssertionError(f"frame {name}: {d.max()} u8 steps off plain")
-    check_simple_k4_frame(name, scene, meta, width, height)
-    skipped["hit_nearest"] = skipped["hit"] - skipped["hit_any"]
-    return dict(counts=counts, skipped=skipped, wall=wall, rays=rays,
-                image=img, prof=prof)
+        raise AssertionError(f"{what}: {d.max()} u8 steps off plain")
 
 
 STOCHASTIC_KERNELS = ("hit", "hit_any", "camera_rays_stochastic",
@@ -2862,6 +2885,182 @@ def overlap_in_turns(scene, meta, q, dist_max, name) -> dict:
     return out
 
 
+GLTF_COMPARE_PIXELS = 1 << 15   # a band through the middle of the frame
+GLTF_TIMES = (0.0, 0.5, 1.0)
+GLTF_SHIFT = (0.4, 0.1, 0.0)     # the sphere's translation at t = 1
+SKIN_JOINTS = 4
+
+
+def add_translation_channel(path, node, shift) -> None:
+    """Add one LINEAR translation channel, (0, 0, 0) at t = 0 to ``shift``
+    at t = 1, on ``node`` of the .gltf at ``path``: its keys in base64
+    ``data:`` buffers, as tests/test_gltf_animation.py writes one."""
+    import base64
+
+    with open(path) as f:
+        g = json.load(f)
+    for arr, kind in ((np.asarray([0.0, 1.0], np.float32), "SCALAR"),
+                      (np.asarray([[0, 0, 0], shift], np.float32), "VEC3")):
+        g["buffers"].append({"uri": "data:application/octet-stream;base64,"
+                             + base64.b64encode(arr.tobytes()).decode(),
+                             "byteLength": arr.nbytes})
+        g["bufferViews"].append({"buffer": len(g["buffers"]) - 1,
+                                 "byteOffset": 0, "byteLength": arr.nbytes})
+        g["accessors"].append({"bufferView": len(g["bufferViews"]) - 1,
+                               "componentType": 5126, "count": len(arr),
+                               "type": kind})
+    n = len(g["accessors"])
+    g["animations"] = [{"name": "move", "samplers": [
+        {"input": n - 2, "output": n - 1, "interpolation": "LINEAR"}],
+        "channels": [{"sampler": 0,
+                      "target": {"node": node, "path": "translation"}}]}]
+    with open(path, "w") as f:
+        json.dump(g, f)
+
+
+def phase_gltf(tmp, device, dev_info) -> dict:
+    """glTF scenes through the main path on the card, at the main frame's
+    size (RES rows, SAMPLES x SAMPLES, DEPTH):
+
+    (a) ``make_textured_hair_scene(256)`` saved as .glb and as .gltf
+        (checker PNGs beside them) and rendered with
+        ``render_scene_file(..., device="cuda")``: the f32 frames bit-equal
+        to the same host scene rendered from memory (``build_device_scene``
+        + ``render_image``); the .glb's u8 frame within 1 step of the
+        all-plain path on a band through the middle, the .gltf's equal to
+        it; the .glb frame's launch counts (set to 0 just before it) hold
+        K1-K4 and K12;
+    (b) the .gltf of ``make_hair_scene(256)`` with a LINEAR translation
+        channel on the sphere's node, loaded with ``return_graph=True``; at
+        t = 0, 0.5 and 1: ``update_animated_transforms``,
+        ``apply_graph_transforms``, the device scene rebuilt and a u8 frame
+        on the card, each within 1 u8 step of the all-plain path and each
+        with a capture of its own in its record (``kernels.last_frame()``);
+        t = 0's f32 frame bit-equal to the file's without the channel, t = 1
+        different from t = 0;
+    (c) ``io.gltf.skin_vertices`` on the sphere's 325 vertices, 4 seeded
+        joints and weights: the card's result bit-equal to the CPU's.
+    """
+    from yocto_raytracing_tpu_torch import kernels, scene as scene_lib
+    from yocto_raytracing_tpu_torch import testscenes
+    from yocto_raytracing_tpu_torch.io import gltf
+    from yocto_raytracing_tpu_torch.render import renderer
+
+    t_phase = time.perf_counter()
+    kw = dict(max_depth=DEPTH, chunk_pixels=CHUNK_PIXELS)
+
+    def timed_call(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def check_plain(what, img, scene, meta):
+        mid = (RES // 2) * img.shape[1] - GLTF_COMPARE_PIXELS // 2
+        check_plain_pixels(what, img, scene, meta, SAMPLES, DEPTH, mid,
+                           mid + GLTF_COMPARE_PIXELS)
+
+    # (a) the textured hair scene from .glb and .gltf
+    host = testscenes.make_textured_hair_scene(256)
+    scene, meta = scene_on(host, device)
+    width = renderer.image_width(host.cameras[0].aspect, RES)
+    memory = renderer.render_image(scene, meta, width, RES, SAMPLES, **kw)
+    u8 = {}
+    for ext in (".glb", ".gltf"):
+        path = os.path.join(tmp, f"gltf_{ext[1:]}", f"textured_hair{ext}")
+        scene_lib.save_scene(host, path)
+        kernels.reset_launches()
+        (u8[ext], _, fscene, fmeta), wall = timed_call(
+            lambda: renderer.render_scene_file(path, RES, SAMPLES,
+                                               device=device, ldr=True,
+                                               **kw))
+        if ext == ".glb":
+            counts = dict(kernels.launches)
+            check_plain("gltf .glb frame", u8[ext], fscene, fmeta)
+        (f32, *_), wall_f32 = timed_call(
+            lambda: renderer.render_scene_file(path, RES, SAMPLES,
+                                               device=device, **kw))
+        same = np.array_equal(f32.view(np.int32), memory.view(np.int32))
+        log(f"gltf {ext} frame: textured hair 256, {width}x{RES} x "
+            f"{SAMPLES ** 2} spp, depth {DEPTH}: render_scene_file wall "
+            f"{wall:.3f} s (u8), {wall_f32:.3f} s (f32); f32 bit-equal to "
+            f"the in-memory scene's frame: {same}; on {dev_info['smi']}")
+        if not same:
+            raise AssertionError(f"gltf {ext} frame: f32 differs from the "
+                                 f"in-memory scene's")
+    missing = [k for k in FRAME_KERNELS if counts[k] <= 0]
+    log(f"gltf .glb frame launches {counts}")
+    if missing:
+        raise AssertionError(f"gltf .glb frame: kernels {missing} never "
+                             f"launched")
+    if not np.array_equal(u8[".gltf"], u8[".glb"]):
+        raise AssertionError("gltf: the .gltf u8 frame differs from .glb's")
+
+    # (b) the animated hair scene
+    path = os.path.join(tmp, "gltf_anim", "hair.gltf")
+    scene_lib.save_scene(testscenes.make_hair_scene(256), path)
+    still, *_ = renderer.render_scene_file(path, RES, SAMPLES, device=device,
+                                           **kw)
+    ahost, graph = gltf.load_gltf(path, return_graph=True)
+    sphere = [i for i, ist in enumerate(ahost.instances)
+              if ist.name == "interior"]
+    add_translation_channel(path, graph.instance_nodes[sphere[0]], GLTF_SHIFT)
+    ahost, graph = gltf.load_gltf(path, return_graph=True)
+    if (len(sphere) != 1 or len(graph.channels) != 1
+            or gltf.animation_bounds(graph) != (0.0, 1.0)):
+        raise AssertionError("gltf animation: the channel did not load")
+    frames = {}
+    for t in GLTF_TIMES:
+        t0 = time.perf_counter()
+        gltf.update_animated_transforms(graph, t)
+        gltf.apply_graph_transforms(graph, ahost)
+        ascene, ameta = scene_on(ahost, device)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        frames[t], wall = timed_call(lambda: renderer.render_image(
+            ascene, ameta, width, RES, SAMPLES, ldr=True, **kw))
+        capture = kernels.last_frame()["host_ms"]["capture"]
+        log(f"gltf animation t={t}: sphere origin "
+            f"{ahost.instances[sphere[0]].o.tolist()}, device scene rebuilt "
+            f"in {t_build:.3f} s, render_image wall {wall:.3f} s, its own "
+            f"capture {capture:.2f} ms host; on {dev_info['smi']}")
+        if capture <= 0:
+            raise AssertionError(f"gltf animation t={t}: the frame captured "
+                                 f"no graph of its own")
+        check_plain(f"gltf animation t={t}", frames[t], ascene, ameta)
+        if t == 0.0:
+            f32 = renderer.render_image(ascene, ameta, width, RES, SAMPLES,
+                                        **kw)
+            if not np.array_equal(f32.view(np.int32), still.view(np.int32)):
+                raise AssertionError("gltf animation t=0: differs from the "
+                                     "frame without the channel")
+    moved = int((frames[1.0] != frames[0.0]).any(axis=-1).sum())
+    log(f"gltf animation: t=0 bit-equal to the frame without the channel; "
+        f"t=1 differs from t=0 in {moved} pixels")
+    if moved == 0:
+        raise AssertionError("gltf animation: t=1 equals t=0")
+
+    # (c) skinning on the card against the CPU
+    pos = ahost.shapes[ahost.instances[sphere[0]].shape].pos
+    rng = np.random.default_rng(SEED)
+    xf = np.tile(np.eye(4, dtype=np.float32), (SKIN_JOINTS, 1, 1))
+    xf[:, :3, :] = rng.normal(size=(SKIN_JOINTS, 3, 4)).astype(np.float32)
+    joints = rng.integers(0, SKIN_JOINTS, (len(pos), 4)).astype(np.int32)
+    weights = rng.uniform(0, 1, (len(pos), 4)).astype(np.float32)
+    weights /= weights.sum(1, keepdims=True)
+    card = gltf.skin_vertices(pos, joints, weights, xf)
+    cpu = gltf.skin_vertices(pos, joints, weights, xf, device="cpu")
+    same = card.device.type == "cuda" and torch.equal(card.cpu(), cpu)
+    seconds = time.perf_counter() - t_phase
+    log(f"gltf skinning: {len(pos)} vertices, {SKIN_JOINTS} joints, card "
+        f"bit-equal to the CPU: {same}; phase gltf {seconds:.1f} s on "
+        f"{dev_info['smi']}")
+    if len(pos) != 325 or not same:
+        raise AssertionError("gltf skinning: the card differs from the CPU")
+    return dict(counts=counts, seconds=seconds)
+
+
 SHARDED_FRAME_KERNELS = {"hair": ("hit", "camera_rays", "shade"),
                          "area hair": ("hit", "camera_rays_stochastic",
                                        "light_points", "shade")}
@@ -3105,8 +3304,9 @@ def phase_cli(hair_obj, tmp, device, dev_info) -> dict:
     so must the ``--checkpoint`` run, again after its snapshot is cut to
     half its ``done``, the ``--sharded`` run in a plain process (world of
     one, no group) and the ``--sharded`` run under torchrun (one rank,
-    ``init_distributed`` from its environment, NCCL). A missing scene
-    exits 1 with ``error:`` first on stderr."""
+    ``init_distributed`` from its environment, NCCL), and the plain run
+    on the scene's ``.glb`` twin. A missing scene exits 1 with ``error:``
+    first on stderr."""
     from yocto_raytracing_tpu_torch import image
     from yocto_raytracing_tpu_torch import scene as scene_lib
     from yocto_raytracing_tpu_torch.parallel import mesh
@@ -3160,6 +3360,21 @@ def phase_cli(hair_obj, tmp, device, dev_info) -> dict:
             raise AssertionError(f"cli {label}: no {backend} group\n{err}")
         if label == "--sharded" and "no group" not in err:
             raise AssertionError(f"cli {label}: a group was started\n{err}")
+    # the .glb twin of the scene writes the .obj run's PNG
+    glb = os.path.join(tmp, "cli_glb", "hair.glb")
+    scene_lib.save_scene(host, glb)
+    os.remove(png)
+    t0 = time.perf_counter()
+    rc, out, err = run_command(cli + args + ["-o", png, glb], ".glb",
+                               dev_info)
+    walls[".glb"] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli .glb: exit {rc}\n{out}\n{err}")
+    got = image.load_image4b(png)
+    log(f"cli .glb: PNG bit-equal to the .obj run's: "
+        f"{np.array_equal(got, want)}")
+    if not np.array_equal(got, want):
+        raise AssertionError("cli .glb: PNG differs from the .obj run's")
     rc, out, err = run_command(cli + args + [os.path.join(tmp, "none.obj")],
                                "missing scene", dev_info)
     log(f"cli missing scene: stderr {err.strip()[:120]!r}")
@@ -3276,6 +3491,7 @@ def run_phases(dev_info, device, shade_regs, camera_build, plain_walk,
             strand_points=overlap_rec["hair 256, strand points"],
             on_strands=overlap_rec["hair 256, points on the strands"])
         rec["overlap_refit"] = overlap_rec["overlap_refit"]
+        gltf_frame = phase_gltf(tmp, device, dev_info)
         # last: the NCCL group and the CLI's subprocesses
         phase_sharded(hair_obj, area_hair_obj, device, dev_info)
         phase_cli(hair_obj, tmp, device, dev_info)
@@ -3340,6 +3556,13 @@ def run_phases(dev_info, device, shade_regs, camera_build, plain_walk,
             device_ms=device_ms(path["prof"], k, path["counts"][k],
                                 (skipped, dead_us))))
     by_name = {r["name"]: r for r in kernels_rec}
+    # the glTF frame's path (render_scene_file of a .glb) launches K1-K4
+    # and K12 too: its own counts, set to 0 just before it
+    gltf_counts = gltf_frame["counts"]
+    gltf_counts["hit_nearest"] = gltf_counts["hit"] - gltf_counts["hit_any"]
+    for k in ("hit_nearest", "hit_any", "camera_rays", "pixel_finish",
+              "shade", "bounce"):
+        by_name[k]["gltf_launches"] = gltf_counts[k]
     k4_regs = {k: v for k, v in shade_regs.items() if "bwd" not in k
                and "light_sum" not in k}
     k5_regs = {k: v for k, v in shade_regs.items() if k not in k4_regs}

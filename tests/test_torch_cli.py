@@ -15,7 +15,9 @@ tests/test_cli.py, on the CPU.
   golden (tests/goldens/lines_96_s1.png), as ``test_golden_lines_port``
   does through ``render_scene_file``; ``--checkpoint`` (resumed from a
   truncated snapshot) and ``--sharded`` (one process, no group) write the
-  same PNG.
+  same PNG;
+* the hair scene's ``.glb`` and ``.gltf`` twins write the PNG of its
+  ``.obj``, byte for byte.
 """
 
 import io
@@ -195,3 +197,19 @@ def test_cli_golden_lines(goldens_dir, hair_obj, tmp_path, capsys):
 
     assert cli.main(base + ["--sharded", "-o", png, hair_obj]) == 0
     np.testing.assert_array_equal(image_mod.load_image4b(png), ldr)
+
+
+def test_cli_gltf_twin_writes_the_obj_png(tmp_path):
+    """``cli.main`` on the ``.glb`` and ``.gltf`` of the hair scene writes
+    the same PNG bytes as on its ``.obj`` twin."""
+    base = ["-r", "32", "-s", "1", "--max-depth", "2", "--device", "cpu"]
+    host = tts.make_hair_scene(32)
+    pngs = []
+    for ext in (".obj", ".glb", ".gltf"):
+        scene_path = str(tmp_path / ext[1:] / f"hair{ext}")
+        tscene.save_scene(host, scene_path)
+        png = str(tmp_path / f"{ext[1:]}.png")
+        assert cli.main(base + ["-o", png, scene_path]) == 0
+        pngs.append(open(png, "rb").read())
+    assert pngs[1] == pngs[0] and pngs[2] == pngs[0]
+    assert image_mod.load_image4b(str(tmp_path / "obj.png"))[..., :3].max() > 0

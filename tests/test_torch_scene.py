@@ -88,8 +88,16 @@ def test_obj_load_matches_jax(tmp_path):
     for f in fields(jscene.DeviceScene):
         np.testing.assert_array_equal(np.asarray(getattr(jd, f.name)),
                                       td[f.name], err_msg=f.name)
-    with pytest.raises(tscene.SceneLoadError, match="not yet ported"):
-        path = tmp_path / "x.gltf"
+    # its glTF twin, written by the port, loads to the same leaves in both
+    glb = str(tmp_path / "hair.glb")
+    tscene.save_scene(tscene.load_scene(obj), glb)
+    jd, _ = jscene.build_device_scene(jscene.load_scene(glb))
+    td, _ = tscene.build_device_scene(tscene.load_scene(glb))
+    for f in fields(jscene.DeviceScene):
+        np.testing.assert_array_equal(np.asarray(getattr(jd, f.name)),
+                                      td[f.name], err_msg=f.name)
+    with pytest.raises(tscene.SceneLoadError, match="unsupported"):
+        path = tmp_path / "x.fbx"
         path.write_text("{}")
         tscene.load_scene(str(path))
 
@@ -129,6 +137,10 @@ def test_port_imports_no_jax():
     """No module of the port imports jax or anything of the JAX package."""
     files = _port_files() + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) >= 20
+    names = {os.path.relpath(p, PORT_DIR) for p in files}
+    for mod in ("io/gltf.py", "animation.py", "geometry.py",
+                "procedural.py", "ops/intersect.py"):
+        assert mod.replace("/", os.sep) in names, mod
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -139,11 +151,14 @@ def test_port_imports_no_jax():
 def test_port_runs_without_jax_package(tmp_path):
     """A process where jax and the JAX package cannot be imported imports
     every module of the port, then loads a hair scene from OBJ and renders
-    a 32x18 frame on the CPU."""
+    a 32x18 frame on the CPU, and renders the same bits from its GLB
+    twin."""
     mods = sorted(
         "yocto_raytracing_tpu_torch." + os.path.relpath(p, PORT_DIR)[:-3]
         .replace(os.sep, ".").removesuffix(".__init__")
         for p in _port_files())
+    for mod in ("io.gltf", "animation", "geometry", "procedural"):
+        assert f"yocto_raytracing_tpu_torch.{mod}" in mods, mod
     code = textwrap.dedent(f"""
         import importlib, sys
         for blocked in ("jax", "jaxlib", "yocto_raytracing_tpu"):
@@ -157,6 +172,11 @@ def test_port_runs_without_jax_package(tmp_path):
         img, *_ = renderer.render_scene_file(path, 18, 1, max_depth=2,
                                              device="cpu")
         assert img.shape == (18, 32, 4) and img[..., :3].max() > 0.05
+        glb = path[:-4] + ".glb"
+        scene.save_scene(scene.load_scene(path), glb)
+        again, *_ = renderer.render_scene_file(glb, 18, 1, max_depth=2,
+                                               device="cpu")
+        assert (again == img).all()
         loaded = sorted(k for k, v in sys.modules.items()
                         if v is not None and k.split(".")[0]
                         in ("jax", "jaxlib", "yocto_raytracing_tpu"))

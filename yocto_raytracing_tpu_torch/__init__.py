@@ -9,10 +9,14 @@ package.
 
 Layout (module names follow the JAX package):
 
-* ``scene``      host scene model, OBJ loading, flat SoA arrays, ``TorchScene``
-* ``bvh``, ``native``, ``image``, ``io``
+* ``scene``      host scene model, OBJ and glTF/GLB loading and saving, the
+                 tangent space, flat SoA arrays, ``TorchScene``
+* ``bvh``, ``native``, ``image``, ``io``, ``geometry``, ``animation``,
+  ``procedural``
                  copies of the JAX package's numpy host modules (BVH builder
-                 with its g++ fast path, tonemap and image files, OBJ/HDR)
+                 with its g++ fast path, tonemap and image files, OBJ/HDR,
+                 glTF with animation, skins and morphs, mesh tools,
+                 keyframes, test images)
 * ``testscenes`` procedural scenes (hair, gradient/mirror, random)
 * ``ops``        ray-primitive math, the two-level BVH hit query (kernel K1)
                  and the Monte-Carlo samplers

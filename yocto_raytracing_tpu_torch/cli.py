@@ -1,7 +1,8 @@
 """Command-line renderer: ``python -m yocto_raytracing_tpu_torch.cli``.
 
 Mirrors the reference executable's interface (src/raytrace.cpp:256-287):
-``raytrace [options] scenein`` with --resolution/-r (720), --samples/-s (1,
+``raytrace [options] scenein`` (``.obj``, ``.gltf`` or ``.glb``) with
+--resolution/-r (720), --samples/-s (1,
 the stratified grid side, spp = s^2), --ambient/-a (0.1 grey),
 --output/-o (out.png; .hdr writes float Radiance), plus the JAX package's
 knobs: --camera, --max-depth, --chunk-pixels, --sharded (rays sharded over
@@ -24,7 +25,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="yocto_raytracing_tpu_torch",
         description="Whitted raytracer on PyTorch and CUDA")
-    p.add_argument("scenein", help="input scene (.obj)")
+    p.add_argument("scenein", help="input scene (.obj, .gltf, .glb)")
     p.add_argument("--resolution", "-r", type=int, default=720,
                    help="vertical resolution (width = aspect * r)")
     p.add_argument("--samples", "-s", type=int, default=1,

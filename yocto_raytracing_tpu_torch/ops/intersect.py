@@ -2,8 +2,9 @@
 
 Port of ``yocto_raytracing_tpu/ops/intersect.py`` (parity notes there):
 Möller-Trumbore triangles with inclusive bounds, points as disks at the
-closest approach, lines as capsules with the radius lerped by ``s``, and the
-slab test with its NaN drop and ``1.00000024`` slack.
+closest approach, lines as capsules with the radius lerped by ``s``, the
+slab test with its NaN drop and ``1.00000024`` slack, and quads and
+tetrahedra as sequences of triangle tests (on no render path).
 
 Numerics kept here, because the CUDA hit kernel (``kernels/csrc/hit.cu``)
 repeats this arithmetic op for op and is held bit-equal to it:
@@ -134,6 +135,47 @@ def intersect_line(ro, rd, tmin, tmax, v0, v1, r0, r1):
     r = r0 * (1 - s) + r1 * s
     hit = (det != 0) & (t >= tmin) & (t <= tmax) & (dot(p01, p01) <= r * r)
     return hit, torch.where(hit, t, FLT_MAX), s
+
+
+def intersect_quad(ro, rd, tmin, tmax, v0, v1, v2, v3):
+    """Batched two-triangle quad (parity: ym::intersect_quad,
+    src/ext/yocto_math.h:5682-5697).
+
+    Triangle 1 = (v0, v1, v3), triangle 2 = (v2, v3, v1), the second test
+    capped at the first's t. Returns (hit, t, euv) with euv (..., 4) in the
+    reference's quad convention: triangle-1 hits give (1-u-v, u, 0, v),
+    triangle-2 hits (0, 1-u, u+v-1, 1-v). No render path draws quads (the
+    loaders triangulate, src/ext/yocto_scn.cpp:398-411).
+    """
+    h1, t1, a1, b1 = intersect_triangle(ro, rd, tmin, tmax, v0, v1, v3)
+    cap = torch.where(h1, t1, tmax)
+    h2, t2, a2, b2 = intersect_triangle(ro, rd, tmin, cap, v2, v3, v1)
+    hit = h1 | h2
+    t = torch.where(h2, t2, t1)
+    e1 = torch.stack([1.0 - a1 - b1, a1, torch.zeros_like(a1), b1], dim=-1)
+    e2 = torch.stack([torch.zeros_like(a2), 1.0 - a2, a2 + b2 - 1.0,
+                      1.0 - b2], dim=-1)
+    euv = torch.where(h2[..., None], e2, e1)
+    return hit, torch.where(hit, t, FLT_MAX), euv
+
+
+def intersect_tetrahedron(ro, rd, tmin, tmax, v0, v1, v2, v3):
+    """Batched tetrahedron surface test (parity: ym::intersect_tetrahedron,
+    src/ext/yocto_math.h:5718-5743).
+
+    The four face tests in the reference's order, (v0,v1,v2), (v0,v1,v3),
+    (v0,v2,v3), (v1,v2,v3), each capping tmax at the running nearest.
+    Returns (hit, t): the reference leaves the uv unset for tetrahedra.
+    """
+    shape = torch.broadcast_shapes(tmin.shape, tmax.shape)
+    hit = torch.zeros(shape, dtype=torch.bool, device=tmax.device)
+    t_best = torch.broadcast_to(tmax, shape).to(torch.float32)
+    for a, b, c in ((v0, v1, v2), (v0, v1, v3), (v0, v2, v3),
+                    (v1, v2, v3)):
+        h, t, _, _ = intersect_triangle(ro, rd, tmin, t_best, a, b, c)
+        hit = hit | h
+        t_best = torch.where(h, t, t_best)
+    return hit, torch.where(hit, t_best, FLT_MAX)
 
 
 def intersect_bbox(ro, rd, tmin, tmax, bmin, bmax):
