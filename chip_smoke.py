@@ -22,8 +22,10 @@ and timed in turns with their first forms, ``camera_bwd_simple.cu``, at
 2**20 rays, beside their registers, their SASS count a ray and its issue
 floor; K9's 15 shared sums at aperture 0 bit-equal to K6's), K7
 stochastic camera rays, K8 area-light points, K11 overlap query with
-its refit kernel and K12, the device loop's bounce update (bit-equal; K12
-also writes nothing under a zero alive word). K8 and K10 are also held
+its refit kernel, K12, the device loop's bounce update (bit-equal; K12
+also writes nothing under a zero alive word) and K13, the device loop's
+records (bit-equal to the packers on three scenes, before and after leaves
+edited in place). K8 and K10 are also held
 against their first forms (``lights_simple.cu``) and timed in turns with
 them on the area hair frame's lights (a quad and a polyline), the area
 mirror frame's quad and a lamp panel of 2,048 triangles: K8 bit-equal to
@@ -37,14 +39,20 @@ Then it drives the port's eight paths through their user entry points:
   lines/refl scenes) at 910x512 with 4x4 samples, depth 4, and the mirror
   scene (``make_grad_scene``, a kr=0.5 mirror) at 512x512, 4x4 samples,
   depth 4. The frame runs as the device loop (``frame_device``: one CUDA
-  graph of a chunk, replayed; K1, K2, K3, K4 and K12 in it); the phase
-  ``frame_device_loop`` holds its f32 sums bit-equal to the eager
-  per-chunk loop's (``frame_eager``) on the hair, mirror, area hair and
-  area mirror frames, timed in turns with it, and prints each frame's
-  wall, device busy time, idle share, device ops, copies to the host (1),
-  dead bounces and their device time in the graph frame's own profile, and
-  ``render_scene_file``'s wall split into load, build, upload and
-  ``render_image``;
+  graph of a chunk, kept across calls of one configuration and replayed,
+  each bounce after the first in an IF node, so a dead bounce launches
+  nothing; K1, K2, K3, K4 and K12 in it); the phase ``frame_device_loop``
+  holds its f32 sums bit-equal to the eager per-chunk loop's
+  (``frame_eager``) on the hair, mirror, area hair, area mirror and
+  mirror-pair frames (two facing mirrors, where bounces 2 and 3 must run
+  in some chunks) and the hair frame at depth 8, timed in turns with it,
+  with the loop's first form (a graph captured per call, every bounce
+  launched) and with its own first and repeated calls, and prints for each
+  the wall, host enqueue by stage, device busy time, idle share, device
+  ops, copies to the host (1), live bounces by depth, dead bounces and
+  their launches and device time in its own profile, the reserved
+  memory's growth and the kept entry's size; and ``render_scene_file``'s
+  wall split into load, build, upload and ``render_image``;
 * training, ``parallel.mesh.train_step`` on 2**20 rays per step (the JAX
   bench's training batch) of the same two frames, towards a target rendered
   with perturbed ``mat_kd`` and ``light_ke``: step 1 with every float leaf
@@ -82,10 +90,10 @@ Then it drives the port's eight paths through their user entry points:
 * glTF scenes (``phase_gltf``): the textured hair scene saved as .glb
   and .gltf and rendered with ``render_scene_file(..., device="cuda")``
   at the main frame's size, f32 bit-equal to the in-memory scene's frame,
-  u8 within 1 step of the all-plain path (K1-K4 and K12 counted on the
-  .glb frame); the hair scene's .gltf with a LINEAR translation channel
+  u8 within 1 step of the all-plain path (K1-K4, K12 and K13 counted on
+  the .glb frame); the hair scene's .gltf with a LINEAR translation channel
   on the sphere's node, played at t = 0, 0.5 and 1 (graph playback, the
-  device scene rebuilt, a graph captured per frame; t = 0 bit-equal to
+  device scene rebuilt, each frame's cache hit and host ms; t = 0 bit-equal to
   the file without the channel, t = 1 different, each within 1 u8 step
   of the all-plain path); ``io.gltf.skin_vertices`` on the card
   bit-equal to the CPU;
@@ -98,11 +106,11 @@ Then it drives the port's eight paths through their user entry points:
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails if a kernel of the path never launched. A CUDA graph's
-replays count the launches it captured, those of dead bounces too (they
-return at once on the card); the ``kernels`` line gives them apart
-(``skipped``, the main path's own count, ``kernels.skipped_launches``) and
-leaves them, and their time in the main path's own profile, out of the
-device time per launch.
+replays count the launches it captured, those inside the IF nodes of dead
+bounces too, which the card does not make; the ``kernels`` line's
+``launches`` are those the card made (``kernels.made_launches``: the
+counts less ``kernels.skipped_launches``), with the counts as
+``counted`` and the difference as ``skipped``.
 
 Every phase raises on failure, so the exit code is non-zero unless all of
 them pass. Without a CUDA device it exits non-zero before printing any
@@ -369,7 +377,8 @@ DEVICE_FUNCTIONS = {
     "overlap": ("overlap_kernel",),
     "overlap_refit": ("overlap_parent_kernel", "overlap_refit_kernel"),
     "overlap_simple": ("simple::overlap_kernel",),
-    "bounce": ("bounce_kernel",)}
+    "bounce": ("bounce_kernel",),
+    "records": ("records_kernel",)}
 
 
 def device_us(by_name: dict, kernel: str) -> float:
@@ -380,57 +389,63 @@ def device_us(by_name: dict, kernel: str) -> float:
                    f"yrt::{fn}(" for fn in DEVICE_FUNCTIONS[kernel])))
 
 
-def device_ms(prof: dict, kernel: str, launches: int,
-              dead=(0, 0.0)) -> float:
+def device_ms(prof: dict, kernel: str, launches: int) -> float:
     """Device milliseconds per launch of ``kernel`` in a profiled path run
-    (its device functions' summed time over the wrapper's launches): the
-    kernel alone, without the host work around its launch. ``dead`` =
-    (launches, their device us in the same profile) of the path's
-    dead-bounce launches, which returned at once: they are taken out, time
-    and count."""
+    (its device functions' summed time over the ``launches`` the card
+    made): the kernel alone, without the host work around its launch."""
     us = device_us(prof["by_name"], kernel)
     if us == 0:
         raise AssertionError(f"the profile of {kernel}'s path holds none "
                              f"of its device functions")
-    skipped, dead_us = dead
-    return (us - dead_us) / 1e3 / (launches - skipped)
+    return us / 1e3 / launches
 
 
-def dead_bounce_time(events, record) -> dict:
+def dead_bounce_time(events, record, dead_launched=False) -> dict:
     """The device loop's dead bounces in a profiled frame. ``events`` are
     the trace's device events in the order they started
     (``profile_summary``), ``record`` the frame's ``kernels.last_frame()``.
     The launches of the bounce kernels go a bounce (BOUNCE_SEQUENCE) after
-    another, chunk after chunk, each bounce matched to its chunk's alive
-    word in the record: returns the dead bounces ("bounces"), their
-    launches by BOUNCE_KERNELS key ("launches"), their device us by key
-    ("us") and in all ("total_us"). Raises ValueError where the launches do
-    not fit the record (the tracer lost one)."""
+    another, chunk after chunk: in ``frame_device``'s graph only the live
+    bounces launch (a dead one sits in an IF node whose body does not run);
+    in the first form (``dead_launched``) every bounce does, a dead one's
+    launches reading its alive word and returning at once. Each group is
+    matched to its bounce in the record: returns the dead bounces
+    ("bounces"), their launches in the trace by BOUNCE_KERNELS key
+    ("launches"), their device us by key ("us") and in all ("total_us"),
+    and the live bounces by depth ("live_by_depth"). Raises ValueError
+    where the launches do not fit the record (the tracer lost one),
+    AssertionError where the graph launched a dead bounce."""
     ran = record["ran"].cpu()
     chunks, depth = ran.shape[0], ran.shape[1] - 1
+    live = ran[:, :-1].flatten().tolist()
     seq = [(k, fn) for k, fn in BOUNCE_SEQUENCE if record["lights"]
            or fn not in ("shade_prep_kernel", "hit_any_kernel")]
     fns = [fn for _, fn in seq]
     launched = [(name[5:].split("(")[0], us) for name, us in events
                 if name.startswith(tuple(f"yrt::{fn}(" for fn in fns))]
     m = len(seq)
-    if len(launched) != chunks * depth * m:
+    bounces = [b for b in range(chunks * depth) if dead_launched or live[b]]
+    if len(launched) != len(bounces) * m:
+        if not dead_launched and len(launched) == chunks * depth * m:
+            raise AssertionError(f"the graph launched its "
+                                 f"{live.count(0)} dead bounces")
         raise ValueError(f"{len(launched)} bounce launches, not "
-                         f"{chunks * depth * m}")
-    out = dict(bounces=0, launches=dict.fromkeys(BOUNCE_KERNELS, 0),
+                         f"{len(bounces) * m}")
+    out = dict(bounces=live.count(0),
+               launches=dict.fromkeys(BOUNCE_KERNELS, 0),
                us=dict.fromkeys(BOUNCE_KERNELS, 0.0))
-    for b in range(chunks * depth):
-        group = launched[b * m:(b + 1) * m]
+    for j, b in enumerate(bounces):
+        group = launched[j * m:(j + 1) * m]
         if [fn for fn, _ in group] != fns:
             raise ValueError(f"bounce {b}: launches {[g[0] for g in group]}")
-        if ran[b // depth, b % depth]:
+        if live[b]:
             continue
-        out["bounces"] += 1
         for key in dict.fromkeys(k for k, _ in seq):
             out["launches"][key] += 1
         for (key, _), (_, us) in zip(seq, group):
             out["us"][key] += us
     out["total_us"] = sum(out["us"].values())
+    out["live_by_depth"] = ran[:, :-1].sum(0).tolist()
     return out
 
 
@@ -1129,17 +1144,18 @@ def check_simple_k4_frame(name, scene, meta, width, height, **kw) -> None:
 
 
 FRAME_KERNELS = ("hit", "hit_any", "camera_rays", "pixel_finish", "shade",
-                 "bounce")
+                 "bounce", "records")
 TRAIN_KERNELS = ("hit", "camera_rays", "shade", "shade_bwd", "camera_bwd")
 
 
 def phase_frame(path, resolution, samples, max_depth, device, dev_info,
                 name) -> dict:
     """One frame through render_scene_file on the card: its launch counts
-    and those of them that returned at once in dead bounces
-    (``kernels.skipped_launches``); a warm profile, in which the dead
-    bounces' launches are told apart (``dead_bounce_time``) and counted
-    alike; the first COMPARE_PIXELS pixels against the all-plain path."""
+    and those of them that belong to dead bounces, which its graph does
+    not make (``kernels.skipped_launches``); a warm profile, which must
+    hold the live bounces' launches and no dead one's
+    (``dead_bounce_time``), its dead bounces counted alike; the first
+    COMPARE_PIXELS pixels against the all-plain path."""
     from yocto_raytracing_tpu_torch import kernels
     from yocto_raytracing_tpu_torch.render import renderer
 
@@ -1153,6 +1169,7 @@ def phase_frame(path, resolution, samples, max_depth, device, dev_info,
     wall = time.perf_counter() - t0
     counts = dict(kernels.launches)
     skipped = kernels.skipped_launches()
+    made = kernels.made_launches()
     height, width = img.shape[:2]
     spp = samples * samples
     rays = width * height * spp
@@ -1188,9 +1205,10 @@ def phase_frame(path, resolution, samples, max_depth, device, dev_info,
     check_plain_pixels(f"frame {name}", img, scene, meta, samples, max_depth,
                        0, min(COMPARE_PIXELS, width * height))
     check_simple_k4_frame(name, scene, meta, width, height)
-    skipped["hit_nearest"] = skipped["hit"] - skipped["hit_any"]
-    return dict(counts=counts, skipped=skipped, wall=wall, rays=rays,
-                image=img, prof=prof)
+    for d in (skipped, made):
+        d["hit_nearest"] = d["hit"] - d["hit_any"]
+    return dict(counts=counts, skipped=skipped, made=made, wall=wall,
+                rays=rays, image=img, prof=prof)
 
 
 def check_plain_pixels(what, img, scene, meta, samples, max_depth, start,
@@ -1565,24 +1583,184 @@ def phase_bounce_kernel(device) -> dict:
     return rec
 
 
-def phase_frame_device_loop(frames, device, dev_info) -> None:
-    """The device loop (``frame_device``: a CUDA graph of a chunk, replayed
-    over the frame) against the eager per-chunk loop (``frame_eager``) on
-    the four frames (RES rows, SAMPLES, DEPTH, CHUNK_PIXELS; the area
-    frames stochastic with seed SEED), both ending in the frame's f32 sums
-    on the host: in turns (eager, graph, graph, eager), wall per call, and
-    for each graph call the host's enqueue time in the set-up, chunk 0, the
-    capture and the replays; one profile of each (device busy time, idle
-    share, device ops, copies to the host: 1 for the graph), the graph's
-    with its dead bounces' launches told apart and their device time
-    (``dead_bounce_time``); the growth of the reserved device memory over
-    the calls in turns; the f32 sums equal bit for bit. Also
-    ``render_scene_file``'s wall split into scene load, device scene and BVH
-    build, upload and ``render_image``."""
-    from yocto_raytracing_tpu_torch import kernels, scene as scene_lib
+RECORDS_ROUNDS = 20      # K13 launches per profile
+
+
+def phase_records_kernel(device) -> dict:
+    """K13 against its plain version (``hit_records.pack`` and
+    ``shade_records.pack``) on the hair scene (the main path's), a random
+    8-instance scene and the mirror pair: every record table bit-equal,
+    and again after leaves are edited in place. On the hair scene its timed
+    call, plain time and device time per launch beside its bound (the
+    leaves it reads once, the tables it writes once)."""
+    from yocto_raytracing_tpu_torch import testscenes
+    from yocto_raytracing_tpu_torch.ops import (hit_records, records,
+                                                shade_records)
+
+    cases = [("hair", testscenes.make_hair_scene(256)),
+             ("random", testscenes.make_random_scene(seed=0)),
+             ("mirror pair", testscenes.make_mirror_pair_scene())]
+    for name, host in cases:
+        scene, _ = scene_on(host, device)
+        hrec, srec = records.empty(scene)
+        for edit in (False, True):
+            if edit:
+                scene.pos.mul_(1.5)
+                scene.mat_kd.add_(0.25)
+                scene.node_skip.add_(3)
+            records.pack_into(scene, hrec, srec)
+            want = (*hit_records.pack(scene)[:3], *shade_records.pack(scene))
+            for i, (a, b) in enumerate(zip(records.tables(hrec, srec), want)):
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    raise AssertionError(f"K13 {name} table {i} (edited "
+                                         f"{edit}): differs from plain")
+        if name == "hair":
+            hair = scene, hrec, srec
+    scene, hrec, srec = hair
+    ins = [getattr(scene, k) for k, _, _ in records.LEAVES]
+    moved = nbytes(*ins, *records.tables(hrec, srec))
+    prof = profile_summary(
+        lambda: [records.pack_into(scene, hrec, srec)
+                 for _ in range(RECORDS_ROUNDS)], "K13 records", ("records",))
+    rec = dict(
+        max_abs_err=0.0, ms=cuda_ms(
+            lambda: records.pack_into(scene, hrec, srec), 20),
+        plain_ms=cuda_ms(lambda: (hit_records.pack(scene),
+                                  shade_records.pack(scene)), 5),
+        library_ms=None,
+        device_us=device_us(prof["by_name"], "records") / RECORDS_ROUNDS,
+        **bound("records", moved, 0, ops=0))
+    log(f"K13 records: the hair, random and mirror-pair scenes' six tables "
+        f"bit-equal to plain, before and after leaves edited in place; hair "
+        f"({scene.node_start.shape[0]} nodes, {scene.prim_v.shape[0]} "
+        f"prims): timed call {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+        f"ms; device us per launch (profiler) {rec['device_us']:.2f}; bound "
+        f"{rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}, {moved} bytes)")
+    return rec
+
+
+# the device loop's ways of running a frame, timed in turns (eager loop,
+# first form, frame_device's first call of a key, its repeated call)
+LOOP_TURNS = ("eager", "first", "miss", "hit", "hit", "miss", "first",
+              "eager")
+
+
+def tensor_mib(obj) -> float:
+    """MiB of the storages that ``obj``'s tensors hold (its attributes,
+    lists, tuples, dicts and dataclasses walked), each storage once."""
+    import dataclasses
+
+    seen, total = set(), 0
+
+    def add(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+        elif isinstance(x, (list, tuple)):
+            for y in x:
+                add(y)
+        elif isinstance(x, dict):
+            for y in x.values():
+                add(y)
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                add(getattr(x, f.name))
+
+    add(dict(vars(obj)))
+    return total / 2 ** 20
+
+
+def loop_turns(label, ways, order, expect, dev_info) -> dict:
+    """Run ``ways`` (name -> call returning a frame's f32 sums on the
+    host) in the order ``order``, each result bit-equal to the eager
+    loop's (computed first; AssertionError on a miss), then profile each
+    way once, in the order of their first turns. Returns per
+    way: its walls in turns, the records' ``host_ms`` and ``cache_hit``, the
+    profile (with ``dead_bounce_time`` for the device loops), and the
+    growth of the reserved device memory over the turns."""
+    from yocto_raytracing_tpu_torch import kernels
+
+    want = ways["eager"]().view(np.int32)
+    out = {k: dict(walls=[], host_ms=[], hits=[]) for k in ways}
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    for k in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ways[k]()
+        torch.cuda.synchronize()
+        out[k]["walls"].append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(got.view(np.int32), want):
+            raise AssertionError(f"{label} {k}: the f32 sums differ from "
+                                 f"the eager loop's")
+        if k != "eager":
+            rec = kernels.last_frame()
+            out[k]["host_ms"].append(rec["host_ms"])
+            out[k]["hits"].append(rec["cache_hit"])
+    grown = (torch.cuda.memory_reserved() - reserved) / 2 ** 20
+    for k in dict.fromkeys(order):
+        check = (None if k == "eager" else
+                 lambda ev, d=(k == "first"): dead_bounce_time(
+                     ev, kernels.last_frame(), d))
+        out[k]["prof"] = profile_summary(ways[k], f"{label} {k}", expect,
+                                         check=check)
+    for k, r in out.items():
+        p = r.get("prof", dict(checked=None))
+        dead = p["checked"]
+        stages = {s: [h[s] for h in r["host_ms"]] for s in
+                  (r["host_ms"][0] if r["host_ms"] else ())}
+        log(f"{label} {k}: wall ms in turns "
+            + ", ".join(f"{w:.2f}" for w in r["walls"])
+            + ("" if "prof" not in r else
+               f"; device busy {p['busy_ms']:.3f} ms, idle share "
+               f"{p['idle']:.3f}, device ops {p['ops']}, copies to the "
+               f"host {p['d2h']}")
+            + ("" if dead is None else
+               f"; live bounces by depth {dead['live_by_depth']}, dead "
+               f"bounces {dead['bounces']}: "
+               f"{sum(dead['launches'].values())} launches, "
+               f"{dead['total_us'] / 1e3:.3f} ms of device time")
+            + ("" if not stages else "; host ms (enqueue) "
+               + ", ".join(f"{s} " + "/".join(f"{v:.2f}" for v in vs)
+                           for s, vs in stages.items())
+               + f"; cache hits {r['hits']}")
+            + f"; f32 bit-equal to the eager loop; on {dev_info['smi']}")
+    log(f"{label}: reserved device memory grew {grown:.1f} MiB over the "
+        f"{len(order)} calls in turns")
+    out["grown_mib"] = grown
+    return out
+
+
+def phase_frame_device_loop(frames, deep, device, dev_info) -> None:
+    """The device loop on the frames (RES rows, SAMPLES, CHUNK_PIXELS; the
+    area frames stochastic with seed SEED) at their depths, four ways in
+    turns (LOOP_TURNS), each ending in the frame's f32 sums on the host:
+    the eager per-chunk loop (``frame_eager``), the loop's first form
+    (``renderer._frame_device_first``: everything made per call, an eager
+    chunk 0, a graph captured per call with every bounce launched),
+    ``frame_device``'s first call of a key (a miss: the kept entry cleared
+    first; records packed eagerly, the chunk captured before chunk 0 with
+    dead bounces in IF nodes, the staging graph captured after the
+    replays) and its repeated call (a hit). For each: wall per call,
+    ``host_ms`` by stage, one profile (device busy time, idle share, device
+    ops, copies to the host: 1 for the device loops, the live bounces by
+    depth and the dead bounces' launches and device time,
+    ``dead_bounce_time``: none in the graph), f32 sums bit-equal to the
+    eager loop's (a miss raises); the reserved memory's growth over the
+    turns and the kept entry's size. A frame named in ``deep`` must run
+    bounces 2 and 3 in some chunk (their IF nodes set by K12 inside the
+    node before). On each frame, last, the loop after a leaf edited in
+    place and under a new seed (``loop_edits``). Also
+    ``render_scene_file``'s wall split into scene load, device scene and
+    BVH build, upload and ``render_image``."""
+    from yocto_raytracing_tpu_torch import scene as scene_lib
     from yocto_raytracing_tpu_torch.render import lights, renderer
 
-    for name, path, area in frames:
+    t_phase = time.perf_counter()
+    for name, path, area, depth in frames:
         torch.cuda.synchronize()
         t = [time.perf_counter()]
         host = scene_lib.load_scene(path)
@@ -1595,7 +1773,7 @@ def phase_frame_device_loop(frames, device, dev_info) -> None:
         sampler = (lights.build_light_sampler(host, leaves, meta, device)
                    if area else None)
         width = renderer.image_width(host.cameras[0].aspect, RES)
-        kw = dict(max_depth=DEPTH, chunk_pixels=CHUNK_PIXELS,
+        kw = dict(max_depth=depth, chunk_pixels=CHUNK_PIXELS,
                   stochastic=area, seed=SEED, light_sampler=sampler)
         renderer.render_image(scene, meta, width, RES, SAMPLES, ldr=True,
                               **kw)
@@ -1603,63 +1781,86 @@ def phase_frame_device_loop(frames, device, dev_info) -> None:
         t.append(time.perf_counter())
         split = np.diff(t) * 1e3
         npix = width * RES
+        args = (scene, meta, width, RES, SAMPLES)
 
-        def graph():
-            return renderer.to_host(renderer.frame_device(
-                scene, meta, width, RES, SAMPLES, **kw)[:npix])
+        def hit():
+            return renderer.to_host(renderer.frame_device(*args, **kw)[:npix])
 
-        def eager():
-            return renderer.frame_eager(scene, meta, width, RES, SAMPLES,
-                                        **kw)
+        def miss():
+            renderer._frames.clear()
+            return hit()
 
-        same = np.array_equal(graph().view(np.int32),
-                              eager().view(np.int32))
-        walls, host_ms = [], []
-        torch.cuda.synchronize()
-        reserved = torch.cuda.memory_reserved()
-        for fn in (eager, graph, graph, eager):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-            if fn is graph:
-                host_ms.append(kernels.last_frame()["host_ms"])
-        grown = (torch.cuda.memory_reserved() - reserved) / 2 ** 20
+        ways = dict(
+            eager=lambda: renderer.frame_eager(*args, **kw),
+            first=lambda: renderer.to_host(
+                renderer._frame_device_first(*args, **kw)[:npix]),
+            miss=miss, hit=hit)
         expect = ("hit_nearest", "hit_any", "shade", "pixel_finish",
                   "camera_rays_stochastic" if area else "camera_rays")
-        g = profile_summary(
-            graph, f"frame {name} graph", expect + ("bounce",),
-            check=lambda ev: dead_bounce_time(ev, kernels.last_frame()))
-        chunks = kernels.last_frame()["ran"].shape[0]
-        e = profile_summary(eager, f"frame {name} eager", expect)
-        dead = g["checked"]
-        log(f"frame_device_loop {name}: {width}x{RES} x {SAMPLES ** 2} spp, "
-            f"depth {DEPTH}, {chunks} chunks; f32 sums graph == "
-            f"eager bit for bit: {same}; wall ms in turns (eager, graph, "
-            f"graph, eager) " + ", ".join(f"{w:.2f}" for w in walls)
-            + f"; device busy ms graph {g['busy_ms']:.3f} / eager "
-            f"{e['busy_ms']:.3f}, idle share {g['idle']:.3f} / "
-            f"{e['idle']:.3f}, device ops {g['ops']} / {e['ops']}, copies "
-            f"to the host {g['d2h']} / {e['d2h']}; dead bounces in the "
-            f"graph's profile {dead['bounces']} of {chunks * DEPTH}, "
-            f"{dead['total_us'] / 1e3:.3f} ms of its device time ("
-            + ", ".join(f"{k} {dead['launches'][k]} launches "
-                        f"{dead['us'][k]:.1f} us" for k in BOUNCE_KERNELS)
-            + "); frame_device's host ms (enqueue) in the two graph calls "
-            + "; ".join(", ".join(f"{k} {v:.2f}" for k, v in h.items())
-                        for h in host_ms)
-            + f"; reserved device memory grew {grown:.1f} MiB over the "
-            f"four calls in turns; render_scene_file split ms: load "
-            f"{split[0]:.2f}, device scene and BVH {split[1]:.2f}, upload "
-            f"{split[2]:.2f}, render_image {split[3]:.2f}; on "
+        label = f"frame_device_loop {name} depth {depth}"
+        log(f"{label}: {width}x{RES} x {SAMPLES ** 2} spp, "
+            f"{-(-npix // CHUNK_PIXELS)} chunks; render_scene_file split ms: "
+            f"load {split[0]:.2f}, device scene and BVH {split[1]:.2f}, "
+            f"upload {split[2]:.2f}, render_image {split[3]:.2f}")
+        res = loop_turns(label, ways, LOOP_TURNS, expect, dev_info)
+        for k in ("first", "miss", "hit"):
+            if res[k]["prof"]["d2h"] != 1:
+                raise AssertionError(f"{label} {k}: "
+                                     f"{res[k]['prof']['d2h']} copies to "
+                                     f"the host, not 1")
+        if (not all(res["hit"]["hits"]) or any(res["miss"]["hits"])
+                or any(h["capture"] or h["chunk0"]
+                       for h in res["hit"]["host_ms"])):
+            raise AssertionError(f"{label}: a repeated call missed the "
+                                 f"cache, captured or ran an eager chunk")
+        live = res["hit"]["prof"]["checked"]["live_by_depth"]
+        if name in deep and not (live[2] and live[3]):
+            raise AssertionError(f"{label}: bounces 2 and 3 ran in "
+                                 f"{live[2]} and {live[3]} chunks, not in "
+                                 f"some")
+        renderer._frames.clear()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        hit()
+        torch.cuda.synchronize()
+        (state,) = renderer._frames.values()
+        log(f"{label}: the kept entry holds {tensor_mib(state):.1f} MiB of "
+            f"tensors (its copy of the scene {tensor_mib(state.scene):.2f}); "
+            f"allocated "
+            f"{(torch.cuda.memory_allocated() - before) / 2 ** 20:.1f} MiB "
+            f"more than with no entry, graphs' pools included")
+        loop_edits(label, args, kw, npix, dev_info)
+    log(f"frame_device_loop: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def loop_edits(label, args, kw, npix, dev_info) -> None:
+    """``frame_device`` after a call of its key, then after a scene leaf is
+    edited in place (the materials' kd halved: a cache hit) and, where the
+    frame reads a seed, under a new one (a miss), each call's f32 sums
+    bit-equal to ``frame_eager``'s on the same inputs."""
+    from yocto_raytracing_tpu_torch import kernels
+    from yocto_raytracing_tpu_torch.render import renderer
+
+    scene = args[0]
+    renderer.frame_device(*args, **kw)   # the entry of this key, kept
+    cases = [("kd halved in place", kw, True)]
+    if kw["stochastic"]:
+        cases.append((f"seed {kw['seed'] + 1}",
+                      dict(kw, seed=kw["seed"] + 1), False))
+    for what, kw2, hit in cases:
+        if hit:
+            scene.mat_kd.mul_(0.5)
+        got = renderer.to_host(renderer.frame_device(*args, **kw2)[:npix])
+        rec = kernels.last_frame()
+        same = np.array_equal(got.view(np.int32), renderer.frame_eager(
+            *args, **kw2).view(np.int32))
+        log(f"{label} {what}: cache hit {rec['cache_hit']}, f32 sums "
+            f"bit-equal to the eager loop's on the same inputs: {same}; on "
             f"{dev_info['smi']}")
-        if not same:
-            raise AssertionError(f"frame_device_loop {name}: the graph's "
-                                 f"f32 sums differ from the eager loop's")
-        if g["d2h"] != 1:
-            raise AssertionError(f"frame_device_loop {name}: {g['d2h']} "
-                                 f"copies to the host, not 1")
+        if not same or rec["cache_hit"] != hit:
+            raise AssertionError(f"{label} {what}: the frame differs from "
+                                 f"the eager loop's, or the cache hit is "
+                                 f"not {hit}")
 
 
 def phase_small_reference(path, device):
@@ -2929,15 +3130,16 @@ def phase_gltf(tmp, device, dev_info) -> dict:
         + ``render_image``); the .glb's u8 frame within 1 step of the
         all-plain path on a band through the middle, the .gltf's equal to
         it; the .glb frame's launch counts (set to 0 just before it) hold
-        K1-K4 and K12;
+        K1-K4, K12 and K13;
     (b) the .gltf of ``make_hair_scene(256)`` with a LINEAR translation
         channel on the sphere's node, loaded with ``return_graph=True``; at
         t = 0, 0.5 and 1: ``update_animated_transforms``,
         ``apply_graph_transforms``, the device scene rebuilt and a u8 frame
-        on the card, each within 1 u8 step of the all-plain path and each
-        with a capture of its own in its record (``kernels.last_frame()``);
-        t = 0's f32 frame bit-equal to the file's without the channel, t = 1
-        different from t = 0;
+        on the card, each within 1 u8 step of the all-plain path, whether
+        it hit the device loop's cache (the same shapes as the frame
+        before: no capture) and its host ms (``kernels.last_frame()``);
+        t = 0's f32 frame, rendered before its u8 one, bit-equal to the
+        file's without the channel, t = 1 different from t = 0;
     (c) ``io.gltf.skin_vertices`` on the sphere's 325 vertices, 4 seeded
         joints and weights: the card's result bit-equal to the CPU's.
     """
@@ -2976,7 +3178,7 @@ def phase_gltf(tmp, device, dev_info) -> dict:
                                                device=device, ldr=True,
                                                **kw))
         if ext == ".glb":
-            counts = dict(kernels.launches)
+            counts = kernels.made_launches()
             check_plain("gltf .glb frame", u8[ext], fscene, fmeta)
         (f32, *_), wall_f32 = timed_call(
             lambda: renderer.render_scene_file(path, RES, SAMPLES,
@@ -3018,23 +3220,26 @@ def phase_gltf(tmp, device, dev_info) -> dict:
         ascene, ameta = scene_on(ahost, device)
         torch.cuda.synchronize()
         t_build = time.perf_counter() - t0
-        frames[t], wall = timed_call(lambda: renderer.render_image(
-            ascene, ameta, width, RES, SAMPLES, ldr=True, **kw))
-        capture = kernels.last_frame()["host_ms"]["capture"]
-        log(f"gltf animation t={t}: sphere origin "
-            f"{ahost.instances[sphere[0]].o.tolist()}, device scene rebuilt "
-            f"in {t_build:.3f} s, render_image wall {wall:.3f} s, its own "
-            f"capture {capture:.2f} ms host; on {dev_info['smi']}")
-        if capture <= 0:
-            raise AssertionError(f"gltf animation t={t}: the frame captured "
-                                 f"no graph of its own")
-        check_plain(f"gltf animation t={t}", frames[t], ascene, ameta)
-        if t == 0.0:
+        if t == 0.0:   # first, so that the u8 frames follow one another
             f32 = renderer.render_image(ascene, ameta, width, RES, SAMPLES,
                                         **kw)
             if not np.array_equal(f32.view(np.int32), still.view(np.int32)):
                 raise AssertionError("gltf animation t=0: differs from the "
                                      "frame without the channel")
+        frames[t], wall = timed_call(lambda: renderer.render_image(
+            ascene, ameta, width, RES, SAMPLES, ldr=True, **kw))
+        rec = kernels.last_frame()
+        host_ms = rec["host_ms"]
+        log(f"gltf animation t={t}: sphere origin "
+            f"{ahost.instances[sphere[0]].o.tolist()}, device scene rebuilt "
+            f"in {t_build:.3f} s, render_image wall {wall:.3f} s; the "
+            f"device loop's cache hit: {rec['cache_hit']}, host ms "
+            + ", ".join(f"{k} {v:.2f}" for k, v in host_ms.items())
+            + f"; on {dev_info['smi']}")
+        if rec["cache_hit"] == (host_ms["capture"] > 0):
+            raise AssertionError(f"gltf animation t={t}: a cache hit with "
+                                 f"a capture, or a miss without one")
+        check_plain(f"gltf animation t={t}", frames[t], ascene, ameta)
     moved = int((frames[1.0] != frames[0.0]).any(axis=-1).sum())
     log(f"gltf animation: t=0 bit-equal to the frame without the channel; "
         f"t=1 differs from t=0 in {moved} pixels")
@@ -3406,15 +3611,23 @@ def main() -> None:
         pool.join()
 
 
+def run_phase(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds logged."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(f"{fn.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def run_phases(dev_info, device, shade_regs, camera_build, plain_walk,
                t_start) -> None:
     from yocto_raytracing_tpu_torch import scene as scene_lib, testscenes
     from yocto_raytracing_tpu_torch.render import lights, renderer
 
-    hit_10004 = phase_hit_kernel(device)
+    hit_10004 = run_phase(phase_hit_kernel, device)
     # first of the profiled phases: the tracer has lost this call's few
     # device events late in a run
-    overlap_rec, overlap_path = phase_overlap(device, dev_info)
+    overlap_rec, overlap_path = run_phase(phase_overlap, device, dev_info)
 
     with tempfile.TemporaryDirectory() as tmp:
         hair_obj = os.path.join(tmp, "hair.obj")
@@ -3428,73 +3641,87 @@ def run_phases(dev_info, device, shade_regs, camera_build, plain_walk,
         tscene, tmeta = scene_on(testscenes.make_textured_hair_scene(256),
                                  device)
         width = renderer.image_width(hair.cameras[0].aspect, RES)
-        rec = phase_frame_kernels(hscene, width, RES, SAMPLES, device)
-        rec["bounce"] = phase_bounce_kernel(device)
-        rec.update(phase_hit_frame("hair", hscene, hmeta, width))
+        rec = run_phase(phase_frame_kernels, hscene, width, RES, SAMPLES,
+                        device)
+        rec["bounce"] = run_phase(phase_bounce_kernel, device)
+        rec["records"] = run_phase(phase_records_kernel, device)
+        rec.update(run_phase(phase_hit_frame, "hair", hscene, hmeta, width))
         # (name, scene, meta, width, height, bounce, rays from the end)
         cases = [("hair", hscene, hmeta, width, RES, 1, False),
                  ("mirror", mscene, mmeta, RES, RES, 2, True),
                  ("textured hair", tscene, tmeta, width, RES, 1, False)]
-        rec["shade"] = phase_shade_kernel(cases, device)
-        rec.update(phase_grad_kernels(cases, device, camera_build))
+        rec["shade"] = run_phase(phase_shade_kernel, cases, device)
+        rec.update(run_phase(phase_grad_kernels, cases, device, camera_build))
 
-        main_frame = phase_frame(hair_obj, RES, SAMPLES, DEPTH, device,
-                                 dev_info, "hair")
-        phase_frame(grad_obj, RES, SAMPLES, DEPTH, device, dev_info,
-                    "mirror")
-        phase_small_reference(hair_obj, device)
-        main_train = phase_train("hair", hscene, width, RES, False, device,
-                                 dev_info)
-        phase_train("mirror", mscene, RES, RES, True, device, dev_info)
+        main_frame = run_phase(phase_frame, hair_obj, RES, SAMPLES, DEPTH,
+                               device, dev_info, "hair")
+        run_phase(phase_frame, grad_obj, RES, SAMPLES, DEPTH, device,
+                  dev_info, "mirror")
+        run_phase(phase_small_reference, hair_obj, device)
+        main_train = run_phase(phase_train, "hair", hscene, width, RES,
+                               False, device, dev_info)
+        run_phase(phase_train, "mirror", mscene, RES, RES, True, device,
+                  dev_info)
 
         area_hair = area_hair_scene()
         area_hair_obj = os.path.join(tmp, "area_hair.obj")
         scene_lib.save_scene(area_hair, area_hair_obj)
         area_mirror_obj = os.path.join(tmp, "area_mirror.obj")
         scene_lib.save_scene(area_mirror_scene(), area_mirror_obj)
-        rec.update(phase_stochastic(scene_lib.load_scene(area_hair_obj),
-                                    device))
+        rec.update(run_phase(phase_stochastic,
+                             scene_lib.load_scene(area_hair_obj), device))
         area_host = scene_lib.load_scene(area_hair_obj)
         ascene, ameta = scene_on(area_host, device)
-        hit_area = phase_hit_frame(
-            "area hair", ascene, ameta,
+        hit_area = run_phase(
+            phase_hit_frame, "area hair", ascene, ameta,
             renderer.image_width(area_host.cameras[0].aspect, RES),
             stochastic=True, seed=SEED,
             light_sampler=lights.build_light_sampler(area_host, None, ameta,
                                                      device))
-        stochastic_frame = phase_area_frame(area_hair_obj, device, dev_info,
-                                            "area hair")
-        phase_area_frame(area_mirror_obj, device, dev_info, "area mirror")
-        phase_point_light_area(hair_obj, main_frame["image"], device)
-        phase_frame_device_loop(
-            [("hair", hair_obj, False), ("mirror", grad_obj, False),
-             ("area hair", area_hair_obj, True),
-             ("area mirror", area_mirror_obj, True)], device, dev_info)
-        rec.update(phase_reverse_kernels(scene_lib.load_scene(area_hair_obj),
-                                         device, camera_build))
+        stochastic_frame = run_phase(phase_area_frame, area_hair_obj, device,
+                                     dev_info, "area hair")
+        run_phase(phase_area_frame, area_mirror_obj, device, dev_info,
+                  "area mirror")
+        run_phase(phase_point_light_area, hair_obj, main_frame["image"],
+                  device)
+        pair_obj = os.path.join(tmp, "mirror_pair.obj")
+        scene_lib.save_scene(testscenes.make_mirror_pair_scene(), pair_obj)
+        run_phase(
+            phase_frame_device_loop,
+            [("hair", hair_obj, False, DEPTH),
+             ("mirror", grad_obj, False, DEPTH),
+             ("area hair", area_hair_obj, True, DEPTH),
+             ("area mirror", area_mirror_obj, True, DEPTH),
+             ("mirror pair", pair_obj, False, DEPTH),
+             ("hair", hair_obj, False, 8)], ("mirror pair",), device,
+            dev_info)
+        rec.update(run_phase(phase_reverse_kernels,
+                             scene_lib.load_scene(area_hair_obj), device,
+                             camera_build))
         panel_obj = os.path.join(tmp, "area_hair_panel.obj")
         scene_lib.save_scene(area_hair_scene(PANEL_CELLS), panel_obj)
-        light_turns = phase_light_kernels(
+        light_turns = run_phase(
+            phase_light_kernels,
             [("area hair", scene_lib.load_scene(area_hair_obj), True),
              ("area mirror", scene_lib.load_scene(area_mirror_obj), True),
              ("lamp panel", scene_lib.load_scene(panel_obj), False)],
             device)
-        stochastic_train = phase_train_stochastic(
-            "area hair", scene_lib.load_scene(area_hair_obj), False, device,
-            dev_info)
-        phase_train_stochastic("area mirror",
-                               scene_lib.load_scene(area_mirror_obj), True,
-                               device, dev_info)
+        stochastic_train = run_phase(
+            phase_train_stochastic, "area hair",
+            scene_lib.load_scene(area_hair_obj), False, device, dev_info)
+        run_phase(phase_train_stochastic, "area mirror",
+                  scene_lib.load_scene(area_mirror_obj), True, device,
+                  dev_info)
         rec["overlap"] = dict(
             overlap_rec["overlap"],
             random_seed_0=overlap_rec["random seed 0"],
             strand_points=overlap_rec["hair 256, strand points"],
             on_strands=overlap_rec["hair 256, points on the strands"])
         rec["overlap_refit"] = overlap_rec["overlap_refit"]
-        gltf_frame = phase_gltf(tmp, device, dev_info)
+        gltf_frame = run_phase(phase_gltf, tmp, device, dev_info)
         # last: the NCCL group and the CLI's subprocesses
-        phase_sharded(hair_obj, area_hair_obj, device, dev_info)
-        phase_cli(hair_obj, tmp, device, dev_info)
+        run_phase(phase_sharded, hair_obj, area_hair_obj, device, dev_info)
+        run_phase(phase_cli, hair_obj, tmp, device, dev_info)
     check_plain_walk(plain_walk, hit_10004["big_nearest"])
 
     src = "yocto_raytracing_tpu_torch/kernels/csrc/"
@@ -3541,27 +3768,29 @@ def run_phases(dev_info, device, shade_regs, camera_build, plain_walk,
                           overlap_path),
         "bounce": ("bounce.cu", "yocto_raytracing_tpu/render/renderer.py:179",
                    main_frame),
+        "records": ("records.cu",
+                    "yocto_raytracing_tpu/render/renderer.py:179",
+                    main_frame),
     }
-    # the launches of the main path's dead bounces (returned at once):
-    # counted in its run (``skipped``), told apart in its profile, and taken
-    # out of the device time per launch
+    # "launches": what the card made on the path. The main path's counters
+    # gain a CUDA graph's captured launches on every replay, those in the
+    # IF nodes of dead bounces too, which the card does not make: those
+    # are "counted" less "skipped" (``kernels.made_launches``)
     kernels_rec = []
     for k, (f, r, path) in table.items():
         skipped = path.get("skipped", {}).get(k, 0)
-        dead = path["prof"]["checked"] if "skipped" in path else None
-        dead_us = dead["us"].get(k, 0.0) if dead else 0.0
+        made = path["made"][k] if "made" in path else path["counts"][k]
         kernels_rec.append(dict(
             name=k, route="cuda", source=src + f, replaces=r,
-            launches=path["counts"][k], skipped=skipped, **rec[k],
-            device_ms=device_ms(path["prof"], k, path["counts"][k],
-                                (skipped, dead_us))))
+            launches=made, counted=path["counts"][k], skipped=skipped,
+            **rec[k], device_ms=device_ms(path["prof"], k, made)))
     by_name = {r["name"]: r for r in kernels_rec}
     # the glTF frame's path (render_scene_file of a .glb) launches K1-K4
     # and K12 too: its own counts, set to 0 just before it
     gltf_counts = gltf_frame["counts"]
     gltf_counts["hit_nearest"] = gltf_counts["hit"] - gltf_counts["hit_any"]
     for k in ("hit_nearest", "hit_any", "camera_rays", "pixel_finish",
-              "shade", "bounce"):
+              "shade", "bounce", "records"):
         by_name[k]["gltf_launches"] = gltf_counts[k]
     k4_regs = {k: v for k, v in shade_regs.items() if "bwd" not in k
                and "light_sum" not in k}
@@ -3655,9 +3884,10 @@ def run_phases(dev_info, device, shade_regs, camera_build, plain_walk,
         f"{p['library_device_us']:.2f}, bound {p['bound_ms'] * 1e3:.2f}; on "
         f"{dev_info['smi']}")
     for r in kernels_rec:
-        log(f"{r['name']}: {r['launches']} launches on its path, "
-            f"{r['skipped']} of them in dead bounces; per live "
-            f"launch there, device {r['device_ms'] * 1e3:.1f} us (profiler) "
+        log(f"{r['name']}: {r['launches']} launches made on its path "
+            f"({r['counted']} counted, {r['skipped']} of them in dead "
+            f"bounces, not made); per launch there, device "
+            f"{r['device_ms'] * 1e3:.1f} us (profiler) "
             f"against a bound of {r['bound_ms'] * 1e3:.2f} us at the "
             f"timed shape; timed call {r['ms']:.4f} ms (CUDA events around "
             f"the wrapper), plain {r['plain_ms']:.4f} ms")

@@ -1318,7 +1318,8 @@ def _loop_case(name, device):
 def test_graph_frame_matches_eager(cuda_device, name):
     """The device loop (a CUDA graph of a chunk, replayed) gives the eager
     loop's f32 sums and u8 pixels bit for bit, and its launch counts are
-    the eager loop's plus the launches of its dead bounces."""
+    the eager loop's plus the launches of its dead bounces, and one K13
+    launch (its records packed in place)."""
     ts, meta, kw = _loop_case(name, cuda_device)
     npix = LOOP_W * LOOP_H
     for ldr in (False, True):
@@ -1338,12 +1339,13 @@ def test_graph_frame_matches_eager(cuda_device, name):
         assert ran.shape == (chunks, kw["max_depth"] + 1)
         assert dead["bounces"] == chunks * kw["max_depth"] - int(
             ran[:, :-1].sum())
-        assert counts_eager["bounce"] == 0
+        assert counts_eager["bounce"] == counts_eager["records"] == 0
+        assert counts["records"] == 1
         assert counts["bounce"] == chunks * kw["max_depth"]
         assert counts["bounce"] - dead["bounces"] == counts_eager["hit"] - \
             counts_eager["hit_any"]   # live bounces: one nearest query each
         for k, v in counts_eager.items():
-            if k != "bounce":
+            if k not in ("bounce", "records"):
                 assert counts[k] == v + dead.get(k, 0), k
     if name == "mirror":
         assert int(ran[:, 1].sum()) > 0   # a second bounce ran somewhere

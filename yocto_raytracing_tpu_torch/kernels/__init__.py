@@ -18,6 +18,8 @@
                                                    (ops/overlap.py)
 * K12 ``bounce.cu`` the depth loop's state update and alive word
                                                    (render/renderer.py)
+* K13 ``records.cu`` K1's and K4's records packed in place
+                                                   (ops/records.py)
 
 ``hit_simple.cu``, ``shade_simple.cu`` and ``shade_bwd_simple.cu`` are the
 first, simple forms of K1, K4 and K5, on the scene's own arrays: only
@@ -28,8 +30,8 @@ first, simple forms of K1, K4 and K5, on the scene's own arrays: only
 first use.
 """
 
-from ._build import (BuildInfo, build, last_frame, launches, reset_launches,
-                     skipped_launches)
+from ._build import (BuildInfo, build, last_frame, launches, made_launches,
+                     reset_launches, skipped_launches)
 
-__all__ = ["BuildInfo", "build", "last_frame", "launches", "reset_launches",
-           "skipped_launches"]
+__all__ = ["BuildInfo", "build", "last_frame", "launches", "made_launches",
+           "reset_launches", "skipped_launches"]

@@ -19,8 +19,8 @@ comparisons of ``chip_smoke.py`` and the card tests only.
 
 Each wrapper counts its launches in ``launches``; a run resets the counts
 with ``reset_launches`` and reads them afterwards to show which kernels it
-went through, and ``skipped_launches`` for those of them that returned at
-once in the device loop's dead bounces.
+went through, and ``skipped_launches`` for those of them that belong to the
+device loop's dead bounces, which its CUDA graph does not launch.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("hit.cu", "hit_simple.cu", "camera.cu", "camera_bwd_simple.cu",
            "pixel.cu", "shade.cu", "shade_simple.cu", "shade_bwd.cu",
            "shade_bwd_simple.cu", "stochastic.cu", "lights.cu",
-           "lights_simple.cu", "overlap.cu", "overlap_simple.cu", "bounce.cu")
+           "lights_simple.cu", "overlap.cu", "overlap_simple.cu", "bounce.cu",
+           "records.cu")
 HEADERS = ("common.cuh", "shade.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
@@ -50,15 +51,18 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 # launches of each kernel since the last reset_launches(); "hit" counts K1's
 # nearest and any-hit launches, "hit_any" its any-hit launches alone; K5
 # with per-ray light positions counts apart from K5 with the fixed ones;
-# "overlap_refit" counts the refit of K11's records; "bounce" counts K12.
+# "overlap_refit" counts the refit of K11's records; "bounce" counts K12;
+# "records" K13, the device loop's packing of K1's and K4's records.
 # A CUDA graph of the device loop's chunk adds, for each replay, what its
-# capture counted: the launches of a dead bounce, which return at once on
-# the card, count like the others (``skipped_launches`` gives them apart)
+# capture counted: a launch inside a conditional IF node (a bounce after
+# the first) counts on every replay, whether or not the node runs its
+# body; ``skipped_launches`` gives apart those of dead bounces, which the
+# card does not launch
 launches = {"hit": 0, "hit_any": 0, "camera_rays": 0, "pixel_finish": 0,
             "shade": 0, "shade_bwd": 0, "shade_bwd_lights": 0, "camera_bwd": 0,
             "camera_rays_stochastic": 0, "camera_bwd_stochastic": 0,
             "light_points": 0, "light_points_bwd": 0, "overlap": 0,
-            "overlap_refit": 0, "bounce": 0}
+            "overlap_refit": 0, "bounce": 0, "records": 0}
 # the device loop's dead bounces since the last reset_launches(), tallied on
 # the card (no sync): device -> (2,) i64, the bounces of frames without and
 # with lights; and the record of the last frame (``note_frame``)
@@ -72,14 +76,19 @@ def reset_launches() -> None:
     _dead_bounces.clear()
 
 
-def note_frame(ran: torch.Tensor, lights: bool, host_ms: dict) -> None:
+def note_frame(ran: torch.Tensor, lights: bool, host_ms: dict,
+               cache_hit: bool = False, dead_launched: bool = False) -> None:
     """Record a device-loop frame: ``ran`` is its (chunks, max_depth + 1)
     i32 alive words, a chunk a row (1 where the bounce ran), ``lights``
     whether its scene has lights, ``host_ms`` the host's milliseconds in
-    its stages. On CUDA its dead bounces join the tally, on the card."""
+    its stages, ``cache_hit`` whether it replayed a graph kept from an
+    earlier call. On CUDA its dead bounces join the tally, on the card,
+    unless ``dead_launched`` (the loop's first form, which makes their
+    launches)."""
     _last_frame.clear()
-    _last_frame.update(ran=ran, lights=lights, host_ms=host_ms)
-    if ran.device.type != "cuda":   # the CPU launches no kernel
+    _last_frame.update(ran=ran, lights=lights, host_ms=host_ms,
+                       cache_hit=cache_hit)
+    if ran.device.type != "cuda" or dead_launched:   # nothing to take out
         return
     tally = _dead_bounces.get(ran.device)
     if tally is None:
@@ -91,16 +100,19 @@ def note_frame(ran: torch.Tensor, lights: bool, host_ms: dict) -> None:
 
 def last_frame() -> dict:
     """The last device-loop frame's record (``note_frame``): "ran",
-    "lights", "host_ms"."""
+    "lights", "host_ms", "cache_hit". "ran" is the loop's own buffer,
+    valid until its next frame."""
     return dict(_last_frame)
 
 
 def skipped_launches() -> dict:
-    """The launches counted since the last reset_launches() that returned
-    at once on the card, in the device loop's dead bounces, by launch-count
-    key, and the dead bounces ("bounces"). Reads the tally: a copy to the
-    host, which waits for the frames. A bounce of the device loop
-    (``render/renderer.py::frame_device``) launches K1 nearest, K4 and K12,
+    """The launches counted since the last reset_launches() that belong to
+    the device loop's dead bounces, by launch-count key, and the dead
+    bounces ("bounces"). The CUDA graph of ``frame_device`` does not make
+    these launches: a dead bounce sits in an IF node whose body does not
+    run. Reads the tally: a copy to the host, which waits for the frames.
+    A bounce of the device loop
+    (``render/renderer.py::frame_device``) holds K1 nearest, K4 and K12,
     and K1 any hit where the scene has lights."""
     out = dict.fromkeys(launches, 0)
     out["bounces"] = 0
@@ -111,6 +123,14 @@ def skipped_launches() -> dict:
             out["hit"] += lights * dead
             out["hit_any"] += lights * dead
     return out
+
+
+def made_launches() -> dict:
+    """The launches that the card made since the last reset_launches(), by
+    launch-count key: ``launches`` less ``skipped_launches()`` (a copy to
+    the host, which waits for the frames)."""
+    skipped = skipped_launches()
+    return {k: v - skipped[k] for k, v in launches.items()}
 
 
 @dataclass
@@ -234,8 +254,17 @@ def library() -> ctypes.CDLL:
                                          + [i32] + [vp] * 7)
     lib.yrt_pixel_finish.restype = i32
     lib.yrt_pixel_finish.argtypes = [vp, i32, i32, i32, vp, vp, vp, vp]
+    u64 = ctypes.c_ulonglong
     lib.yrt_bounce.restype = i32
-    lib.yrt_bounce.argtypes = [vp] * 5 + [i32] + [vp] * 8
+    lib.yrt_bounce.argtypes = [vp] * 5 + [i32] + [vp] * 7 + [u64, i32, vp]
+    lib.yrt_records.restype = i32
+    lib.yrt_records.argtypes = [vp, vp] + [i32] * 5 + [vp]
+    lib.yrt_if_handle.restype = i32
+    lib.yrt_if_handle.argtypes = [vp, ctypes.POINTER(u64)]
+    lib.yrt_if_begin.restype = i32
+    lib.yrt_if_begin.argtypes = [vp, u64, vp]
+    lib.yrt_if_end.restype = i32
+    lib.yrt_if_end.argtypes = [vp]
     u32 = ctypes.c_uint32
     u32p = ctypes.POINTER(u32)   # magic_divisor's numbers
     lib.yrt_camera_rays_stochastic.restype = i32

@@ -24,10 +24,11 @@ a chunk): the checkpointed frame, ``trace_rays`` itself and the sharded
 paths. ``frame_device``, the port of the JAX package's
 ``_render_chunks_fused`` and its device loop over depth, runs a frame on
 the card without a host sync: ray ids from a device chunk index, a fixed
-``max_depth`` of bounces whose launches read a device alive word and
-return at once when no ray is active (K12, ``bounce_update``, sets it),
-each chunk's pixels written in place into one frame buffer by K3, and one
-CUDA graph of a chunk replayed over the frame; ``render_image`` takes it
+``max_depth`` of bounces, each after the first in a conditional IF node
+that K12 (``bounce_update``) sets where a ray goes on, so a bounce with no
+active ray launches nothing, each chunk's pixels written in place into one
+frame buffer by K3, and one CUDA graph of a chunk, kept across calls of
+one configuration and replayed over the frame; ``render_image`` takes it
 without ``checkpoint`` (on the CPU through the plain versions, a chunk at a
 time). The frames are the same bits.
 
@@ -39,6 +40,8 @@ kernel path is compared with.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import functools
 import math
 import os
@@ -50,7 +53,7 @@ import torch
 from .. import image as image_mod
 from .. import scene as scene_lib
 from ..kernels import _build
-from ..ops import hit_records
+from ..ops import hit_records, records as records_mod
 from ..ops import intersect as isect
 from ..ops import shade_records as shade_records_lib
 from ..ops import traverse
@@ -157,8 +160,11 @@ def bounce_update_plain(acc, thr, color, kr, p, refl_dir, mask):
 
 
 def bounce_update_cuda(acc, thr, ro, rd, tmax, color, kr, p, refl_dir, mask,
-                       alive_in=None, alive_out=None) -> None:
-    """K12 launch, CUDA only: ``bounce_update`` in place."""
+                       alive_in=None, alive_out=None, next_if=None) -> None:
+    """K12 launch, CUDA only: ``bounce_update`` in place. ``next_if``: the
+    handle of the next bounce's IF node in a graph being captured
+    (``yrt_if_handle``), which the launch sets where it sets
+    ``alive_out``; None outside a graph."""
     n = acc.shape[0]
     dev = acc.device
     f32 = torch.float32
@@ -172,19 +178,21 @@ def bounce_update_cuda(acc, thr, ro, rd, tmax, color, kr, p, refl_dir, mask,
     for name, t in (("alive_in", alive_in), ("alive_out", alive_out)):
         if t is not None:
             check(name, t, torch.int32, (1,), dev)
+    if next_if is not None and alive_out is None:
+        raise ValueError("next_if: the IF node is set with alive_out")
     ptr = _build.ptr
     err = _build.library().yrt_bounce(
         ptr(color), ptr(kr), ptr(p), ptr(refl_dir), ptr(mask), n, ptr(acc),
         ptr(thr), ptr(ro), ptr(rd), ptr(tmax),
         None if alive_in is None else ptr(alive_in),
         None if alive_out is None else ptr(alive_out),
-        _build.current_stream())
+        next_if or 0, int(next_if is not None), _build.current_stream())
     _build.check_launch(err, "yrt_bounce")
     _build.launches["bounce"] += 1
 
 
 def bounce_update(acc, thr, ro, rd, tmax, color, kr, p, refl_dir, mask,
-                  alive_in=None, alive_out=None) -> None:
+                  alive_in=None, alive_out=None, next_if=None) -> None:
     """``bounce_update_plain`` in place on the device loop's state (acc,
     thr, ro, rd (N, 3) f32; tmax (N,) f32, the next nearest-hit query's:
     FLT_MAX on the lanes that go on, else -FLT_MAX), from one bounce's
@@ -192,11 +200,13 @@ def bounce_update(acc, thr, ro, rd, tmax, color, kr, p, refl_dir, mask,
 
     ``alive_in`` and ``alive_out`` are (1,) i32 words (or None): where
     ``alive_in`` is 0 nothing is written (the bounce is dead), else
-    ``alive_out`` is set to 1 if any lane goes on. CPU tensors take the
-    plain version; CUDA tensors launch K12 (or raise)."""
+    ``alive_out`` is set to 1 if any lane goes on, and with it, on the
+    card, the IF node ``next_if`` of a graph being captured (the CPU has
+    none). CPU tensors take the plain version; CUDA tensors launch K12 (or
+    raise)."""
     if _build.device_kind(acc) == "cuda":
         bounce_update_cuda(acc, thr, ro, rd, tmax, color, kr, p, refl_dir,
-                           mask, alive_in, alive_out)
+                           mask, alive_in, alive_out, next_if)
         return
     if alive_in is not None and not bool(alive_in):
         return
@@ -436,6 +446,12 @@ def frame_eager(scene, meta, width: int, height: int, samples: int,
     return out
 
 
+# the device loop's kept state: at most one entry, the last configuration's
+# (``frame_key`` -> ``_FrameState``); a new key frees the old entry's graph
+# and buffers before it makes its own
+_frames: dict = {}
+
+
 def frame_device(scene, meta, width: int, height: int, samples: int,
                  ambient: float = 0.1, max_depth: int = 8,
                  chunk_pixels: int = 1 << 15, ldr: bool = False,
@@ -444,7 +460,8 @@ def frame_device(scene, meta, width: int, height: int, samples: int,
     """The frame's per-pixel sums (f32), or with ``ldr`` K3's u8 tonemap,
     as a (chunks * chunk_pixels, 3) tensor on the scene's device: rows past
     width * height repeat the last pixel (the caller drops them). The same
-    bits as ``frame_eager``.
+    bits as ``frame_eager``. The tensor is the loop's own frame buffer,
+    valid until the next ``frame_device`` call: copy it to keep it.
 
     The port of the JAX package's ``_render_chunks_fused`` (its
     ``lax.map`` over chunks, ray ids from ``lax.iota``) and of
@@ -452,63 +469,207 @@ def frame_device(scene, meta, width: int, height: int, samples: int,
     A chunk is: ray ids from a device chunk index (clamped to the last
     ray); camera rays (K2, or K7 with ``stochastic``); with a light sampler
     the light points (K8), one set for every bounce; ``max_depth`` bounces,
-    each K1 nearest, K4 prep, K1 any hit, K4 finish and K12, every launch
-    reading the bounce's alive word and writing nothing when it is 0
-    (``bounce_update``), so a bounce with no active ray is the identity and
-    the fixed depth gives the bits of ``trace_rays``' early break; K3 into
-    the chunk's rows; the chunk index advanced. Nothing in it waits on the
-    host, and on CUDA nothing in it allocates: every buffer is made once,
-    before chunk 0, and written in place. On CUDA chunk 0 runs eagerly (it
-    loads every kernel), the next is captured into a CUDA graph
-    (``torch.cuda.CUDAGraph``, for this call only), and the graph is
-    replayed for every chunk after the first; the launch counts gain the
-    captured launches once per replay. On the CPU the chunks run one after
-    another through the plain versions, a dead bounce skipped whole on the
-    host.
+    each K1 nearest, K4 prep, K1 any hit, K4 finish and K12
+    (``bounce_update``), which sets the next bounce's alive word where a
+    lane goes on; K3 into the chunk's rows; the chunk index advanced.
+    Nothing in it waits on the host or allocates.
+
+    On CUDA the chunk is one CUDA graph, replayed for every chunk. Bounce 0
+    always runs; each later bounce sits in a conditional IF node of the
+    graph that K12 of the bounce before sets, so a bounce with no active
+    ray launches nothing, and the fixed depth gives the bits of
+    ``trace_rays``' early break. The graph, its buffers and the records it
+    reads are kept across calls for one configuration (``frame_key``).
+
+    Every call first brings the graph's inputs up to date
+    (``_FrameState.stage``): the caller's leaves and the sampler's tables
+    copied into the entry's, K1's and K4's records packed from the copies
+    into the entry's record tensors by one launch of K13
+    (``ops/records.py``), the camera's frame written by five small ops,
+    ``ambient`` written. A call with a new key (a miss) first frees the
+    last entry and makes its own, then captures the chunk before chunk 0
+    and replays the graph for every chunk; a call with the key of the last
+    one (a hit) replays it for every chunk: no capture, no eager chunk, no
+    allocation. So a leaf edited in place, or a new scene of the same
+    shapes, gives its own frame, never the last one's. If the IF nodes
+    cannot be made (a runtime older than CUDA 12.4), the call raises. On
+    the CPU the chunks run one after another through the plain versions,
+    a dead bounce skipped on the host.
 
     Each chunk copies its alive words into a row of a (chunks, max_depth +
     1) record, which the frame leaves with ``kernels._build.note_frame``
-    (``kernels.last_frame``), with the host's milliseconds in the set-up,
-    chunk 0, the capture and the replays (enqueue time: nothing here waits
-    for the card); on CUDA the frame's dead bounces join the device tally
-    that ``kernels.skipped_launches`` reads.
+    (``kernels.last_frame``), with the host's milliseconds in the set-up
+    (the key, the entry on a miss, the staging), chunk 0 (0: no chunk runs
+    eagerly), the chunk graph's capture (0 on a hit) and the replays
+    (enqueue time: nothing here waits for the card), and whether the call
+    hit the cache; on CUDA the frame's dead bounces join the device tally
+    that ``kernels.skipped_launches`` reads. One frame at a time: the
+    entry is the module's, not the caller's.
     """
     t0 = time.perf_counter()
-    spp = samples * samples
-    npix = width * height
-    dev = scene.device
-    cuda = dev.type == "cuda"
-    chunk_pixels = min(chunk_pixels, npix)
-    n_chunks = -(-npix // chunk_pixels)
-    n = chunk_pixels * spp
-    i32, f32 = torch.int32, torch.float32
-    kd_tex, ks_tex = meta.has_kd_textures, meta.has_ks_textures
-    nl = scene.light_ke.shape[0]
-    fixed = scene_lib.detached(scene)
-    # what the chunks share, made before the first: the graph bakes their
-    # pointers in, and a capture that allocates nothing takes no memory of
-    # its own
-    amb = torch.full((3,), ambient, dtype=f32, device=dev)
-    lane = torch.arange(n, dtype=i32, device=dev)
-    tmin = torch.full((n,), RAY_EPS, dtype=f32, device=dev)
-    chunk = torch.zeros((1,), dtype=i32, device=dev)
-    out = torch.empty((n_chunks * chunk_pixels, 3),
-                      dtype=torch.uint8 if ldr else f32, device=dev)
-    ids = torch.empty((n,), dtype=i32, device=dev)
-    acc = torch.empty((n, 3), dtype=f32, device=dev)
-    thr = torch.empty((n, 3), dtype=f32, device=dev)
-    tmax = torch.empty((n,), dtype=f32, device=dev)
-    alive = torch.empty((max_depth + 1,), dtype=i32, device=dev)
-    ran = torch.empty((n_chunks, max_depth + 1), dtype=i32, device=dev)
-    row = torch.zeros((1,), dtype=torch.int64, device=dev)   # ran's index
-    if cuda:
-        hrec = hit_records.pack(fixed)
-        srec = shade_records_lib.pack(scene)
-        h, w = camera_mod.camera_frame(scene)
-        rays = [torch.empty((n, k), dtype=f32, device=dev) for k in (2, 3, 3)]
-        points = (None if light_sampler is None else
-                  torch.empty((nl, n, 3), dtype=f32, device=dev))
-        bufs = shade_mod.forward_buffers(nl, n, dev)
+    key = frame_key(scene, meta, width, height, samples, max_depth,
+                    chunk_pixels, ldr, stochastic, seed, light_sampler)
+    state = _frames.get(key)
+    hit = state is not None
+    if not hit:
+        _frames.clear()
+        state = _FrameState(scene, meta, width, height, samples, max_depth,
+                            chunk_pixels, ldr, stochastic, seed,
+                            light_sampler)
+    capture = 0.0
+    try:
+        with torch.no_grad():
+            state.stage(scene, light_sampler, ambient)
+            t_stage = time.perf_counter()
+            if state.cuda:
+                if not hit:
+                    state.capture(if_nodes=True)
+                    capture = time.perf_counter() - t_stage
+                t_replay = time.perf_counter()
+                state.replay(state.n_chunks)
+                replay = time.perf_counter() - t_replay
+            else:
+                for _ in range(state.n_chunks):
+                    state.run_chunk()
+                replay = time.perf_counter() - t_stage
+    except BaseException:
+        _frames.clear()   # nothing half made is kept
+        raise
+    _frames[key] = state
+    _build.note_frame(state.ran, state.nl > 0, dict(
+        setup=(t_stage - t0) * 1e3, chunk0=0.0, capture=capture * 1e3,
+        replay=replay * 1e3), hit)
+    return state.out
+
+
+def frame_key(scene, meta, width: int, height: int, samples: int,
+              max_depth: int, chunk_pixels: int, ldr: bool,
+              stochastic: bool, seed: int, light_sampler) -> tuple:
+    """What a device-loop frame's graph and buffers are made for: the
+    device; the frame's size, samples, depth, chunk and ``ldr``; the
+    sampled modes and the seed where they read it (K7 and K8 take it as a
+    launch argument); whether there is a light sampler, and the number of
+    lights; the texture flags; the shape and dtype of every scene leaf and
+    sampler table. Not their values, which ``_FrameState.stage`` copies in
+    on every call, and not ``ambient``, which it writes."""
+    sampled = stochastic or light_sampler is not None
+    tables = (None if light_sampler is None else tuple(
+        (k, tuple(v.shape), v.dtype)
+        for k, v in sorted(light_sampler.items())))
+    leaves = tuple((tuple(t.shape), t.dtype) for t in (
+        getattr(scene, k) for k in scene_lib.LEAF_NAMES))
+    return (scene.device, width, height, samples, max_depth,
+            min(chunk_pixels, width * height), bool(ldr), bool(stochastic),
+            seed if sampled else 0, light_sampler is not None,
+            scene.light_ke.shape[0], bool(meta.has_kd_textures),
+            bool(meta.has_ks_textures), leaves, tables)
+
+
+def _frame_device_first(scene, meta, width: int, height: int, samples: int,
+                        ambient: float = 0.1, max_depth: int = 8,
+                        chunk_pixels: int = 1 << 15, ldr: bool = False,
+                        stochastic: bool = False, seed: int = 0,
+                        light_sampler=None) -> torch.Tensor:
+    """The device loop's first form, kept to time ``frame_device`` against
+    in turns (only ``chip_smoke.py`` and the tests call it): everything is
+    made for this call and thrown away after it; the frame reads the
+    caller's leaves and tables, and K1's and K4's records packed from them
+    eagerly; chunk 0 runs eagerly (it loads every kernel); on CUDA the next
+    chunk is captured into a CUDA graph with every bounce launched, the
+    launches of a dead bounce reading its alive word and returning at once,
+    and the graph is replayed for every chunk after the first. The same
+    bits and record as ``frame_device`` (never a cache hit)."""
+    t0 = time.perf_counter()
+    state = _FrameState(scene, meta, width, height, samples, max_depth,
+                        chunk_pixels, ldr, stochastic, seed, light_sampler,
+                        own_inputs=False)
+    with torch.no_grad():
+        state.stage(scene, light_sampler, ambient)
+        marks = [t0, time.perf_counter()]
+        state.run_chunk()
+        marks.append(time.perf_counter())
+        if state.cuda and state.n_chunks > 1:
+            state.capture(if_nodes=False)
+            marks.append(time.perf_counter())
+            state.replay(state.n_chunks - 1)
+        else:
+            marks.append(marks[-1])   # no capture
+            for _ in range(state.n_chunks - 1):
+                state.run_chunk()
+    marks.append(time.perf_counter())
+    _build.note_frame(state.ran, state.nl > 0, dict(zip(
+        ("setup", "chunk0", "capture", "replay"), np.diff(marks) * 1e3)),
+        dead_launched=True)
+    return state.out
+
+
+class _FrameState:
+    """One device-loop configuration's inputs, buffers and graph.
+
+    With ``own_inputs`` (``frame_device``) the frame reads copies of the
+    caller's scene leaves and sampler tables, and on CUDA the records and
+    camera frame packed from them, all of which ``stage`` brings up to date
+    in place on every call; without (the first form) it reads the caller's
+    own leaves and tables and records that ``stage`` packs anew. Every
+    buffer of ``frame_device`` is made here, once: the graph bakes its
+    pointers in.
+    """
+
+    def __init__(self, scene, meta, width, height, samples, max_depth,
+                 chunk_pixels, ldr, stochastic, seed, light_sampler,
+                 own_inputs=True):
+        self.dev = dev = scene.device
+        self.cuda = dev.type == "cuda"
+        i32, f32 = torch.int32, torch.float32
+        self.width, self.height, self.samples = width, height, samples
+        self.spp = samples * samples
+        npix = width * height
+        self.chunk_pixels = min(chunk_pixels, npix)
+        self.n_chunks = -(-npix // self.chunk_pixels)
+        self.n = n = self.chunk_pixels * self.spp
+        self.last_id = npix * self.spp - 1
+        self.max_depth, self.ldr = max_depth, ldr
+        self.stochastic, self.seed = stochastic, seed
+        self.kd_tex, self.ks_tex = meta.has_kd_textures, meta.has_ks_textures
+        self.nl = nl = scene.light_ke.shape[0]
+        self.own_inputs = own_inputs
+        if own_inputs:
+            self.scene = scene_lib.TorchScene(*(
+                torch.empty_like(getattr(scene, k))
+                for k in scene_lib.LEAF_NAMES))
+            self.sampler = (None if light_sampler is None else
+                            {k: torch.empty_like(v)
+                             for k, v in light_sampler.items()})
+        else:
+            self.scene, self.sampler = scene_lib.detached(scene), light_sampler
+        self.fixed = scene_lib.detached(self.scene)
+        self.amb = torch.empty((3,), dtype=f32, device=dev)
+        self.lane = torch.arange(n, dtype=i32, device=dev)
+        self.tmin = torch.full((n,), RAY_EPS, dtype=f32, device=dev)
+        self.chunk = torch.zeros((1,), dtype=i32, device=dev)
+        self.out = torch.empty((self.n_chunks * self.chunk_pixels, 3),
+                               dtype=torch.uint8 if ldr else f32, device=dev)
+        self.ids = torch.empty((n,), dtype=i32, device=dev)
+        self.acc = torch.empty((n, 3), dtype=f32, device=dev)
+        self.thr = torch.empty((n, 3), dtype=f32, device=dev)
+        self.tmax = torch.empty((n,), dtype=f32, device=dev)
+        self.alive = torch.empty((max_depth + 1,), dtype=i32, device=dev)
+        self.ran = torch.empty((self.n_chunks, max_depth + 1), dtype=i32,
+                               device=dev)
+        self.row = torch.zeros((1,), dtype=torch.int64, device=dev)
+        # K1's and K4's records and the camera's (h, w), packed by stage
+        self.hrec = self.srec = self.cam = None
+        self.graph = None
+        self.captured = {}   # the chunk graph's launches, by count key
+        if not self.cuda:
+            self.plain_occluder = make_occluder(
+                self.fixed, traverse.intersect_scene_plain)
+            return
+        self.rays = [torch.empty((n, k), dtype=f32, device=dev)
+                     for k in (2, 3, 3)]
+        self.points = (None if light_sampler is None else
+                       torch.empty((nl, n, 3), dtype=f32, device=dev))
+        self.bufs = shade_mod.forward_buffers(nl, n, dev)
 
         def hit_buffers(m):
             return dict(hit=torch.empty(m, dtype=torch.bool, device=dev),
@@ -516,93 +677,212 @@ def frame_device(scene, meta, width: int, height: int, samples: int,
                         prim=torch.empty(m, dtype=i32, device=dev),
                         t=torch.empty(m, dtype=f32, device=dev))
 
-        hits_near, hits_any = hit_buffers(n), hit_buffers(nl * n)
-    else:
-        cam_fn = (camera_mod.camera_rays_stochastic_plain if stochastic
-                  else camera_mod.camera_rays_plain)
-        if stochastic:
-            cam_fn = functools.partial(cam_fn, seed=seed)
-        plain_occluder = make_occluder(fixed, traverse.intersect_scene_plain)
+        self.hits_near, self.hits_any = hit_buffers(n), hit_buffers(nl * n)
+        if own_inputs:
+            self.hrec, self.srec = records_mod.empty(self.fixed)
+            self.pack_records = records_mod.prepare(self.fixed, self.hrec,
+                                                    self.srec)
+            self.cam = (torch.empty((), dtype=f32, device=dev),
+                        torch.empty((), dtype=f32, device=dev))
 
-    def device_occluder(word):
+    def stage(self, scene, light_sampler, ambient) -> None:
+        """Bring the frame's inputs up to date before its chunks: the
+        caller's leaves and sampler tables copied into this state's (one
+        ``_foreach_copy_`` a dtype), ``ambient`` written, the chunk index
+        and the record's row set to 0, and on CUDA the records and camera
+        frame packed from the copies: in place, K1's and K4's records by
+        one launch of K13 and the frame by ``camera.camera_frame``'s ops
+        with ``out=``; the first form packs new ones with the packers'
+        torch ops. Nothing here waits for the card or allocates (but in the
+        first form)."""
+        if self.own_inputs:
+            pairs = [(getattr(self.scene, k), getattr(scene, k))
+                     for k in scene_lib.LEAF_NAMES]
+            if light_sampler is not None:
+                pairs += [(t, light_sampler[k])
+                          for k, t in self.sampler.items()]
+            by_dtype = {}
+            for dst, src in pairs:
+                by_dtype.setdefault(dst.dtype, []).append((dst, src.detach()))
+            for group in by_dtype.values():
+                torch._foreach_copy_([d for d, _ in group],
+                                     [s for _, s in group])
+        self.amb.fill_(ambient)
+        self.chunk.zero_()
+        self.row.zero_()
+        if not self.cuda:
+            return
+        if not self.own_inputs:
+            self.hrec = hit_records.pack(self.fixed)
+            self.srec = shade_records_lib.pack(self.scene)
+            self.cam = camera_mod.camera_frame(self.scene)
+            return
+        self.pack_records()
+        # camera_frame's h = 2 * focus * tan(fovy / 2), w = h * aspect, op
+        # for op (the same bits), w first holding tan(fovy / 2)
+        sc, (h, w) = self.scene, self.cam
+        torch.tan(torch.div(sc.cam_fovy, 2.0, out=w), out=w)
+        torch.mul(sc.cam_focus, 2.0, out=h).mul_(w)
+        torch.mul(h, sc.cam_aspect, out=w)
+
+    def capture(self, if_nodes: bool) -> None:
+        """Capture one chunk into the chunk graph, its bounces after the
+        first in IF nodes that K12 sets (``if_nodes``; else every bounce
+        launched). The capture runs on a stream of its own and only
+        records. The launch counts it made are kept in ``captured`` and
+        taken back out of ``_build.launches``: every replay adds them, those
+        inside an IF node too, whether or not the node runs its body
+        (``_build.skipped_launches`` tallies those of the bounces it did
+        not run)."""
+        before = dict(_build.launches)
+        self.graph = _capture(self.dev, lambda: self.run_chunk(if_nodes))
+        self.captured = {k: v - before[k] for k, v in _build.launches.items()}
+        _build.launches.update(before)
+
+    def replay(self, times: int) -> None:
+        """Replay the chunk graph ``times`` times on the current stream."""
+        for _ in range(times):
+            self.graph.replay()
+        for k, v in self.captured.items():
+            _build.launches[k] += v * times
+
+    def run_chunk(self, if_nodes: bool = False) -> None:
+        """One chunk: eagerly, or into a graph being captured, where
+        ``if_nodes`` puts bounces 1.. into IF nodes. The IF nodes sit one
+        after another at the graph's top level; K12 of bounce k sets node
+        k + 1 where it sets alive[k + 1] (a bounce is alive only where the
+        one before it was)."""
+        sc = self.scene
+        torch.add(self.lane, self.chunk, alpha=self.n,
+                  out=self.ids).clamp_(max=self.last_id)
+        if self.cuda:
+            _, ro, rd = self.camera_rays()
+            light_pos = self.points
+            if self.sampler is not None:
+                lights_mod.light_points_launch(sc, self.sampler, self.ids,
+                                               self.seed, sc.pos,
+                                               sc.light_pos, light_pos)
+        else:
+            _, ro, rd = self.camera_rays()
+            ro, rd = ro.contiguous(), rd.contiguous()
+            light_pos = (None if self.sampler is None else
+                         lights_mod.sample_light_points_plain(
+                             sc, self.sampler, self.ids, self.seed))
+        self.acc.zero_()
+        self.thr.fill_(1.0)
+        self.tmax.fill_(FLT_MAX)
+        self.alive.zero_()
+        self.alive[:1].fill_(1)
+        handles = [None] * (self.max_depth + 1)
+        if if_nodes:
+            body = torch.cuda.Stream(self.dev)
+            handles[1:self.max_depth] = [_if_handle()
+                                         for _ in range(1, self.max_depth)]
+        for k in range(self.max_depth):
+            if handles[k] is None:
+                self.bounce(k, ro, rd, light_pos, handles[k + 1])
+                continue
+            with _if_node(handles[k], body):
+                self.bounce(k, ro, rd, light_pos, handles[k + 1])
+        self.ran.index_copy_(0, self.row, self.alive[None])
+        self.row.add_(1)
+        pixel_finish(self.acc, self.spp, self.ldr, out=self.out,
+                     chunk=self.chunk)
+        self.chunk.add_(1)
+
+    def camera_rays(self):
+        sc = self.scene
+        if not self.cuda:
+            if self.stochastic:
+                return camera_mod.camera_rays_stochastic_plain(
+                    sc, self.ids, self.width, self.height, self.samples,
+                    seed=self.seed)
+            return camera_mod.camera_rays_plain(sc, self.ids, self.width,
+                                                self.height, self.samples)
+        h, w = self.cam
+        if self.stochastic:
+            return camera_mod.camera_rays_stochastic_launch(
+                self.ids, sc.cam_axes, sc.cam_o, h, w, sc.cam_focus,
+                sc.cam_aperture, self.width, self.height, self.samples,
+                self.seed, out=self.rays)
+        return camera_mod.camera_rays_launch(
+            self.ids, sc.cam_axes, sc.cam_o, h, w, sc.cam_focus, self.width,
+            self.height, self.samples, out=self.rays)
+
+    def bounce(self, k, ro, rd, light_pos, next_if) -> None:
+        """Bounce ``k``: every launch reads its alive word (the mask is
+        K1's hit flag, since dead lanes ask with tmax < tmin); K12 sets the
+        next word and, in a graph with IF nodes, the next node
+        (``next_if``)."""
+        word, nxt = self.alive[k:k + 1], self.alive[k + 1:k + 2]
+        sc = self.scene
+        if self.cuda:
+            hits = traverse.intersect_scene_cuda(
+                self.fixed, ro, rd, self.tmin, self.tmax, records=self.hrec,
+                alive=word, out=self.hits_near)
+            color, kr, p, refl = shade_mod.shade_bounce_cuda(
+                sc, ro, rd, hits, self.amb, self.occluder(word), word,
+                self.kd_tex, self.ks_tex, light_pos, self.srec, self.bufs)
+        else:
+            if not bool(word):   # the card's graph skips it whole
+                return
+            hits = traverse.intersect_scene_plain(self.fixed, ro, rd,
+                                                  self.tmin, self.tmax)
+            color, kr, p, refl, _ = shade_mod.shade_step_plain(
+                sc, ro, rd, hits, self.amb, hits["hit"], self.plain_occluder,
+                self.kd_tex, self.ks_tex, light_pos)
+        bounce_update(self.acc, self.thr, ro, rd, self.tmax, color, kr, p,
+                      refl, hits["hit"], word, nxt, next_if)
+
+    def occluder(self, word):
         # K4 prep writes tmax = -FLT_MAX on the masked lanes' shadow rays,
         # so make_occluder's where(mask, tmax, -FLT_MAX) is the identity here
-        def occluder(p, d, tmin_, tmax_, mask):
+        def occluder(p, d, tmin, tmax, mask):
             res = traverse.intersect_scene_cuda(
-                fixed, p.reshape(-1, 3), d.reshape(-1, 3), tmin_.reshape(-1),
-                tmax_.reshape(-1), any_hit=True, records=hrec, alive=word,
-                out=hits_any)
+                self.fixed, p.reshape(-1, 3), d.reshape(-1, 3),
+                tmin.reshape(-1), tmax.reshape(-1), any_hit=True,
+                records=self.hrec, alive=word, out=self.hits_any)
             return res["hit"].reshape(p.shape[:-1])
         return occluder
 
-    def camera_cuda():
-        if stochastic:
-            return camera_mod.camera_rays_stochastic_launch(
-                ids, scene.cam_axes, scene.cam_o, h, w, scene.cam_focus,
-                scene.cam_aperture, width, height, samples, seed, out=rays)
-        return camera_mod.camera_rays_launch(
-            ids, scene.cam_axes, scene.cam_o, h, w, scene.cam_focus, width,
-            height, samples, out=rays)
 
-    def run_chunk():
-        torch.add(lane, chunk, alpha=n, out=ids).clamp_(max=npix * spp - 1)
-        if cuda:
-            _, ro, rd = camera_cuda()
-            light_pos = points
-            if light_sampler is not None:
-                lights_mod.light_points_launch(scene, light_sampler, ids,
-                                               seed, scene.pos,
-                                               scene.light_pos, light_pos)
-        else:
-            _, ro, rd = cam_fn(scene, ids, width, height, samples)
-            ro, rd = ro.contiguous(), rd.contiguous()
-            light_pos = (None if light_sampler is None else
-                         lights_mod.sample_light_points_plain(
-                             scene, light_sampler, ids, seed))
-        acc.zero_()
-        thr.fill_(1.0)
-        tmax.fill_(FLT_MAX)
-        alive.zero_()
-        alive[:1].fill_(1)
-        for k in range(max_depth):
-            word = alive[k:k + 1]
-            if cuda:
-                # the mask is the hit flag: dead lanes ask with tmax < tmin
-                hits = traverse.intersect_scene_cuda(
-                    fixed, ro, rd, tmin, tmax, records=hrec, alive=word,
-                    out=hits_near)
-                color, kr, p, refl = shade_mod.shade_bounce_cuda(
-                    scene, ro, rd, hits, amb, device_occluder(word), word,
-                    kd_tex, ks_tex, light_pos, srec, bufs)
-            else:
-                if not bool(word):   # the card reads the word per launch
-                    continue
-                hits = traverse.intersect_scene_plain(fixed, ro, rd, tmin,
-                                                      tmax)
-                color, kr, p, refl, _ = shade_mod.shade_step_plain(
-                    scene, ro, rd, hits, amb, hits["hit"], plain_occluder,
-                    kd_tex, ks_tex, light_pos)
-            bounce_update(acc, thr, ro, rd, tmax, color, kr, p, refl,
-                          hits["hit"], word, alive[k + 1:k + 2])
-        ran.index_copy_(0, row, alive[None])
-        row.add_(1)
-        pixel_finish(acc, spp, ldr, out=out, chunk=chunk)
-        chunk.add_(1)
+def _capture(dev, fn) -> torch.cuda.CUDAGraph:
+    """A CUDA graph of one call of ``fn``, captured on a stream of its own
+    (a capture only records, and waits for nothing)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        graph.capture_begin()
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    return graph
 
-    marks = [t0, time.perf_counter()]
-    with torch.no_grad():
-        run_chunk()
-        marks.append(time.perf_counter())
-        if n_chunks > 1 and cuda:
-            marks.append(_replay(run_chunk, n_chunks - 1))
-        else:
-            marks.append(marks[-1])   # no capture
-            for _ in range(n_chunks - 1):
-                run_chunk()
-    marks.append(time.perf_counter())
-    _build.note_frame(ran, nl > 0, dict(zip(
-        ("setup", "chunk0", "capture", "replay"), np.diff(marks) * 1e3)))
-    return out
+
+def _if_handle() -> int:
+    """A new IF node handle in the graph that the current stream captures
+    into: 0 at each of the graph's launches until a kernel sets it."""
+    handle = ctypes.c_ulonglong()
+    _build.check_launch(_build.library().yrt_if_handle(
+        _build.current_stream(), ctypes.byref(handle)), "yrt_if_handle")
+    return handle.value
+
+
+@contextlib.contextmanager
+def _if_node(handle, body):
+    """Capture the block's launches, on the stream ``body``, into an IF
+    node on ``handle`` after what the current stream captured so far: the
+    card runs them only where K12 of the bounce before set the handle at
+    that point of a launch of the graph."""
+    lib = _build.library()
+    body_ptr = ctypes.c_void_p(body.cuda_stream)
+    _build.check_launch(lib.yrt_if_begin(_build.current_stream(), handle,
+                                         body_ptr), "yrt_if_begin")
+    try:
+        with torch.cuda.stream(body):
+            yield
+    finally:
+        _build.check_launch(lib.yrt_if_end(body_ptr), "yrt_if_end")
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
@@ -613,29 +893,6 @@ def to_host(t: torch.Tensor) -> np.ndarray:
         return t.numpy()
     out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     return out.copy_(t).numpy()
-
-
-def _replay(run_chunk, times: int) -> float:
-    """Capture one call of ``run_chunk`` into a CUDA graph and replay it
-    ``times`` times on the current stream. The capture runs on a stream of
-    its own and waits for nothing: it only records. The launch counts gain
-    the captured launches once per replay. Returns the host clock at the
-    end of the capture."""
-    before = dict(_build.launches)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(torch.cuda.Stream()):
-        graph.capture_begin()
-        try:
-            run_chunk()
-        finally:
-            graph.capture_end()
-    captured = {k: v - before[k] for k, v in _build.launches.items()}
-    done = time.perf_counter()
-    for _ in range(times):
-        graph.replay()
-    for k, v in captured.items():   # the capture counted one
-        _build.launches[k] += v * (times - 1)
-    return done
 
 
 def _atomic_savez(path: str, **arrays) -> None:

@@ -12,7 +12,10 @@ the same float arithmetic, so every scene equals the JAX package's.
 * ``make_random_scene``: random mixed-primitive multi-instance scenes;
 * ``panel_grid``: the vertices and triangles of a square lamp panel as a
   grid of cells, for mesh area lights (the port's own; no JAX
-  counterpart).
+  counterpart);
+* ``make_mirror_pair_scene``: two facing ``kr=0.8`` mirrors with the
+  camera between them, where a ray goes on for several bounces (the
+  port's own, a fixture of the device loop; no JAX counterpart).
 """
 
 from __future__ import annotations
@@ -259,6 +262,37 @@ def make_grad_scene() -> HostScene:
     cam = lookat_camera("cam", eye=(0.0, 0.0, 4.0), target=(0, 0, 0),
                         aspect=1.0)
     return assemble(shapes, materials, [0, 1, 2], [cam])
+
+
+def make_mirror_pair_scene() -> HostScene:
+    """Two parallel 8 x 6 mirrors (``kr=0.8``) facing each other at z = -1
+    and z = 6, the camera at z = 4 looking down -z, a triangle between
+    them and one point light: the rays near the view axis go from mirror
+    to mirror, so bounces 2, 3 and later run in the middle of the frame
+    and not at its edges."""
+    front = _shape("front", [[-4.0, -3.0, -1.0], [4.0, -3.0, -1.0],
+                             [4.0, 3.0, -1.0], [-4.0, 3.0, -1.0]],
+                   triangles=[[0, 1, 2], [0, 2, 3]])
+    back = _shape("back", [[-4.0, -3.0, 6.0], [-4.0, 3.0, 6.0],
+                           [4.0, 3.0, 6.0], [4.0, -3.0, 6.0]],
+                  triangles=[[0, 1, 2], [0, 2, 3]])
+    tri = _shape("tri", [[-1.0, -0.75, 1.0], [1.0, -0.75, 1.0],
+                         [0.0, 1.0, 1.0]], triangles=[[0, 1, 2]])
+    light = point_light_shape("light", (1.5, 2.0, 2.5))
+    shapes = [front, back, tri, light]
+    mirror = HostMaterial(name="mirror", kd=np.full(3, 0.1, np.float32),
+                          ks=np.zeros(3, np.float32), rs=0.0,
+                          kr=np.full(3, 0.8, np.float32))
+    materials = [
+        mirror,
+        HostMaterial(name="mat", kd=np.asarray([0.6, 0.3, 0.2], np.float32),
+                     ks=np.full(3, 0.06, np.float32), rs=0.25),
+        HostMaterial(name="light", ke=np.full(3, 30.0, np.float32),
+                     kd=np.zeros(3, np.float32), ks=np.zeros(3, np.float32)),
+    ]
+    cam = lookat_camera("cam", eye=(0.0, 0.0, 4.0), target=(0.2, 0.1, 0.0),
+                        aspect=1.0)
+    return assemble(shapes, materials, [0, 0, 1, 2], [cam])
 
 
 def make_random_scene(seed=0, n_shapes=3, n_tris=40, n_lines=12, n_points=6,
