@@ -23,7 +23,8 @@ and timed in turns with their first forms, ``camera_bwd_simple.cu``, at
 floor; K9's 15 shared sums at aperture 0 bit-equal to K6's), K7
 stochastic camera rays, K8 area-light points, K11 overlap query with
 its refit kernel, K12, the device loop's bounce update (bit-equal; K12
-also writes nothing under a zero alive word) and K13, the device loop's
+also writes nothing under a zero alive word, and its out-of-place form
+equals its in-place one), K14, its reverse (bit-equal), and K13, the device loop's
 records (bit-equal to the packers on three scenes, before and after leaves
 edited in place). K8 and K10 are also held
 against their first forms (``lights_simple.cu``) and timed in turns with
@@ -54,11 +55,21 @@ Then it drives the port's eight paths through their user entry points:
   memory's growth and the kept entry's size; and ``render_scene_file``'s
   wall split into load, build, upload and ``render_image``;
 * training, ``parallel.mesh.train_step`` on 2**20 rays per step (the JAX
-  bench's training batch) of the same two frames, towards a target rendered
-  with perturbed ``mat_kd`` and ``light_ke``: step 1 with every float leaf
-  trainable, its loss against the plain path and its gradient against an
-  f64 reference, then 5 steps on the materials and lights with a strictly
-  falling loss;
+  bench's training batch) of the same two frames, the mirror pair (two
+  facing mirrors: bounces 2 and 3 live) at depth 4 and the hair frame at
+  depth 8, towards a target rendered with perturbed ``mat_kd`` and
+  ``light_ke``. The step runs as the training step's device loop
+  (``renderer.loss_grads_device``: one CUDA graph kept across calls, K12
+  out of place and K14, its reverse, beside K1, K2, K4, K5, K6 and K13,
+  each bounce after the first and its reverse in IF nodes that K12 sets).
+  Step 1 with every float leaf trainable: its loss bit-equal to the first
+  form's (``mesh._train_step_autograd``, the eager loop under autograd),
+  the device loop's gradient and the first form's against an f64
+  reference, each update ``d - lr * g`` of its own gradient; the first
+  form, the loop's first call of a key (a miss) and its repeated call (a
+  hit) timed in turns, with a profile of a hit (no launch in a dead bounce,
+  forward or reverse) and of the first form; then 5 steps on the
+  materials and lights with a strictly falling loss;
 * the stochastic modes, ``render_scene_file(..., stochastic=True, seed=7,
   area_lights=True, device="cuda")``: the hair scene with an emissive quad
   and an emissive polyline for its two lights and a 0.1 aperture, at
@@ -156,6 +167,9 @@ TRAIN_GRAD_RTOL = 1e-4
 TRAIN_PLAIN_FACTOR = 1.25
 TRAIN_LR = 1.0
 TRAIN_SUBSET = ("mat_kd", "mat_ks", "light_ke")
+# the mirror pair's 5 steps: its two kr 0.8 mirrors make the loss four
+# bounces deep, and SGD at TRAIN_LR oversteps its minimum
+PAIR_LR = 0.25
 SAMPLES, DEPTH, RES = 4, 4, 512
 SEED = 7
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor cores
@@ -167,7 +181,7 @@ OPS_PER_RAY = {"camera_rays": 45, "pixel_finish": 6,
                "shade": 360, "shade_bwd": 1100, "shade_bwd_lights": 1100,
                "camera_bwd": 110, "camera_rays_stochastic": 150,
                "camera_bwd_stochastic": 210, "light_points": 60,
-               "light_points_bwd": 75, "bounce": 15}
+               "light_points_bwd": 75, "bounce": 15, "bounce_bwd": 21}
 # K11's operations per (query, prim) pair by prim type, counted from
 # overlap.cu (the triangle's cascade at its face case), and per (query,
 # instance) for the move into the instance frame
@@ -213,14 +227,29 @@ BOUNCE_SEQUENCE = (("hit_nearest", "hit_nearest_kernel"),
                    ("hit_any", "hit_any_kernel"),
                    ("shade", "shade_finish_kernel"),
                    ("bounce", "bounce_kernel"))
+# the device functions of one bounce of the training step's device loop,
+# forward and reverse, by launch-count key: each runs once in a live bounce
+# and never in a dead one (its IF nodes skip it both ways)
+STEP_BOUNCE_FUNCTIONS = (("hit_nearest", "hit_nearest_kernel"),
+                         ("shade", "shade_finish_kernel"),
+                         ("bounce", "bounce_kernel"),
+                         ("bounce_bwd", "bounce_bwd_kernel"),
+                         ("shade_bwd", "shade_bwd_kernel"))
+# the training step's ways, timed in turns: its first form (autograd, the
+# eager loop), the device loop's first call of a key (a miss: its entry
+# cleared first) and its repeated call (a hit); eight calls, over which the
+# reserved memory's growth is read
+STEP_TURNS = ("first", "miss", "hit", "hit", "miss", "first", "hit", "hit")
 PANEL_CELLS = 32         # the lamp panel light: 32 x 32 cells, 2,048 triangles
 K3_BIG_SPP = 4900        # render_image's spp at --samples 70
 # idle host seconds on each side of a profiled call, their growth from one
-# attempt to the next, and the most sessions tried for one profile (see
-# profile_summary)
+# attempt to the next and their most, and the most sessions tried for one
+# profile (see profile_summary): on some hosts a trace loses device events
+# at pads of 0.05 and 0.4 s in most profiles, and now and then at 3.2 s
 PROFILE_PAD_S = 0.05
 PROFILE_PAD_GROWTH = 8
-PROFILE_ATTEMPTS = 3
+PROFILE_PAD_MAX_S = 3.2
+PROFILE_ATTEMPTS = 5
 
 
 def log(*args):
@@ -284,13 +313,15 @@ def profile_summary(fn, label: str, expect=(), check=None) -> dict:
     of the tracer, not of the call (the launch counts show the call's
     kernels): it is reported and the call is profiled again, at most
     PROFILE_ATTEMPTS times in all, each time with PROFILE_PAD_GROWTH times
-    the pad (PROFILE_PAD_S the first time): late in a run the first kernel
-    of a call has been lost three times in a row at one pad."""
+    the pad (PROFILE_PAD_S the first time, PROFILE_PAD_MAX_S at most): late
+    in a run the first kernel of a call has been lost three times in a row
+    at one pad."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        pad = PROFILE_PAD_S * PROFILE_PAD_GROWTH ** (attempt - 1)
+        pad = min(PROFILE_PAD_S * PROFILE_PAD_GROWTH ** (attempt - 1),
+                  PROFILE_PAD_MAX_S)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -378,6 +409,7 @@ DEVICE_FUNCTIONS = {
     "overlap_refit": ("overlap_parent_kernel", "overlap_refit_kernel"),
     "overlap_simple": ("simple::overlap_kernel",),
     "bounce": ("bounce_kernel",),
+    "bounce_bwd": ("bounce_bwd_kernel",),
     "records": ("records_kernel",)}
 
 
@@ -1583,6 +1615,84 @@ def phase_bounce_kernel(device) -> dict:
     return rec
 
 
+def phase_bounce_bwd_kernel(device) -> dict:
+    """K14, the reverse of K12 (the training step's device loop), against
+    its plain version (``bounce_update_bwd_plain``) at a step's TRAIN_RAYS
+    rays on a random bounce (``bounce_state``: dead lanes, kr of 0, -0.0
+    and NaN, NaN colors on masked lanes) with normal cotangents: the four
+    shading cotangents and the throughput's (in place) bit-equal. K12's
+    out-of-place form (the step's forward) bit-equal to its in-place form
+    on the same state. K14's timed call, plain time and device time per
+    launch beside its bound."""
+    from yocto_raytracing_tpu_torch.render import renderer
+
+    n = TRAIN_RAYS
+    acc, thr, color, kr, p, refl, mask = bounce_state(SEED + 1, n, device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    g_acc, g_thr, g_ro, g_rd = (torch.randn((n, 3), generator=gen,
+                                            device=device) for _ in range(4))
+    want = renderer.bounce_update_bwd_plain(g_acc, g_thr, g_ro, g_rd, thr,
+                                            color, kr, mask)
+    out = [torch.zeros_like(acc) for _ in range(4)]
+    carry = g_thr.clone()
+    renderer.bounce_update_bwd_cuda(g_acc, carry, g_ro, g_rd, thr, color,
+                                    kr, mask, out)
+    err = 0.0
+    for name, a, b in zip(("g_color", "g_kr", "g_p", "g_refl", "g_thr"),
+                          (*out, carry), want):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"K14 {name}: differs from plain on "
+                                 f"{int((a != b).sum())} values")
+        both = torch.isfinite(a) & torch.isfinite(b)
+        err = max(err, float((a[both] - b[both]).abs().max()))
+    # K12 out of place against in place
+    words = torch.tensor([1, 0, 1, 0], dtype=torch.int32, device=device)
+    ins = (color, kr, p, refl, mask)
+    st_in = [acc.clone(), thr.clone(), torch.zeros_like(acc),
+             torch.zeros_like(acc), torch.zeros(n, device=device)]
+    renderer.bounce_update_cuda(*st_in, *ins, words[0:1], words[1:2])
+    st_out = [acc.clone(), torch.zeros_like(acc), torch.zeros_like(acc),
+              torch.zeros(n, device=device)]
+    thr_out = torch.zeros_like(acc)
+    renderer.bounce_update_out_cuda(st_out[0], thr, thr_out, *st_out[1:],
+                                    *ins, words[2:3], words[3:4])
+    for name, a, b in zip(("acc", "thr", "ro", "rd", "tmax"), st_in,
+                          (st_out[0], thr_out, *st_out[1:])):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"K12 out of place {name}: differs from "
+                                 f"in place")
+    if words.tolist() != [1, 1, 1, 1] or not torch.equal(
+            thr.view(torch.int32), bounce_state(SEED + 1, n, device)[1]
+            .view(torch.int32)):
+        raise AssertionError("K12 out of place: alive word or thr_in")
+
+    def launch():
+        renderer.bounce_update_bwd_cuda(g_acc, carry, g_ro, g_rd, thr,
+                                        color, kr, mask, out)
+
+    # the bytes this state needs: every lane reads g_acc, thr, color, kr,
+    # g_thr and mask and writes five (N, 3) cotangents; a lane that goes
+    # on also reads g_ro and g_rd
+    live = int((mask & (kr > 0).any(-1)).sum())
+    moved = (nbytes(g_acc, thr, color, kr, g_thr, mask) + 5 * nbytes(g_acc)
+             + live * 2 * 12)
+    prof = profile_summary(lambda: [launch() for _ in range(BOUNCE_ROUNDS)],
+                           "K14 bounce_bwd", ("bounce_bwd",))
+    dev_us = device_us(prof["by_name"], "bounce_bwd") / BOUNCE_ROUNDS
+    rec = dict(
+        max_abs_err=err, ms=cuda_ms(launch, 20),
+        plain_ms=cuda_ms(lambda: renderer.bounce_update_bwd_plain(
+            g_acc, g_thr, g_ro, g_rd, thr, color, kr, mask), 5),
+        library_ms=None, device_us=dev_us, **bound("bounce_bwd", moved, n))
+    log(f"K14 bounce_bwd: {n} rays, the four shading cotangents and g_thr "
+        f"bit-equal to plain; K12 out of place bit-equal to in place; "
+        f"timed call {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms; "
+        f"device us per launch (profiler) {dev_us:.2f}; bound "
+        f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}, "
+        f"{moved / n:.1f} bytes a ray, {live} of the rays go on)")
+    return rec
+
+
 RECORDS_ROUNDS = 20      # K13 launches per profile
 
 
@@ -2433,8 +2543,10 @@ def check_loss_gradient(what: str, rep: dict, loss: float) -> str:
     TRAIN_GRAD_RTOL of the f64 reference or TRAIN_PLAIN_FACTOR x the plain
     f32 path's own error, and each leaf the report leaves out as zero up to
     rounding (cam_focus without a lens, cam_aperture at aperture 0) within
-    1e-5 |d cam_axes|, as a value that vanishes to first order. Logs the
-    per-leaf errors; returns a summary for the caller's log line."""
+    1e-5 |d cam_axes|, as a value that vanishes to first order. A report
+    with a "device" entry (the training step's device loop) is held to the
+    same bounds. Logs the per-leaf errors; returns a summary for the
+    caller's log line."""
     from yocto_raytracing_tpu_torch.kernels import parity
 
     for key in ("loss", "plain_loss"):
@@ -2442,8 +2554,11 @@ def check_loss_gradient(what: str, rep: dict, loss: float) -> str:
             raise AssertionError(f"{what}: loss {loss} vs {key} {rep[key]}")
     bounds = parity.loss_grad_bounds(rep, TRAIN_GRAD_RTOL,
                                      TRAIN_PLAIN_FACTOR)
-    worst = parity.check_grads(rep["kernel"], bounds, f"{what} gradient")
-    worst_leaf = max(rep["kernel"], key=lambda k: rep["kernel"][k]["rel"])
+    paths = [k for k in ("device", "kernel") if k in rep]
+    worst = {k: parity.check_grads(rep[k], bounds, f"{what} {k} gradient")
+             for k in paths}
+    worst_leaf = {k: max(rep[k], key=lambda n: rep[k][n]["rel"])
+                  for k in paths}
     rounding = {k: float(rep["grads"][k].abs())
                 for k in ("cam_focus", "cam_aperture")
                 if k not in rep["kernel"]}
@@ -2451,14 +2566,17 @@ def check_loss_gradient(what: str, rep: dict, loss: float) -> str:
         if v > 1e-5 * rep["kernel"]["cam_axes"]["norm"]:
             raise AssertionError(f"{what}: d {k} {v}")
     wide = sorted(k for k, b in bounds.items() if b > TRAIN_GRAD_RTOL)
-    log(f"{what}: per leaf, relative L2 error vs the f64 reference, kernel "
-        f"path / plain path: " + ", ".join(
-            f"{k} {rep['kernel'][k]['rel']:.2e}/{rep['plain'][k]['rel']:.2e}"
+    log(f"{what}: per leaf, relative L2 error vs the f64 reference, "
+        + " / ".join(paths) + " / plain path: " + ", ".join(
+            f"{k} " + "/".join(f"{rep[p][k]['rel']:.2e}"
+                               for p in (*paths, "plain"))
             for k in sorted(rep["kernel"]) if rep["kernel"][k]["norm"] > 0))
     return (f"loss {loss!r} (kernel path {rep['loss']!r}, plain path "
             f"{rep['plain_loss']!r}, f64 reference {rep['ref_loss']!r}); "
             f"gradient vs the f64 reference: largest relative L2 error "
-            f"{worst:.3e} ({worst_leaf}; tolerance {TRAIN_GRAD_RTOL} per "
+            + ", ".join(f"{p} {worst[p]:.3e} ({worst_leaf[p]})"
+                        for p in paths)
+            + f" (tolerance {TRAIN_GRAD_RTOL} per "
             f"leaf, {TRAIN_PLAIN_FACTOR}x the plain f32 path's own error on "
             f"{', '.join(wide) or 'no leaf'}), the plain f32 path's largest "
             f"{max(r['rel'] for r in rep['plain'].values()):.3e}; zero up "
@@ -2466,49 +2584,181 @@ def check_loss_gradient(what: str, rep: dict, loss: float) -> str:
                 f"d {k} {v:.3e}" for k, v in rounding.items()) or "none"))
 
 
-def phase_train(name, scene, w, h, last, device, dev_info) -> dict:
-    """``train_step`` on TRAIN_RAYS rays. Step 1 with every float leaf
-    trainable: its loss equal to the plain path's, the kernel path's
-    gradient within TRAIN_GRAD_RTOL of the f64 reference
-    (``parity.compare_loss_grads``, the plain path's own error printed
-    beside it), and the step's update ``d - lr * g`` of that gradient.
-    Then 5 steps on TRAIN_SUBSET with a strictly falling loss; wall times,
-    memory and one profiled warm step."""
+def step_bounce_launches(events, record) -> dict:
+    """The launches of the training step's bounces in a profiled step.
+    ``events`` are the trace's device events (``profile_summary``),
+    ``record`` the step's ``kernels.last_step()``. Each live bounce
+    launches each function of STEP_BOUNCE_FUNCTIONS once, forward and
+    reverse; a dead one none (its IF nodes skip it). Returns the live
+    bounces, the dead ones and the launches by key; raises ValueError
+    where the trace holds fewer (the tracer lost some), AssertionError
+    where it holds more (the graph launched a dead bounce)."""
+    ran = record["ran"].tolist()[:-1]
+    live = sum(ran)
+    got = {}
+    for key, fn in STEP_BOUNCE_FUNCTIONS:
+        got[key] = sum(name.startswith(f"yrt::{fn}(") for name, _ in events)
+        if got[key] > live:
+            raise AssertionError(f"{key}: {got[key]} launches for {live} "
+                                 f"live bounces: a dead bounce launched")
+        if got[key] < live:
+            raise ValueError(f"{key}: {got[key]} launches, not {live}")
+    return dict(live=live, dead=len(ran) - live, launches=got)
+
+
+def phase_train(name, scene, w, h, last, device, dev_info, depth=DEPTH,
+                steps_lr=TRAIN_LR) -> dict:
+    """``train_step`` on TRAIN_RAYS rays at ``depth``: the training step's
+    device loop (``renderer.loss_grads_device``: one CUDA graph kept across
+    calls, dead bounces skipped forward and back by IF nodes) against its
+    first form (``mesh._train_step_autograd``: the eager loop under
+    autograd). Step 1 with every float leaf trainable: its loss bit-equal
+    to the first form's; the device loop's gradient (its own call, without
+    the update) and the first form's within TRAIN_GRAD_RTOL of the f64
+    reference (``parity.compare_loss_grads``, the plain path's own error
+    printed beside them); each step's update ``d - lr * g`` of its own
+    path's gradient. The three ways in turns (STEP_TURNS: the first form,
+    a miss, a hit), each loss bit-equal, with the hits' host ms and the
+    reserved memory's growth, and the kept entry's size. Then 5 steps on
+    TRAIN_SUBSET at ``steps_lr`` with a strictly falling loss, each loss
+    bit-equal to the first form's on the same leaves (the leaves staged
+    into the kept entry); a profiled hit (idle
+    share, device ops, the bounces' launches: none in a dead bounce,
+    ``step_bounce_launches``) and a profiled first form."""
     from yocto_raytracing_tpu_torch import kernels
+    from yocto_raytracing_tpu_torch import scene as scene_lib
     from yocto_raytracing_tpu_torch.kernels import parity
     from yocto_raytracing_tpu_torch.parallel import mesh
     from yocto_raytracing_tpu_torch.render import renderer
 
+    t_phase = time.perf_counter()
+    label = f"train {name}" + ("" if depth == DEPTH else f" depth {depth}")
     amb = torch.full((3,), 0.1, device=device)
     ids = middle_ids(w, h, SAMPLES, TRAIN_RAYS, device, last)
-    kw = dict(width=w, height=h, samples=SAMPLES, max_depth=DEPTH)
+    kw = dict(width=w, height=h, samples=SAMPLES, max_depth=depth)
     target = renderer.trace_rays(perturbed(scene, 7), ids, amb, w, h,
-                                 SAMPLES, DEPTH)
+                                 SAMPLES, depth)
 
+    def device_step(sc=scene, lr=TRAIN_LR, **extra):
+        return mesh.train_step(sc, ids, target, amb, lr, **kw, **extra)
+
+    def first_step(sc=scene, lr=TRAIN_LR, **extra):
+        return mesh._train_step_autograd(sc, ids, target, amb, lr, **kw,
+                                         **extra)
+
+    renderer._steps.clear()
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    new_k, loss_k = mesh.train_step(scene, ids, target, amb, TRAIN_LR, **kw)
+    new_k, loss_k = device_step()
     torch.cuda.synchronize()
     wall1 = time.perf_counter() - t0
     counts = dict(kernels.launches)
-    for k in TRAIN_KERNELS:
-        if counts[k] <= 0:
-            raise AssertionError(f"train {name}: kernel {k} never launched")
+    made = kernels.made_launches()
+    skipped = kernels.skipped_launches()
+    ran = kernels.last_step()["ran"].tolist()
+    for k in (*TRAIN_KERNELS, "bounce", "bounce_bwd", "records"):
+        if made[k] <= 0:
+            raise AssertionError(f"{label}: kernel {k} never launched")
+    live = sum(ran[:-1])
+    if made["bounce_bwd"] != live or made["shade_bwd"] != live:
+        raise AssertionError(f"{label}: K14 {made['bounce_bwd']}, K5 "
+                             f"{made['shade_bwd']} launches for {live} live "
+                             f"bounces")
 
+    _, out = renderer.loss_grads_device(scene, ids, target, amb, w, h,
+                                        SAMPLES, depth)
+    grads = {k: g for k, g in zip(scene_lib.LEAF_NAMES, out)
+             if g is not None}
+    new_f, loss_f = first_step()
     t0 = time.perf_counter()
-    rep = parity.compare_loss_grads(scene, ids, target, amb, **kw)
+    rep = parity.compare_loss_grads(scene, ids, target, amb,
+                                    also=dict(device=grads), **kw)
     torch.cuda.synchronize()
     compare_s = time.perf_counter() - t0
-    summary = check_loss_gradient(f"train {name}", rep, float(loss_k))
-    parity.check_update(scene, new_k, rep["grads"], TRAIN_LR,
-                        f"train {name}")
-    log(f"train {name}: step 1, all float leaves trainable, {TRAIN_RAYS} "
-        f"rays: {summary}; update = d - lr * g on every float leaf; kernel "
-        f"step {wall1:.3f} s, the three gradients {compare_s:.1f} s; "
-        f"launches {counts}")
-    if name == "mirror" and rep["kernel"]["mat_kr"]["norm"] == 0:
-        raise AssertionError("train mirror: no gradient through the bounce")
+    if not float(loss_k) == float(loss_f) == rep["loss"]:
+        raise AssertionError(f"{label}: loss {float(loss_k)!r} vs the first "
+                             f"form's {float(loss_f)!r}: not the same bits")
+    summary = check_loss_gradient(label, rep, float(loss_k))
+    parity.check_update(scene, new_k, grads, TRAIN_LR, label)
+    parity.check_update(scene, new_f, rep["grads"], TRAIN_LR,
+                        f"{label} first form")
+    log(f"{label}: step 1, all float leaves trainable, {TRAIN_RAYS} "
+        f"rays, depth {depth}: {summary}; loss bit-equal to the first "
+        f"form's; update = d - lr * g on every float leaf, both ways; "
+        f"device loop step (a miss) {wall1:.3f} s, the four gradients "
+        f"{compare_s:.1f} s; bounces run {ran[:-1]}; launches made {made} "
+        f"(counted {counts}; skipped in dead bounces {skipped})")
+    if name in ("mirror", "mirror pair") and rep["device"]["mat_kr"][
+            "norm"] == 0:
+        raise AssertionError(f"{label}: no gradient through the bounce")
+    if name == "mirror pair" and ran[:4] != [1, 1, 1, 1]:
+        raise AssertionError(f"{label}: bounces 2 and 3 did not run: {ran}")
+
+    def miss():
+        renderer._steps.clear()
+        return device_step()
+
+    ways = dict(first=first_step, miss=miss, hit=device_step)
+    turns = {k: dict(walls=[], host_ms=[], hits=[]) for k in ways}
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    for k in STEP_TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss = ways[k]()
+        torch.cuda.synchronize()
+        turns[k]["walls"].append((time.perf_counter() - t0) * 1e3)
+        if float(loss) != float(loss_f):
+            raise AssertionError(f"{label} {k}: loss {float(loss)!r}, not "
+                                 f"the first form's bits")
+        if k != "first":
+            rec = kernels.last_step()
+            turns[k]["host_ms"].append(rec["host_ms"])
+            turns[k]["hits"].append(rec["cache_hit"])
+    grown = (torch.cuda.memory_reserved() - reserved) / 2 ** 20
+    if (not all(turns["hit"]["hits"]) or any(turns["miss"]["hits"])
+            or any(h["capture"] for h in turns["hit"]["host_ms"])):
+        raise AssertionError(f"{label}: a repeated step missed the cache "
+                             f"or captured")
+    renderer._steps.clear()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    device_step()
+    torch.cuda.synchronize()
+    (state,) = renderer._steps.values()
+    entry_mib = tensor_mib(state)
+    pool_mib = (torch.cuda.memory_allocated() - before) / 2 ** 20
+    for k, r in turns.items():
+        stages = {st: [x[st] for x in r["host_ms"]]
+                  for st in (r["host_ms"][0] if r["host_ms"] else ())}
+        log(f"{label} {k}: wall ms in turns "
+            + ", ".join(f"{x:.2f}" for x in r["walls"])
+            + ("" if not stages else "; host ms " + ", ".join(
+                f"{st} " + "/".join(f"{v:.2f}" for v in vs)
+                for st, vs in stages.items())
+               + f"; cache hits {r['hits']}")
+            + f"; loss bit-equal to the first form's; on {dev_info['smi']}")
+    log(f"{label}: reserved device memory grew {grown:.1f} MiB over the "
+        f"{len(STEP_TURNS)} calls in turns; the kept entry holds "
+        f"{entry_mib:.1f} MiB of tensors, allocated {pool_mib:.1f} MiB "
+        f"more than with no entry, the graph's pool included")
+
+    profs = {}
+    device_step()   # the entry of the profiled configuration: a hit
+    profs["hit"] = profile_summary(
+        device_step, f"warm {label} step (a hit), every float leaf "
+        f"trainable", ("shade_bwd", "camera_bwd", "bounce_bwd"),
+        check=lambda ev: step_bounce_launches(ev, kernels.last_step()))
+    if not kernels.last_step()["cache_hit"]:
+        raise AssertionError(f"{label}: the profiled step missed the cache")
+    launched = profs["hit"]["checked"]
+    log(f"{label} hit profile: {launched['live']} live bounces, "
+        f"{launched['dead']} dead: launches in the trace "
+        f"{launched['launches']}, none in a dead bounce")
+    profs["first"] = profile_summary(
+        first_step, f"warm {label} first form, every float leaf trainable",
+        ("shade_bwd", "camera_bwd"))
 
     cur = scene
     losses, walls = [], []
@@ -2516,31 +2766,32 @@ def phase_train(name, scene, w, h, last, device, dev_info) -> dict:
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cur, loss = mesh.train_step(cur, ids, target, amb, TRAIN_LR,
-                                    trainable=TRAIN_SUBSET, **kw)
+        nxt, loss = device_step(cur, steps_lr, trainable=TRAIN_SUBSET)
         losses.append(float(loss))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        _, want = first_step(cur, steps_lr, trainable=TRAIN_SUBSET)
+        if float(want) != losses[-1]:
+            raise AssertionError(f"{label}: step {len(losses)} loss "
+                                 f"{losses[-1]!r}, the first form's "
+                                 f"{float(want)!r}")
+        cur = nxt
     peak = torch.cuda.max_memory_allocated()
-    log(f"train {name}: 5 steps on {', '.join(TRAIN_SUBSET)}, lr "
-        f"{TRAIN_LR}: losses {[repr(x) for x in losses]}; step wall "
+    log(f"{label}: 5 steps on {', '.join(TRAIN_SUBSET)}, lr "
+        f"{steps_lr}: losses {[repr(x) for x in losses]}, each bit-equal "
+        f"to the first form's on the same leaves; step wall "
         f"{', '.join(f'{x:.4f}' for x in walls)} s = "
         f"{', '.join(f'{TRAIN_RAYS / x / 1e6:.2f}' for x in walls)} Mrays/s "
-        f"on {dev_info['smi']}; peak memory {peak / 2**30:.2f} GiB")
+        f"(the first a miss) on {dev_info['smi']}; peak memory "
+        f"{peak / 2**30:.2f} GiB")
     if not all(np.isfinite(losses)) or not all(
             b < a for a, b in zip(losses, losses[1:])):
-        raise AssertionError(f"train {name}: loss not strictly falling "
+        raise AssertionError(f"{label}: loss not strictly falling "
                              f"{losses}")
-    profile_summary(lambda: mesh.train_step(
-        cur, ids, target, amb, TRAIN_LR, trainable=TRAIN_SUBSET, **kw),
-        f"warm train step {name}")
-    # the profile that matches `counts`: step 1's configuration (the camera
-    # reverse K6 runs only when a camera leaf is trainable)
-    prof = profile_summary(lambda: mesh.train_step(
-        cur, ids, target, amb, TRAIN_LR, **kw),
-        f"warm train step {name}, every float leaf trainable",
-        ("shade_bwd", "camera_bwd"))
-    return dict(counts=counts, walls=walls, peak=peak, prof=prof)
+    log(f"{label}: phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(counts=counts, made=made, skipped=skipped, walls=walls,
+                peak=peak, prof=profs["hit"], turns=turns, profs=profs,
+                grown_mib=grown, entry_mib=entry_mib)
 
 
 def light_vertex_rows(host, meta) -> list:
@@ -3644,6 +3895,7 @@ def run_phases(dev_info, device, shade_regs, camera_build, plain_walk,
         rec = run_phase(phase_frame_kernels, hscene, width, RES, SAMPLES,
                         device)
         rec["bounce"] = run_phase(phase_bounce_kernel, device)
+        rec["bounce_bwd"] = run_phase(phase_bounce_bwd_kernel, device)
         rec["records"] = run_phase(phase_records_kernel, device)
         rec.update(run_phase(phase_hit_frame, "hair", hscene, hmeta, width))
         # (name, scene, meta, width, height, bounce, rays from the end)
@@ -3660,8 +3912,18 @@ def run_phases(dev_info, device, shade_regs, camera_build, plain_walk,
         run_phase(phase_small_reference, hair_obj, device)
         main_train = run_phase(phase_train, "hair", hscene, width, RES,
                                False, device, dev_info)
-        run_phase(phase_train, "mirror", mscene, RES, RES, True, device,
-                  dev_info)
+        mirror_train = run_phase(phase_train, "mirror", mscene, RES, RES,
+                                 True, device, dev_info)
+        pair = testscenes.make_mirror_pair_scene()
+        pscene, _ = scene_on(pair, device)
+        # at lr 1.0 its second step raises the loss (0.0138, 0.00047,
+        # 0.00051 on an H100): SGD oversteps there
+        pair_train = run_phase(
+            phase_train, "mirror pair", pscene,
+            renderer.image_width(pair.cameras[0].aspect, RES), RES, False,
+            device, dev_info, steps_lr=PAIR_LR)
+        deep_train = run_phase(phase_train, "hair", hscene, width, RES,
+                               False, device, dev_info, depth=8)
 
         area_hair = area_hair_scene()
         area_hair_obj = os.path.join(tmp, "area_hair.obj")
@@ -3771,6 +4033,9 @@ def run_phases(dev_info, device, shade_regs, camera_build, plain_walk,
         "records": ("records.cu",
                     "yocto_raytracing_tpu/render/renderer.py:179",
                     main_frame),
+        "bounce_bwd": ("bounce.cu",
+                       "yocto_raytracing_tpu/render/renderer.py:342",
+                       main_train),
     }
     # "launches": what the card made on the path. The main path's counters
     # gain a CUDA graph's captured launches on every replay, those in the
@@ -3883,6 +4148,22 @@ def run_phases(dev_info, device, shade_regs, camera_build, plain_walk,
         f"{p['hdr_device_us']:.2f}, torch sum(1) "
         f"{p['library_device_us']:.2f}, bound {p['bound_ms'] * 1e3:.2f}; on "
         f"{dev_info['smi']}")
+    for label, r in (("hair", main_train), ("mirror", mirror_train),
+                     ("mirror pair", pair_train), ("hair depth 8",
+                                                   deep_train)):
+        t, p = r["turns"], r["profs"]
+        log(f"train step {label}, {TRAIN_RAYS} rays, every float leaf, "
+            f"wall ms in turns: hit "
+            + "/".join(f"{x:.2f}" for x in t["hit"]["walls"]) + ", miss "
+            + "/".join(f"{x:.2f}" for x in t["miss"]["walls"])
+            + ", first form "
+            + "/".join(f"{x:.2f}" for x in t["first"]["walls"])
+            + f"; profiled hit: busy {p['hit']['busy_ms']:.3f} ms, idle "
+            f"share {p['hit']['idle']:.3f}, {p['hit']['ops']} device ops; "
+            f"first form: busy {p['first']['busy_ms']:.3f} ms, idle share "
+            f"{p['first']['idle']:.3f}, {p['first']['ops']} device ops; the "
+            f"entry {r['entry_mib']:.1f} MiB, reserved +{r['grown_mib']:.1f}"
+            f" MiB over {len(STEP_TURNS)} calls; on {dev_info['smi']}")
     for r in kernels_rec:
         log(f"{r['name']}: {r['launches']} launches made on its path "
             f"({r['counted']} counted, {r['skipped']} of them in dead "

@@ -44,7 +44,15 @@ K1 and K4 under a zero alive word leaving their outputs as they were, the
 frame of ``frame_device`` (a CUDA graph of a chunk, replayed) bit-equal
 to the eager loop's in f32 sums and u8 on the hair, mirror, area hair and
 area mirror frames with its launch counts the eager loop's plus its dead
-bounces' launches, and two ``render_image`` calls the same bits.
+bounces' launches, and two ``render_image`` calls the same bits; the
+training step's device loop: K12's out-of-place form bit-equal to its
+in-place one, K14 bit-equal to ``bounce_update_bwd_plain``,
+``loss_grads_device`` (a miss and a hit) on the mirror and mirror-pair
+scenes with the first form's loss bits and gradients within 1e-5 of its
+first form's, launching nothing in a dead bounce, ``train_step``'s update
+``d - lr * g`` of that gradient and its gradient within the f64 contract,
+and a hit of ``train_step`` under ``set_sync_debug_mode("error")``
+keeping its graph and the reserved memory.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed:
@@ -517,15 +525,23 @@ def test_train_step_matches_plain(cuda_device):
     new_k, loss_k = mesh.train_step(ts, ids, target, amb, 0.1, **kw)
     assert all(kernels.launches[k] > 0 for k in ("camera_rays", "hit",
                                                  "shade", "shade_bwd",
-                                                 "camera_bwd"))
-    rep = parity.compare_loss_grads(ts, ids, target, amb, **kw)
+                                                 "camera_bwd", "bounce",
+                                                 "bounce_bwd", "records"))
+    # the step's device loop gives its gradient without the update
+    loss_d, out = renderer.loss_grads_device(ts, ids, target, amb, w, h, 1,
+                                             3)
+    grads = {n: g for n, g in zip(scene_lib.LEAF_NAMES, out)
+             if g is not None}
+    rep = parity.compare_loss_grads(ts, ids, target, amb,
+                                    also=dict(device=grads), **kw)
     np.testing.assert_allclose(rep["plain_loss"], float(loss_k), rtol=1e-5)
-    np.testing.assert_allclose(rep["loss"], float(loss_k), rtol=1e-5)
-    parity.check_grads(rep["kernel"],
-                       parity.loss_grad_bounds(rep, GRAD_RTOL, 1.25),
-                       "train step gradient")
-    assert rep["kernel"]["mat_kr"]["norm"] > 0
-    parity.check_update(ts, new_k, rep["grads"], 0.1, "train step")
+    # the forward is the eager loop's arithmetic: the loss's bits
+    assert rep["loss"] == float(loss_k) == float(loss_d)
+    bounds = parity.loss_grad_bounds(rep, GRAD_RTOL, 1.25)
+    parity.check_grads(rep["kernel"], bounds, "train step gradient")
+    parity.check_grads(rep["device"], bounds, "device loop gradient")
+    assert rep["device"]["mat_kr"]["norm"] > 0
+    parity.check_update(ts, new_k, grads, 0.1, "train step")
 
 
 def _area_grad_scene(aperture=0.0):
@@ -1174,6 +1190,158 @@ def test_bounce_kernel_matches_plain(cuda_device, word):
     tmax = torch.where(want[4], float(FLT_MAX), float(-FLT_MAX))
     assert _same_bits(state[4], tmax)
     assert alive[1].item() == int(want[4].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("word", [1, 0], ids=["alive", "dead"])
+def test_bounce_kernel_out_of_place_matches_in_place(cuda_device, word):
+    """K12's out-of-place form (the training step's) == its in-place form
+    bit for bit: acc, tmax and the next word in place, thr read from its
+    slot (left as it was) and the next thr, ro and rd written into the
+    next slots; with a zero alive word it writes nothing."""
+    n = 100_003
+    acc, thr, color, kr, p, refl, mask = (
+        torch.from_numpy(x).to(cuda_device) for x in random_bounce(13, n))
+
+    def state():
+        return [acc.clone(), torch.full((n, 3), 7.0, device=cuda_device),
+                torch.full((n, 3), 7.0, device=cuda_device),
+                torch.zeros(n, device=cuda_device)]
+
+    a1, ro1, rd1, tmax1 = state()
+    thr1 = thr.clone()
+    w1 = torch.tensor([word, 0], dtype=torch.int32, device=cuda_device)
+    renderer.bounce_update(a1, thr1, ro1, rd1, tmax1, color, kr, p, refl,
+                           mask, w1[0:1], w1[1:2])
+    a2, ro2, rd2, tmax2 = state()
+    thr_in = thr.clone()
+    thr2 = torch.full((n, 3), 5.0, device=cuda_device)
+    before = [t.clone() for t in (a2, thr2, ro2, rd2, tmax2)]
+    w2 = torch.tensor([word, 0], dtype=torch.int32, device=cuda_device)
+    kernels.reset_launches()
+    renderer.bounce_update_out(a2, thr_in, thr2, ro2, rd2, tmax2, color,
+                               kr, p, refl, mask, w2[0:1], w2[1:2])
+    torch.cuda.synchronize()
+    assert kernels.launches["bounce"] == 1
+    assert _same_bits(thr_in, thr)
+    got = (a2, thr2, ro2, rd2, tmax2)
+    if word == 0:
+        assert all(_same_bits(a, b) for a, b in zip(got, before))
+        assert w2.tolist() == [0, 0]
+        return
+    for name, a, b in zip(("acc", "thr", "ro", "rd", "tmax"), got,
+                          (a1, thr1, ro1, rd1, tmax1)):
+        assert _same_bits(a, b), name
+    assert w2.tolist() == w1.tolist() == [1, 1]
+
+
+@pytest.mark.cuda
+def test_bounce_bwd_kernel_matches_plain(cuda_device):
+    """K14 == ``bounce_update_bwd_plain`` bit for bit on a random state
+    (dead lanes, kr of 0, -0.0 and NaN, NaN colors on masked lanes,
+    infinite throughputs): the four cotangents written, g_thr in place."""
+    n = 100_003
+    _, thr, color, kr, _, _, mask = (
+        torch.from_numpy(x).to(cuda_device) for x in random_bounce(14, n))
+    rng = np.random.default_rng(14)
+    g_acc, g_thr, g_ro, g_rd = (
+        torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(
+            cuda_device) for _ in range(4))
+    want = renderer.bounce_update_bwd_plain(g_acc, g_thr, g_ro, g_rd, thr,
+                                            color, kr, mask)
+    out = [torch.full((n, 3), 7.0, device=cuda_device) for _ in range(4)]
+    carry = g_thr.clone()
+    kernels.reset_launches()
+    renderer.bounce_update_bwd(g_acc, carry, g_ro, g_rd, thr, color, kr,
+                               mask, out)
+    torch.cuda.synchronize()
+    assert kernels.launches["bounce_bwd"] == 1
+    for name, a, b in zip(("g_color", "g_kr", "g_p", "g_refl", "g_thr"),
+                          (*out, carry), want):
+        assert _same_bits(a, b), name
+
+
+def _step_case(name, device, w=32, h=32):
+    ts, _ = _scene(getattr(testscenes, name)(), device)
+    ids = torch.arange(w * h, dtype=torch.int32, device=device)
+    amb = torch.full((3,), 0.1, device=device)
+    target = torch.rand((w * h, 3), device=device, generator=torch.Generator(
+        device=device).manual_seed(2))
+    return ts, ids, target, amb, dict(width=w, height=h, samples=1,
+                                      max_depth=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["make_grad_scene",
+                                  "make_mirror_pair_scene"])
+def test_train_step_device_loop_matches_first_form(cuda_device, name):
+    """The training step's device loop (``loss_grads_device``, a miss and
+    a hit) against its first form (``mesh._loss_and_grads_autograd``):
+    the loss bit-equal, every leaf's gradient within 1e-5 relative L2 (the
+    leaf sums are atomic, and the loop sums the bounces in f64 before it
+    rounds; ``cam_focus``, zero up to rounding, left out); its dead
+    bounces made no launch either way, its live ones one K1 nearest, K4,
+    K12, K14 and K5 each (the mirror pair's bounces 2 and 3 in IF nodes);
+    ``train_step``'s update ``d - lr * g`` of that gradient."""
+    ts, ids, target, amb, kw = _step_case(name, cuda_device)
+    diff, static = mesh.partition_scene(ts)
+    loss_f, grads_f = mesh._loss_and_grads_autograd(diff, static, ids,
+                                                    target, amb, kw)
+    want = {k: g.double() for k, g in zip(scene_lib.LEAF_NAMES, grads_f)
+            if g is not None and k != "cam_focus"}
+    renderer._steps.clear()
+    for call in ("miss", "hit"):
+        kernels.reset_launches()
+        loss_d, out = renderer.loss_grads_device(ts, ids, target, amb, 32,
+                                                 32, 1, kw["max_depth"])
+        made = kernels.made_launches()
+        rec = kernels.last_step()
+        assert rec["cache_hit"] is (call == "hit")
+        assert float(loss_d) == float(loss_f)
+        live = int(rec["ran"][:-1].sum())
+        for k in ("bounce", "bounce_bwd", "shade_bwd", "shade"):
+            assert made[k] == live, (k, made[k], live)
+        assert made["hit"] - made["hit_any"] == live
+        assert kernels.skipped_launches()["step_bounces"] == (
+            kw["max_depth"] - live)
+        if name == "make_mirror_pair_scene":
+            assert rec["ran"].tolist()[:4] == [1, 1, 1, 1]
+        got = {k: g for k, g in zip(scene_lib.LEAF_NAMES, out)
+               if g is not None}
+        rep = parity.relative_errors({k: g.double() for k, g in got.items()},
+                                     want, per_element=False)
+        parity.check_grads(rep, 1e-5, f"{name} {call}: device loop")
+    new, loss = mesh.train_step(ts, ids, target, amb, 0.1, **kw)
+    assert float(loss) == float(loss_f)
+    parity.check_update(ts, new, got, 0.1, f"{name}: train_step")
+
+
+@pytest.mark.cuda
+def test_train_step_hit_makes_no_sync(cuda_device):
+    """A hit of ``train_step`` under ``set_sync_debug_mode("error")``:
+    it waits for nothing, keeps its graph (no capture) and the reserved
+    memory, and repeats the miss's loss."""
+    ts, ids, target, amb, kw = _step_case("make_mirror_pair_scene",
+                                          cuda_device)
+    _, loss1 = mesh.train_step(ts, ids, target, amb, 0.1, **kw)
+    (state,) = renderer._steps.values()
+    graph = state.graph
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, loss2 = mesh.train_step(ts, ids, target, amb, 0.1, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    assert kernels.last_step()["cache_hit"] is True
+    assert renderer._steps[next(iter(renderer._steps))] is state
+    assert state.graph is graph
+    assert kernels.last_step()["host_ms"]["capture"] == 0.0
+    assert torch.cuda.memory_reserved() == reserved
+    assert float(loss2) == float(loss1)
+    assert new.mat_kd.data_ptr() != state.out["mat_kd"].data_ptr()
 
 
 @pytest.mark.cuda

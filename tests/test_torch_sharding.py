@@ -458,8 +458,9 @@ def test_loss_and_grads_sharded_returns(world, inputs):
 
 
 def test_leaf_unreached_on_one_rank(world, inputs):
-    """Rank 1's autograd returns None for mat_kd, rank 0's a tensor: both
-    reduce it (no hang), and the mean is rank 0's gradient / 2."""
+    """Rank 1 takes the step's first form, whose autograd returns None for
+    mat_kd (zeros), rank 0 the device loop's tensor: both reduce it (no
+    hang), and the mean is rank 0's gradient / 2."""
     amb = torch.full((3,), worker.AMB)
     half = len(inputs["ids"]) // 2
     _, grads, _ = tmesh.loss_and_grads_sharded(

@@ -12,8 +12,10 @@ Joins a gloo group on the CPU through ``parallel.init_distributed``, reads
   3), every float leaf trainable, on the batch ``ids``/``target`` and on
   the batch ``dark_ids``/``dark_target``, whose second half reaches no
   geometry;
-* ``loss_and_grads_sharded`` on ``ids`` with ``mat_kd`` out of rank 1's
-  graph, so that its autograd returns None there and a tensor on rank 0.
+* ``loss_and_grads_sharded`` on ``ids`` with rank 1 taking the step's
+  first form (``mesh._loss_and_grads_autograd``) with ``mat_kd`` out of
+  its graph, so that its autograd returns None there (zeros), and rank 0
+  the device loop's tensor.
 
 Every ``torch.distributed`` collective is counted per job. Writes
 ``<dir>/rank<r>.npz``; imports no JAX.
@@ -158,20 +160,29 @@ def main(init_method, world_size, rank, tmp):
             if g is not None:
                 out[f"{job}_grad_{name}"] = g.numpy()
 
-    # rank 1's rays never reach mat_kd: its autograd gives None there
+    # rank 1's rays never reach mat_kd: it takes the first form, whose
+    # autograd gives None there; rank 0 the device loop
     ids = mesh_mod.shard_rays(inp["ids"], mesh)
     target = mesh_mod.shard_rays(inp["target"], mesh)
     render_loss = mesh_mod.render_loss
+    loss_and_grads = mesh_mod._loss_and_grads
 
     def cut_loss(sc, *args, **kwargs):
-        if rank == 1:
-            sc = mesh_mod.combine_scene(
-                [getattr(sc, k).detach() if k == "mat_kd"
-                 else getattr(sc, k) for k in scene_lib.LEAF_NAMES],
-                [None] * len(scene_lib.LEAF_NAMES))
+        sc = mesh_mod.combine_scene(
+            [getattr(sc, k).detach() if k == "mat_kd"
+             else getattr(sc, k) for k in scene_lib.LEAF_NAMES],
+            [None] * len(scene_lib.LEAF_NAMES))
         return render_loss(sc, *args, **kwargs)
 
+    def first_form_on_rank_1(sc, ids, target, amb, kw, trainable):
+        if rank != 1:
+            return loss_and_grads(sc, ids, target, amb, kw, trainable)
+        diff, static = mesh_mod.partition_scene(sc, trainable)
+        return mesh_mod._loss_and_grads_autograd(diff, static, ids, target,
+                                                 amb, kw)
+
     mesh_mod.render_loss = cut_loss
+    mesh_mod._loss_and_grads = first_form_on_rank_1
     try:
         with CountCollectives() as c:
             _, grads, _ = mesh_mod.loss_and_grads_sharded(
@@ -179,6 +190,7 @@ def main(init_method, world_size, rank, tmp):
                 trainable=("mat_kd", "light_ke"), **TRAIN)
     finally:
         mesh_mod.render_loss = render_loss
+        mesh_mod._loss_and_grads = loss_and_grads
     counts["unreached"] = c
     out["unreached_mat_kd"] = grads[scene_lib.LEAF_NAMES.index(
         "mat_kd")].numpy()

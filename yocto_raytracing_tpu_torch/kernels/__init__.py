@@ -20,6 +20,8 @@
                                                    (render/renderer.py)
 * K13 ``records.cu`` K1's and K4's records packed in place
                                                    (ops/records.py)
+* K14 ``bounce.cu`` the reverse of K12, in the training step's device loop
+                                                   (render/renderer.py)
 
 ``hit_simple.cu``, ``shade_simple.cu`` and ``shade_bwd_simple.cu`` are the
 first, simple forms of K1, K4 and K5, on the scene's own arrays: only
@@ -30,8 +32,8 @@ first, simple forms of K1, K4 and K5, on the scene's own arrays: only
 first use.
 """
 
-from ._build import (BuildInfo, build, last_frame, launches, made_launches,
-                     reset_launches, skipped_launches)
+from ._build import (BuildInfo, build, last_frame, last_step, launches,
+                     made_launches, reset_launches, skipped_launches)
 
-__all__ = ["BuildInfo", "build", "last_frame", "launches", "made_launches",
-           "reset_launches", "skipped_launches"]
+__all__ = ["BuildInfo", "build", "last_frame", "last_step", "launches",
+           "made_launches", "reset_launches", "skipped_launches"]

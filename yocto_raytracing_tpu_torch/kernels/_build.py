@@ -9,9 +9,9 @@ and a finished build is reused.
 
 Numerics: ``--fmad=false`` (no a*b+c contraction, like eager torch) and no
 fast-math, so division and sqrt are IEEE-rounded. The kernels are held
-bit-equal (K1, K2, K4, K6, K7, K8, K9, K11, K12: K6 and K9 to their order of
-sums, ``render/camera.py::ordered_camera_sums``) or within a stated
-tolerance (K3, K5, K10) to their plain torch versions. ``hit_simple.cu``,
+bit-equal (K1, K2, K4, K6, K7, K8, K9, K11, K12, K13, K14: K6 and K9 to
+their order of sums, ``render/camera.py::ordered_camera_sums``) or within a
+stated tolerance (K3, K5, K10) to their plain torch versions. ``hit_simple.cu``,
 ``camera_bwd_simple.cu``, ``shade_simple.cu``, ``shade_bwd_simple.cu``,
 ``lights_simple.cu`` and ``overlap_simple.cu`` are the first forms of K1,
 K6 with K9, K4, K5, K8 with K10, and K11, built for the same-card
@@ -20,7 +20,8 @@ comparisons of ``chip_smoke.py`` and the card tests only.
 Each wrapper counts its launches in ``launches``; a run resets the counts
 with ``reset_launches`` and reads them afterwards to show which kernels it
 went through, and ``skipped_launches`` for those of them that belong to the
-device loop's dead bounces, which its CUDA graph does not launch.
+dead bounces of the device loops (the frame's and the training step's),
+which their CUDA graphs do not launch.
 """
 
 from __future__ import annotations
@@ -51,23 +52,27 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 # launches of each kernel since the last reset_launches(); "hit" counts K1's
 # nearest and any-hit launches, "hit_any" its any-hit launches alone; K5
 # with per-ray light positions counts apart from K5 with the fixed ones;
-# "overlap_refit" counts the refit of K11's records; "bounce" counts K12;
-# "records" K13, the device loop's packing of K1's and K4's records.
-# A CUDA graph of the device loop's chunk adds, for each replay, what its
-# capture counted: a launch inside a conditional IF node (a bounce after
-# the first) counts on every replay, whether or not the node runs its
-# body; ``skipped_launches`` gives apart those of dead bounces, which the
-# card does not launch
+# "overlap_refit" counts the refit of K11's records; "bounce" counts K12
+# (both forms); "records" K13, the device loops' packing of K1's and K4's
+# records; "bounce_bwd" K14, the reverse of K12.
+# A CUDA graph of a device loop (the frame's chunk, the training step) adds,
+# for each replay, what its capture counted: a launch inside a conditional
+# IF node (a bounce after the first, or its reverse) counts on every
+# replay, whether or not the node runs its body; ``skipped_launches`` gives
+# apart those of dead bounces, which the card does not launch
 launches = {"hit": 0, "hit_any": 0, "camera_rays": 0, "pixel_finish": 0,
             "shade": 0, "shade_bwd": 0, "shade_bwd_lights": 0, "camera_bwd": 0,
             "camera_rays_stochastic": 0, "camera_bwd_stochastic": 0,
             "light_points": 0, "light_points_bwd": 0, "overlap": 0,
-            "overlap_refit": 0, "bounce": 0, "records": 0}
-# the device loop's dead bounces since the last reset_launches(), tallied on
-# the card (no sync): device -> (2,) i64, the bounces of frames without and
-# with lights; and the record of the last frame (``note_frame``)
+            "overlap_refit": 0, "bounce": 0, "records": 0, "bounce_bwd": 0}
+# the device loops' dead bounces since the last reset_launches(), tallied on
+# the card (no sync): device -> (4,) i64, the bounces of frames without and
+# with lights, then of training steps without and with lights; and the
+# records of the last frame and the last step (``note_frame``,
+# ``note_step``)
 _dead_bounces: dict = {}
 _last_frame: dict = {}
+_last_step: dict = {}
 
 
 def reset_launches() -> None:
@@ -88,14 +93,36 @@ def note_frame(ran: torch.Tensor, lights: bool, host_ms: dict,
     _last_frame.clear()
     _last_frame.update(ran=ran, lights=lights, host_ms=host_ms,
                        cache_hit=cache_hit)
-    if ran.device.type != "cuda" or dead_launched:   # nothing to take out
+    if not dead_launched:
+        _tally(ran, int(lights))
+
+
+def note_step(ran: torch.Tensor, lights: bool, host_ms: dict,
+              cache_hit: bool) -> None:
+    """Record a training step of the device loop
+    (``render/renderer.py::loss_grads_device``): ``ran`` is its
+    (max_depth + 1,) i32 alive words (1 where the bounce, and so its
+    reverse, ran), the rest as in ``note_frame``. On CUDA its dead bounces
+    join the tally."""
+    _last_step.clear()
+    _last_step.update(ran=ran, lights=lights, host_ms=host_ms,
+                      cache_hit=cache_hit)
+    _tally(ran[None], 2 + int(lights))
+
+
+def _tally(ran: torch.Tensor, slot: int) -> None:
+    """Add the dead bounces of ``ran`` (rows of alive words, the last
+    column past the last bounce) to the device tally's ``slot``, on the
+    card (no sync); nothing on the CPU, whose loop makes no launch it
+    skips."""
+    if ran.device.type != "cuda":
         return
     tally = _dead_bounces.get(ran.device)
     if tally is None:
         tally = _dead_bounces[ran.device] = torch.zeros(
-            2, dtype=torch.int64, device=ran.device)
+            4, dtype=torch.int64, device=ran.device)
     bounces = ran[:, :-1]
-    tally[int(lights)].add_(bounces.numel() - bounces.sum())
+    tally[slot].add_(bounces.numel() - bounces.sum())
 
 
 def last_frame() -> dict:
@@ -105,23 +132,35 @@ def last_frame() -> dict:
     return dict(_last_frame)
 
 
+def last_step() -> dict:
+    """The last training step's record (``note_step``): "ran", "lights",
+    "host_ms", "cache_hit". "ran" is the step's own buffer, valid until its
+    next call."""
+    return dict(_last_step)
+
+
 def skipped_launches() -> dict:
     """The launches counted since the last reset_launches() that belong to
-    the device loop's dead bounces, by launch-count key, and the dead
-    bounces ("bounces"). The CUDA graph of ``frame_device`` does not make
+    the device loops' dead bounces, by launch-count key, and the dead
+    bounces ("bounces"; of training steps also apart, "step_bounces"). The
+    CUDA graphs of ``frame_device`` and ``loss_grads_device`` do not make
     these launches: a dead bounce sits in an IF node whose body does not
     run. Reads the tally: a copy to the host, which waits for the frames.
-    A bounce of the device loop
-    (``render/renderer.py::frame_device``) holds K1 nearest, K4 and K12,
-    and K1 any hit where the scene has lights."""
+    A bounce of the device loop (``render/renderer.py``) holds K1 nearest,
+    K4 and K12, and K1 any hit where the scene has lights; a training
+    step's bounce also its reverse, K14 and K5."""
     out = dict.fromkeys(launches, 0)
-    out["bounces"] = 0
+    out["bounces"] = out["step_bounces"] = 0
     for tally in _dead_bounces.values():
-        for lights, dead in enumerate(tally.tolist()):
+        for slot, dead in enumerate(tally.tolist()):
+            lights = slot % 2
             for k in ("bounces", "hit", "shade", "bounce"):
                 out[k] += dead
             out["hit"] += lights * dead
             out["hit_any"] += lights * dead
+            if slot >= 2:
+                for k in ("step_bounces", "bounce_bwd", "shade_bwd"):
+                    out[k] += dead
     return out
 
 
@@ -257,6 +296,11 @@ def library() -> ctypes.CDLL:
     u64 = ctypes.c_ulonglong
     lib.yrt_bounce.restype = i32
     lib.yrt_bounce.argtypes = [vp] * 5 + [i32] + [vp] * 7 + [u64, i32, vp]
+    lib.yrt_bounce_out.restype = i32
+    lib.yrt_bounce_out.argtypes = ([vp] * 5 + [i32] + [vp] * 8
+                                   + [u64, u64, i32, vp])
+    lib.yrt_bounce_bwd.restype = i32
+    lib.yrt_bounce_bwd.argtypes = [vp] * 12 + [i32, vp]
     lib.yrt_records.restype = i32
     lib.yrt_records.argtypes = [vp, vp] + [i32] * 5 + [vp]
     lib.yrt_if_handle.restype = i32

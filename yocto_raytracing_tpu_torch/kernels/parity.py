@@ -669,14 +669,18 @@ def loss_grads(scene, ray_ids, target, amb, *, width, height, samples,
     return loss.detach(), _grads([loss], leaves, None)
 
 
-def compare_loss_grads(scene, ray_ids, target, amb, **kw) -> dict:
+def compare_loss_grads(scene, ray_ids, target, amb, also=None,
+                       **kw) -> dict:
     """The gradient of the render loss three ways: the kernel path (which
     records its hits), the plain path (its own walk), and the f64
     reference, the plain path in f64 on the recorded hits, so that rounding
     is all that separates the three. Returns the three losses ('loss',
     'plain_loss', 'ref_loss'), the kernel path's gradients ('grads') and
     the ``relative_errors`` reports (zeros of whole leaves) of the kernel
-    ('kernel') and the plain path ('plain') against the reference.
+    ('kernel') and the plain path ('plain') against the reference, and of
+    each of ``also`` ({name: {leaf: gradient}}, gradients of the same loss
+    on the same hits, such as the training step's device loop's) under
+    its name.
     Leaves whose gradient is zero up to rounding are left out of the
     reports: ``cam_focus`` unless thin-lens rays (``stochastic`` and a
     non-zero aperture) make it move the rays, and with ``stochastic`` at
@@ -701,4 +705,5 @@ def compare_loss_grads(scene, ray_ids, target, amb, **kw) -> dict:
         ref_loss=float(ref_loss), grads=grads,
         **{what: relative_errors({k: g[k].double() for k in ref}, ref,
                                  per_element=False)
-           for what, g in (("kernel", grads), ("plain", plain))})
+           for what, g in (("kernel", grads), ("plain", plain),
+                           *(also or {}).items())})

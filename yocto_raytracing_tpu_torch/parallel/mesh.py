@@ -15,9 +15,14 @@ on the CPU); a process with no group is a world of one.
 
 The one-device training step (JAX ``mesh.py:219-291``: ``partition_scene``,
 ``combine_scene``, ``render_loss``, ``train_step``) lives here too. Gradients
-flow to every float leaf through the detached-traversal renderer
-(``trace_rays(..., differentiable=True)``); integer topology (BVH nodes,
-prim ids, texture ids) and the packed texels are static. The port always
+flow to every float leaf through the detached-traversal renderer; integer
+topology (BVH nodes, prim ids, texture ids) and the packed texels are
+static. ``train_step`` and the sharded step's per-rank loss and gradients
+run the depth loop and its reverse as a device loop
+(``renderer.loss_grads_device``: on CUDA one CUDA graph kept across calls,
+the all_reduce outside it); ``render_loss`` keeps the eager loop under
+autograd (``trace_rays(..., differentiable=True)``), and
+``_train_step_autograd`` is the step's first form on it. The port always
 saves the hits and recomputes shading in the backward, which is the JAX
 package's ``remat=True``; the TPU-only keywords (``stream``, ``max_stack``,
 ``block_unroll``, ``remat``, ``axis_name``) have no counterpart.
@@ -253,9 +258,21 @@ def render_loss(scene: TorchScene, ray_ids, target_rgb, ambient, *,
     return torch.mean((rgb - target_rgb) ** 2)
 
 
-def _loss_and_grads(diff, static, ray_ids, target_rgb, ambient, kw):
-    """Loss and the gradient of every trainable leaf (zeros where the loss
-    does not reach it; None in the static slots), detached."""
+def _loss_and_grads(scene, ray_ids, target_rgb, ambient, kw, trainable,
+                    lr=None):
+    """``renderer.loss_grads_device``: the loss and the gradient of every
+    trainable leaf (zeros where the loss does not reach it), or with ``lr``
+    its updated value, in a list in LEAF_NAMES order with None in the
+    static slots; the caller's own tensors."""
+    return renderer_mod.loss_grads_device(
+        scene, ray_ids, target_rgb, ambient, kw["width"], kw["height"],
+        kw["samples"], kw["max_depth"], trainable=trainable, lr=lr)
+
+
+def _loss_and_grads_autograd(diff, static, ray_ids, target_rgb, ambient,
+                             kw):
+    """The first form of ``_loss_and_grads``: ``render_loss`` (the eager
+    loop, a host sync a bounce) and torch autograd; the same contract."""
     leaves = [None if d is None else d.detach().requires_grad_(True)
               for d in diff]
     on = [x for x in leaves if x is not None]
@@ -281,10 +298,40 @@ def train_step(scene: TorchScene, ray_ids, target_rgb, ambient, lr, *,
                trainable=None, plain: bool = False):
     """One SGD step on the trainable float leaves: forward render, MSE loss,
     reverse-mode gradients, ``d - lr * g``. Returns (new TorchScene, loss);
-    the input scene is left as it was. A leaf that the loss does not reach
-    (zero gradient) comes back unchanged."""
+    the input scene is left as it was, and the new scene's trained leaves
+    are its own (static leaves are the input's). A leaf that the loss does
+    not reach (zero gradient) comes back unchanged.
+
+    The step runs as ``renderer.loss_grads_device`` with the update in it:
+    on CUDA one CUDA graph kept across calls of a configuration, the depth
+    loop and its reverse on the card with dead bounces skipped both ways;
+    on the CPU the same structure through the plain versions. ``plain``
+    runs the first form (``_train_step_autograd``) through the plain
+    versions of every kernel."""
+    if plain:
+        return _train_step_autograd(
+            scene, ray_ids, target_rgb, ambient, lr, width=width,
+            height=height, samples=samples, max_depth=max_depth,
+            trainable=trainable, plain=True)
+    _, static = partition_scene(scene, trainable)
+    loss, new = _loss_and_grads(
+        scene, ray_ids, target_rgb, ambient,
+        dict(width=width, height=height, samples=samples,
+             max_depth=max_depth), trainable, lr)
+    return combine_scene(new, static), loss
+
+
+def _train_step_autograd(scene: TorchScene, ray_ids, target_rgb, ambient, lr,
+                         *, width: int, height: int, samples: int,
+                         max_depth: int, trainable=None,
+                         plain: bool = False):
+    """``train_step``'s first form, kept to hold the device loop against
+    (only ``chip_smoke.py``, the tests and ablations call it): the eager
+    loop (``render_loss``: ``trace_rays(differentiable=True)``, a host sync
+    a bounce), torch autograd through K5 and K6 (their plain versions on
+    the CPU, or with ``plain``), and the update on the host."""
     diff, static = partition_scene(scene, trainable)
-    loss, grads = _loss_and_grads(
+    loss, grads = _loss_and_grads_autograd(
         diff, static, ray_ids, target_rgb, ambient,
         dict(width=width, height=height, samples=samples,
              max_depth=max_depth, plain=plain))
@@ -308,12 +355,12 @@ def loss_and_grads_sharded(scene: TorchScene, ray_ids, target_rgb, ambient,
     """
     diff, static = partition_scene(scene, trainable)
     loss, grads = _loss_and_grads(
-        diff, static, ray_ids, target_rgb, ambient,
+        scene, ray_ids, target_rgb, ambient,
         dict(width=width, height=height, samples=samples,
-             max_depth=max_depth))
+             max_depth=max_depth), trainable)
     if mesh.group is not None:
-        # autograd may hand back column views of one packed buffer; a
-        # collective reduces a tensor's memory as if it were dense
+        # a collective reduces a tensor's memory as if it were dense (the
+        # gradients are the caller's own, dense tensors)
         grads = [None if g is None else g.contiguous() for g in grads]
         scale = torch.tensor(1.0 / mesh.world_size, dtype=torch.float32,
                              device=loss.device)

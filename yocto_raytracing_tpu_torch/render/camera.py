@@ -163,10 +163,15 @@ def _outputs(out, n, dev):
     return list(out)
 
 
-def camera_rays_bwd(uv, g_ro, g_rd, cam_axes, cam_o, h, w, focus):
+def camera_rays_bwd(uv, g_ro, g_rd, cam_axes, cam_o, h, w, focus,
+                    out=None, partials=None):
     """K6 launch: (15,) f32 = [d_cam_axes (9), d_cam_o (3), d_h, d_w,
     d_focus], summed over the batch in one launch, in the order of
-    ``ordered_camera_sums``. CUDA only."""
+    ``ordered_camera_sums``. With ``out`` and ``partials``
+    (``camera_bwd_buffers``) the sums go into ``out`` (its first 15 slots
+    are returned) and nothing is allocated. CUDA tensors launch K6 (or
+    raise); CPU tensors take its plain version, ``ordered_camera_sums`` of
+    ``camera_bwd_terms_plain``."""
     dev = uv.device
     n = uv.shape[0]
     f32 = torch.float32
@@ -174,10 +179,22 @@ def camera_rays_bwd(uv, g_ro, g_rd, cam_axes, cam_o, h, w, focus):
     check("uv", uv, f32, (n, 2), dev)
     check("g_ro", g_ro, f32, (n, 3), dev)
     check("g_rd", g_rd, f32, (n, 3), dev)
+    if (out is None) != (partials is None):
+        raise ValueError("out and partials go together")
+    if out is not None:
+        check("out", out, f32, (CAM_SLOTS,), dev)
+    if _build.device_kind(uv) == "cpu":
+        sums = ordered_camera_sums(camera_bwd_terms_plain(
+            uv, g_ro, g_rd, cam_axes, cam_o, h, w, focus))
+        if out is None:
+            return sums[:15]
+        return out.copy_(sums)[:15]
     lib = _build.library()
-    partials = torch.empty(lib.yrt_camera_bwd_scratch(n), dtype=f32,
-                           device=dev)
-    out = torch.empty(CAM_SLOTS, dtype=f32, device=dev)
+    if out is None:
+        out, partials = camera_bwd_buffers(n, dev)
+    else:
+        check("partials", partials, f32, (lib.yrt_camera_bwd_scratch(n),),
+              dev)
     ptr = _build.ptr
     err = lib.yrt_camera_bwd(
         ptr(uv), ptr(g_ro), ptr(g_rd), n, ptr(cam_axes), ptr(cam_o), ptr(h),
@@ -188,8 +205,46 @@ def camera_rays_bwd(uv, g_ro, g_rd, cam_axes, cam_o, h, w, focus):
     return out[:15]
 
 
+def camera_bwd_buffers(n: int, dev):
+    """K6's output and scratch for ``n`` rays, made once by a caller that
+    launches it many times: ((CAM_SLOTS,) f32 sums, f32 block partials; on
+    the CPU an empty partials tensor, which the plain version does not
+    read)."""
+    f32 = torch.float32
+    dev = torch.device(dev)
+    size = _build.library().yrt_camera_bwd_scratch(n) if (
+        dev.type == "cuda") else 0
+    return (torch.empty(CAM_SLOTS, dtype=f32, device=dev),
+            torch.empty(size, dtype=f32, device=dev))
+
+
+def camera_frame_bwd(scene: TorchScene, d_h, d_w, d_focus):
+    """The reverse of ``camera_frame`` (h = 2 * focus * tan(fovy / 2),
+    w = h * aspect) as explicit ops, in torch autograd's order: from the
+    cotangents of h and w and focus's own term (K6's d_focus) to
+    (d cam_fovy, d cam_focus, d cam_aspect), 0-dim tensors."""
+    t = torch.tan(scene.cam_fovy / 2.0)
+    a = 2.0 * scene.cam_focus
+    g_h = d_h + d_w * scene.cam_aspect
+    g_aspect = d_w * (a * t)
+    g_focus = d_focus + (g_h * t) * 2.0
+    g_fovy = (g_h * a) * (1.0 + t * t) / 2.0
+    return g_fovy, g_focus, g_aspect
+
+
 # device -> (2,) i32: K6's and K9's counters of finished blocks
 _counters: dict = {}
+
+
+def device_counters(device) -> torch.Tensor:
+    """K6's and K9's counters on ``device`` (``_counter``), made on first
+    use: a caller that captures a launch into a CUDA graph makes them
+    first, so that they are not the graph's memory."""
+    c = _counters.get(device)
+    if c is None:
+        c = _counters[device] = torch.zeros(2, dtype=torch.int32,
+                                            device=device)
+    return c
 
 
 def _counter(device, which: int) -> ctypes.c_void_p:
@@ -197,11 +252,7 @@ def _counter(device, which: int) -> ctypes.c_void_p:
     0, which each launch's last block sets back to 0, allocated once per
     device. Launches of one kernel on one device share it, so they must not
     overlap: the wrappers launch on the current stream."""
-    c = _counters.get(device)
-    if c is None:
-        c = _counters[device] = torch.zeros(2, dtype=torch.int32,
-                                            device=device)
-    return ctypes.c_void_p(c.data_ptr() + 4 * which)
+    return ctypes.c_void_p(device_counters(device).data_ptr() + 4 * which)
 
 
 def camera_bwd_terms_plain(uv, g_ro, g_rd, cam_axes, cam_o, h, w, focus):

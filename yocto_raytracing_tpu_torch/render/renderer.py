@@ -32,6 +32,16 @@ one configuration and replayed over the frame; ``render_image`` takes it
 without ``checkpoint`` (on the CPU through the plain versions, a chunk at a
 time). The frames are the same bits.
 
+The training step's loss and gradients run as a device loop too,
+``loss_grads_device``, the port of the JAX package's differentiable depth
+loop (its ``lax.scan`` with a batch-dead ``lax.cond``) and its transpose:
+one CUDA graph of the whole step, kept across calls of one configuration,
+its forward bounces writing each bounce's state into slots of their own
+(K12 out of place), its reverse bounces K14 (``bounce_update_bwd``) and
+K5, each bounce after the first and its reverse in IF nodes that K12
+sets. ``trace_rays(differentiable=True)`` keeps the eager loop under
+autograd, for the callers that run autograd themselves.
+
 Pixels go in scanline order. Each wrapper runs its plain torch version on
 CPU tensors and its kernel on CUDA tensors; ``trace_rays(plain=True)`` runs
 every stage through its plain version on any device, the reference that the
@@ -159,34 +169,48 @@ def bounce_update_plain(acc, thr, color, kr, p, refl_dir, mask):
     return acc, thr, ro, rd, cont
 
 
-def bounce_update_cuda(acc, thr, ro, rd, tmax, color, kr, p, refl_dir, mask,
-                       alive_in=None, alive_out=None, next_if=None) -> None:
-    """K12 launch, CUDA only: ``bounce_update`` in place. ``next_if``: the
-    handle of the next bounce's IF node in a graph being captured
-    (``yrt_if_handle``), which the launch sets where it sets
-    ``alive_out``; None outside a graph."""
+def _check_bounce(acc, thr_in, thr, ro, rd, tmax, color, kr, p, refl_dir,
+                  mask, alive_in, alive_out, handles) -> None:
+    """Validate a K12 launch's arguments; ``handles``: its IF node handles,
+    set with ``alive_out``."""
     n = acc.shape[0]
     dev = acc.device
     f32 = torch.float32
     check = _build.check_tensor
-    for name, t in (("acc", acc), ("thr", thr), ("ro", ro), ("rd", rd),
-                    ("color", color), ("kr", kr), ("p", p),
-                    ("refl_dir", refl_dir)):
+    for name, t in (("acc", acc), ("thr_in", thr_in), ("thr", thr),
+                    ("ro", ro), ("rd", rd), ("color", color), ("kr", kr),
+                    ("p", p), ("refl_dir", refl_dir)):
         check(name, t, f32, (n, 3), dev)
     check("tmax", tmax, f32, (n,), dev)
     check("mask", mask, torch.bool, (n,), dev)
     for name, t in (("alive_in", alive_in), ("alive_out", alive_out)):
         if t is not None:
             check(name, t, torch.int32, (1,), dev)
-    if next_if is not None and alive_out is None:
-        raise ValueError("next_if: the IF node is set with alive_out")
+    if any(h is not None for h in handles) and alive_out is None:
+        raise ValueError("next_if, rev_if: the IF nodes are set with "
+                         "alive_out")
+
+
+def _words(alive_in, alive_out):
+    ptr = _build.ptr
+    return (None if alive_in is None else ptr(alive_in),
+            None if alive_out is None else ptr(alive_out))
+
+
+def bounce_update_cuda(acc, thr, ro, rd, tmax, color, kr, p, refl_dir, mask,
+                       alive_in=None, alive_out=None, next_if=None) -> None:
+    """K12 launch, CUDA only: ``bounce_update`` in place. ``next_if``: the
+    handle of the next bounce's IF node in a graph being captured
+    (``yrt_if_handle``), which the launch sets where it sets
+    ``alive_out``; None outside a graph."""
+    _check_bounce(acc, thr, thr, ro, rd, tmax, color, kr, p, refl_dir, mask,
+                  alive_in, alive_out, (next_if,))
     ptr = _build.ptr
     err = _build.library().yrt_bounce(
-        ptr(color), ptr(kr), ptr(p), ptr(refl_dir), ptr(mask), n, ptr(acc),
-        ptr(thr), ptr(ro), ptr(rd), ptr(tmax),
-        None if alive_in is None else ptr(alive_in),
-        None if alive_out is None else ptr(alive_out),
-        next_if or 0, int(next_if is not None), _build.current_stream())
+        ptr(color), ptr(kr), ptr(p), ptr(refl_dir), ptr(mask), acc.shape[0],
+        ptr(acc), ptr(thr), ptr(ro), ptr(rd), ptr(tmax),
+        *_words(alive_in, alive_out), next_if or 0, int(next_if is not None),
+        _build.current_stream())
     _build.check_launch(err, "yrt_bounce")
     _build.launches["bounce"] += 1
 
@@ -208,15 +232,127 @@ def bounce_update(acc, thr, ro, rd, tmax, color, kr, p, refl_dir, mask,
         bounce_update_cuda(acc, thr, ro, rd, tmax, color, kr, p, refl_dir,
                            mask, alive_in, alive_out, next_if)
         return
+    _bounce_update_host(acc, thr, thr, ro, rd, tmax, color, kr, p, refl_dir,
+                        mask, alive_in, alive_out)
+
+
+def _bounce_update_host(acc, thr_in, thr, ro, rd, tmax, color, kr, p,
+                        refl_dir, mask, alive_in, alive_out) -> None:
+    """K12's plain version on host tensors, in place or out of place."""
     if alive_in is not None and not bool(alive_in):
         return
-    new = bounce_update_plain(acc, thr, color, kr, p, refl_dir, mask)
+    new = bounce_update_plain(acc, thr_in, color, kr, p, refl_dir, mask)
     cont = new[-1]
     for dst, src in zip((acc, thr, ro, rd), new):
         dst.copy_(src)
     tmax.copy_(torch.where(cont, FLT_MAX, -FLT_MAX))
     if alive_out is not None and bool(cont.any()):
         alive_out.fill_(1)
+
+
+def bounce_update_out_cuda(acc, thr_in, thr, ro, rd, tmax, color, kr, p,
+                           refl_dir, mask, alive_in=None, alive_out=None,
+                           next_if=None, rev_if=None) -> None:
+    """K12's out-of-place launch, CUDA only: ``bounce_update_out``.
+    ``next_if`` and ``rev_if``: the handles of the next bounce's IF nodes
+    in a graph being captured, its forward's and its reverse's, which the
+    launch sets where it sets ``alive_out``; None outside a graph."""
+    _check_bounce(acc, thr_in, thr, ro, rd, tmax, color, kr, p, refl_dir,
+                  mask, alive_in, alive_out, (next_if, rev_if))
+    if thr_in.data_ptr() == thr.data_ptr():
+        raise ValueError("thr_in and thr: the out-of-place form writes "
+                         "another slot")
+    ptr = _build.ptr
+    err = _build.library().yrt_bounce_out(
+        ptr(color), ptr(kr), ptr(p), ptr(refl_dir), ptr(mask), acc.shape[0],
+        ptr(acc), ptr(thr_in), ptr(thr), ptr(ro), ptr(rd), ptr(tmax),
+        *_words(alive_in, alive_out), next_if or 0, rev_if or 0,
+        int(next_if is not None) | 2 * int(rev_if is not None),
+        _build.current_stream())
+    _build.check_launch(err, "yrt_bounce_out")
+    _build.launches["bounce"] += 1
+
+
+def bounce_update_out(acc, thr_in, thr, ro, rd, tmax, color, kr, p,
+                      refl_dir, mask, alive_in=None, alive_out=None,
+                      next_if=None, rev_if=None) -> None:
+    """``bounce_update`` out of place, for the training step's loop, whose
+    reverse reads every bounce's state: the throughput read from bounce
+    k's slot ``thr_in``, the next throughput and ray written into bounce k
+    + 1's ``thr``, ``ro`` and ``rd``; acc and tmax in place. The same bits
+    as the in-place form. ``alive_in``, ``alive_out`` and ``next_if`` as
+    in ``bounce_update``; ``rev_if``, on the card, the handle of the next
+    bounce's reverse's IF node, set with ``next_if``. CPU tensors take the
+    plain version; CUDA tensors launch K12 (or raise)."""
+    if _build.device_kind(acc) == "cuda":
+        bounce_update_out_cuda(acc, thr_in, thr, ro, rd, tmax, color, kr, p,
+                               refl_dir, mask, alive_in, alive_out, next_if,
+                               rev_if)
+        return
+    _bounce_update_host(acc, thr_in, thr, ro, rd, tmax, color, kr, p,
+                        refl_dir, mask, alive_in, alive_out)
+
+
+# --------------------------------------------------------------------------
+# K14: the reverse of a bounce's state update
+# --------------------------------------------------------------------------
+
+
+def bounce_update_bwd_plain(g_acc, g_thr, g_ro, g_rd, thr, color, kr, mask):
+    """The reverse of ``bounce_update_plain`` (K14's plain version): from
+    the cotangents of the next state (``g_acc``, the loss's, the same at
+    every bounce; ``g_thr``, ``g_ro``, ``g_rd`` of the next thr, ro, rd)
+    and the bounce's own thr, color, kr and mask, the cotangents of the
+    bounce's shading (g_color, g_kr, g_p, g_refl) and of its throughput
+    (g_thr). Torch autograd of ``bounce_update_plain`` gives the same
+    values where kr and thr are finite (it multiplies the zero cotangent of
+    a lane that does not go on by kr and thr, so an infinite or NaN one
+    makes NaN where this gives 0)."""
+    cont = (mask & (kr > 0).any(dim=-1))[:, None]
+    g_color = g_acc * thr
+    g_kr = torch.where(cont, g_thr * thr, 0.0)
+    g_p = torch.where(cont, g_ro, 0.0)
+    g_refl = torch.where(cont, g_rd, 0.0)
+    g_thr = g_acc * color + torch.where(cont, g_thr * kr, g_thr)
+    return g_color, g_kr, g_p, g_refl, g_thr
+
+
+def bounce_update_bwd_cuda(g_acc, g_thr, g_ro, g_rd, thr, color, kr, mask,
+                           out) -> None:
+    """K14 launch, CUDA only: ``bounce_update_bwd``."""
+    n = g_acc.shape[0]
+    dev = g_acc.device
+    check = _build.check_tensor
+    for name, t in (("g_acc", g_acc), ("g_thr", g_thr), ("g_ro", g_ro),
+                    ("g_rd", g_rd), ("thr", thr), ("color", color),
+                    ("kr", kr), *zip(("g_color", "g_kr", "g_p", "g_refl"),
+                                     out)):
+        check(name, t, torch.float32, (n, 3), dev)
+    check("mask", mask, torch.bool, (n,), dev)
+    ptr = _build.ptr
+    err = _build.library().yrt_bounce_bwd(
+        ptr(g_acc), ptr(thr), ptr(color), ptr(kr), ptr(mask), ptr(g_ro),
+        ptr(g_rd), ptr(g_thr), *(ptr(t) for t in out), n,
+        _build.current_stream())
+    _build.check_launch(err, "yrt_bounce_bwd")
+    _build.launches["bounce_bwd"] += 1
+
+
+def bounce_update_bwd(g_acc, g_thr, g_ro, g_rd, thr, color, kr, mask,
+                      out) -> None:
+    """``bounce_update_bwd_plain`` into the training step's buffers: the
+    four shading cotangents written into ``out`` ([g_color, g_kr, g_p,
+    g_refl], (N, 3) f32), and ``g_thr``, the next throughput's cotangent,
+    overwritten with the bounce's own. CPU tensors take the plain version;
+    CUDA tensors launch K14 (or raise)."""
+    if _build.device_kind(g_acc) == "cuda":
+        bounce_update_bwd_cuda(g_acc, g_thr, g_ro, g_rd, thr, color, kr,
+                               mask, out)
+        return
+    got = bounce_update_bwd_plain(g_acc, g_thr, g_ro, g_rd, thr, color, kr,
+                                  mask)
+    for dst, src in zip((*out, g_thr), got):
+        dst.copy_(src)
 
 
 # --------------------------------------------------------------------------
@@ -844,6 +980,416 @@ class _FrameState:
                 records=self.hrec, alive=word, out=self.hits_any)
             return res["hit"].reshape(p.shape[:-1])
         return occluder
+
+
+# --------------------------------------------------------------------------
+# the training step's device loop
+# --------------------------------------------------------------------------
+
+# the leaves that the camera reverse (K6 and the frame chain) gives
+CAMERA_LEAVES = ("cam_axes", "cam_o", "cam_fovy", "cam_aspect", "cam_focus")
+
+# the training step's kept state: at most one entry, the last
+# configuration's (``step_key`` -> ``_StepState``), beside the frame's
+_steps: dict = {}
+
+
+def trained_leaves(scene, trainable=None) -> tuple:
+    """The leaves a step trains, in LEAF_NAMES order: the float leaves, as
+    the JAX package's ``partition_scene`` picks them, restricted to the
+    names in ``trainable`` when it is given."""
+    return tuple(k for k in scene_lib.LEAF_NAMES
+                 if getattr(scene, k).is_floating_point()
+                 and (trainable is None or k in trainable))
+
+
+def step_key(scene, n: int, width: int, height: int, samples: int,
+             max_depth: int, has_kd_textures: bool, has_ks_textures: bool,
+             trainable, update: bool) -> tuple:
+    """What a training step's graph and buffers are made for: the device;
+    the batch's ray count; the frame's size and samples; the depth; the
+    texture flags; the trained leaves (``trained_leaves``); whether the
+    update runs in the graph; every leaf's shape and dtype. Not the leaf
+    values, ``lr``, the ray ids, the target or ``ambient``, which
+    ``_StepState.stage`` copies in on every call."""
+    leaves = tuple((tuple(t.shape), t.dtype) for t in (
+        getattr(scene, k) for k in scene_lib.LEAF_NAMES))
+    return (scene.device, n, width, height, samples, max_depth,
+            bool(has_kd_textures), bool(has_ks_textures),
+            trained_leaves(scene, trainable), bool(update), leaves)
+
+
+def loss_grads_device(scene, ids, target, ambient, width: int, height: int,
+                      samples: int, max_depth: int,
+                      has_kd_textures: bool = True,
+                      has_ks_textures: bool = True, trainable=None,
+                      lr=None):
+    """The MSE render loss of ``ids`` (N,) i32 against ``target`` (N, 3)
+    f32 and its gradient in every trained leaf (``trained_leaves``), as a
+    device loop over depth, forward and reverse: the port of the JAX
+    package's differentiable ``trace_rays`` (its ``lax.scan`` of the
+    checkpointed bounce with a batch-dead ``lax.cond``, renderer.py:
+    323-342) and of its transpose under ``jax.value_and_grad``
+    (``mesh.train_step``). Returns (loss, out): ``out`` is a list in
+    LEAF_NAMES order, None for the leaves not trained, else the leaf's
+    gradient (zeros where the loss does not reach it), or with ``lr`` the
+    updated leaf ``d - lr * g``. Every returned tensor is the caller's
+    own: the next call does not change it.
+
+    The step runs the camera rays (K2), ``max_depth`` bounces of K1
+    nearest, K4 prep, K1 any hit, K4 finish and K12 out of place (so every
+    bounce's thr, ro and rd stay), each saving what the JAX package's
+    remat policy saves: the ray, the hit topology and mask, the occlusion,
+    and thr, color and kr for K14; the loss and its cotangent with
+    ``render_loss``'s ops (the loss is the eager step's bits); then the
+    bounces in reverse, each K14 (the glue's adjoint) and K5 (the
+    shading's, recomputing the bounce from what was saved, its leaf
+    gradients added into one f64 sum for all bounces, rounded once); K6
+    and the camera frame's chain where a camera leaf is trained; the
+    update with ``lr``.
+
+    On CUDA the step is one CUDA graph, kept across calls of one
+    configuration (``step_key``). Bounce 0 and its reverse always run; each
+    later bounce and its reverse sit in conditional IF nodes of their own,
+    both set by K12 of the bounce before, so a bounce with no active ray
+    launches nothing either way, and its reverse leaves the cotangents of
+    the state it would have read at the zeros they start from (a dead
+    bounce is the identity, and every bounce after it is dead). Every call
+    first copies the caller's leaves, ``ids``, ``target``, ``ambient`` and
+    ``lr`` into the entry's (``_StepState.stage``) and packs K1's and K4's
+    records from the copies by one launch of K13. A call with a new key (a
+    miss) frees the last entry, makes its own and captures the step; a
+    call with the key of the last one (a hit) replays it: no capture, no
+    allocation but the returned tensors, no host sync. Without IF nodes (a
+    runtime older than CUDA 12.4) the call raises. On the CPU the same
+    forward and reverse run bounce by bounce through the plain versions
+    (K5's by torch autograd of the recomputed shading), a dead bounce
+    skipped on the host, on the same kept entry.
+
+    Each step leaves a record (``kernels.last_step()``: "ran", the alive
+    words; "host_ms" of its set-up, capture and replay; "cache_hit"); on
+    CUDA its dead bounces join the tally of ``kernels.skipped_launches``.
+    One step at a time: the entry is the module's.
+    """
+    t0 = time.perf_counter()
+    n = ids.shape[0]
+    if ids.shape != (n,) or target.shape != (n, 3):
+        raise ValueError(f"ids {tuple(ids.shape)} and target "
+                         f"{tuple(target.shape)}: want (N,) and (N, 3)")
+    key = step_key(scene, n, width, height, samples, max_depth,
+                   has_kd_textures, has_ks_textures, trainable,
+                   lr is not None)
+    state = _steps.get(key)
+    hit = state is not None
+    if not hit:
+        _steps.clear()
+        state = _StepState(scene, n, width, height, samples, max_depth,
+                           has_kd_textures, has_ks_textures, key[8],
+                           lr is not None)
+    capture = 0.0
+    try:
+        with torch.no_grad():
+            state.stage(scene, ids, target, ambient, lr)
+            t_stage = time.perf_counter()
+            if state.cuda:
+                if not hit:
+                    state.capture()
+                    capture = time.perf_counter() - t_stage
+                t_run = time.perf_counter()
+                state.replay()
+            else:
+                t_run = t_stage
+                state.run()
+            run = time.perf_counter() - t_run
+            out = state.results()
+    except BaseException:
+        _steps.clear()   # nothing half made is kept
+        raise
+    _steps[key] = state
+    _build.note_step(state.alive, state.nl > 0, dict(
+        setup=(t_stage - t0) * 1e3, capture=capture * 1e3,
+        replay=run * 1e3), hit)
+    return out
+
+
+class _StepState:
+    """One training-step configuration's inputs, saved state, buffers and
+    graph (``loss_grads_device``).
+
+    The step reads copies of the caller's leaves, ray ids, target,
+    ``ambient`` and ``lr``, and on CUDA K1's and K4's records packed from
+    the copies, all of which ``stage`` brings up to date in place on every
+    call. Every buffer is made here, once (the graph bakes its pointers
+    in): per bounce k the slots of its inputs thr, ro and rd (k = 0 ..
+    max_depth; K2 writes ro and rd of bounce 0, K12 of bounce k those of
+    k + 1), and what the reverse reads: the hit mask, instance and prim,
+    the (L, N) occlusion, color and kr; the loss, the cotangents carried
+    from bounce to bounce (of thr, ro and rd), K14's four outputs, K5's
+    f64 leaf sums and scratch, K6's sums, and the returned leaves.
+    """
+
+    def __init__(self, scene, n, width, height, samples, max_depth,
+                 kd_tex, ks_tex, trained, update):
+        self.dev = dev = scene.device
+        self.cuda = dev.type == "cuda"
+        f32, i32 = torch.float32, torch.int32
+        self.n, self.width, self.height = n, width, height
+        self.samples, self.max_depth = samples, max_depth
+        self.kd_tex, self.ks_tex = kd_tex, ks_tex
+        self.trained, self.update = trained, update
+        self.nl = nl = scene.light_ke.shape[0]
+        self.scene = sc = scene_lib.TorchScene(*(
+            torch.empty_like(getattr(scene, k))
+            for k in scene_lib.LEAF_NAMES))
+        self.ids = torch.empty((n,), dtype=i32, device=dev)
+        self.target = torch.empty((n, 3), dtype=f32, device=dev)
+        self.amb = torch.empty((3,), dtype=f32, device=dev)
+        self.lr = torch.empty((), dtype=f32, device=dev) if self.cuda else 0.0
+        self.tmin = torch.full((n,), RAY_EPS, dtype=f32, device=dev)
+        self.acc = torch.empty((n, 3), dtype=f32, device=dev)
+        self.tmax = torch.empty((n,), dtype=f32, device=dev)
+        self.alive = torch.empty((max_depth + 1,), dtype=i32, device=dev)
+        self.loss = torch.empty((), dtype=f32, device=dev)
+
+        def rows3(count):
+            return [torch.empty((n, 3), dtype=f32, device=dev)
+                    for _ in range(count)]
+
+        self.uv = torch.empty((n, 2), dtype=f32, device=dev)
+        self.thr, self.ro, self.rd = (rows3(max_depth + 1) for _ in range(3))
+        self.color, self.kr = rows3(max_depth), rows3(max_depth)
+        self.mask = [torch.empty((n,), dtype=torch.bool, device=dev)
+                     for _ in range(max_depth)]
+        self.inst, self.prim = ([torch.empty((n,), dtype=i32, device=dev)
+                                 for _ in range(max_depth)]
+                                for _ in range(2))
+        self.occ = [torch.empty((nl, n), dtype=torch.bool, device=dev)
+                    for _ in range(max_depth)]
+        # the cotangents of the next bounce's acc, thr, ro, rd, and K14's
+        self.g_acc, self.g_thr, self.g_ro, self.g_rd = rows3(4)
+        self.g_shade = rows3(4)
+        self.rev = shade_mod.reverse_buffers(sc, n)
+        self.cam_sums, self.cam_partials = camera_mod.camera_bwd_buffers(
+            n, dev)
+        self.camera = any(k in CAMERA_LEAVES for k in trained)
+        self.out = {k: torch.empty_like(getattr(sc, k)) for k in trained}
+        self.zeros = {k: torch.zeros_like(getattr(sc, k)) for k in trained
+                      if k not in shade_mod.GRAD_LEAVES + CAMERA_LEAVES}
+        self.graph = None
+        self.captured = {}   # the graph's launches, by count key
+        if not self.cuda:
+            self.plain_occluder = make_occluder(
+                sc, traverse.intersect_scene_plain)
+            return
+        self.p, self.refl = rows3(2)
+        self.t = torch.empty((n,), dtype=f32, device=dev)
+        self.any_hits = dict(
+            inst=torch.empty((nl * n,), dtype=i32, device=dev),
+            prim=torch.empty((nl * n,), dtype=i32, device=dev),
+            t=torch.empty((nl * n,), dtype=f32, device=dev))
+        # K4's shadow rays; its outputs are each bounce's slots
+        self.fwd = shade_mod.forward_buffers(nl, n, dev)
+        del self.fwd["outs"]
+        camera_mod.device_counters(dev)   # K6's, before any capture
+        self.hrec, self.srec = records_mod.empty(sc)
+        self.pack_records = records_mod.prepare(sc, self.hrec, self.srec)
+        self.args = shade_mod.shade_args(sc, self.amb, self.srec, kd_tex,
+                                         ks_tex)
+
+    def stage(self, scene, ids, target, ambient, lr) -> None:
+        """Bring the step's inputs up to date: the caller's leaves, ids,
+        target and ``ambient`` copied into this state's (one
+        ``_foreach_copy_`` a dtype), ``lr`` written, and on CUDA K1's and
+        K4's records packed from the copies in place by one launch of K13.
+        Nothing here waits for the card or allocates."""
+        pairs = [(getattr(self.scene, k), getattr(scene, k))
+                 for k in scene_lib.LEAF_NAMES]
+        pairs += [(self.ids, ids), (self.target, target)]
+        if torch.is_tensor(ambient):
+            pairs.append((self.amb, ambient))
+        else:
+            self.amb.fill_(ambient)
+        by_dtype = {}
+        for dst, src in pairs:
+            by_dtype.setdefault(dst.dtype, []).append((dst, src.detach()))
+        for group in by_dtype.values():
+            torch._foreach_copy_([d for d, _ in group],
+                                 [s for _, s in group])
+        if self.update:
+            if self.cuda:
+                self.lr.fill_(lr)
+            else:
+                self.lr = lr
+        if self.cuda:
+            self.pack_records()
+
+    def capture(self) -> None:
+        """Capture the step into its graph (``run`` with IF nodes), on a
+        stream of its own; the capture only records. The launch counts it
+        made are kept in ``captured`` and taken back out of
+        ``_build.launches``: every replay adds them, those inside an IF
+        node too, whether or not the node runs its body
+        (``_build.skipped_launches`` tallies those of the bounces it did
+        not run)."""
+        before = dict(_build.launches)
+        self.graph = _capture(self.dev, lambda: self.run(if_nodes=True))
+        self.captured = {k: v - before[k] for k, v in _build.launches.items()}
+        _build.launches.update(before)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, v in self.captured.items():
+            _build.launches[k] += v
+
+    def run(self, if_nodes: bool = False) -> None:
+        """The step: eagerly through the plain versions (the CPU), or into
+        a graph being captured with IF nodes. The forward's IF nodes and
+        the reverse's sit at the graph's top level; K12 of bounce k sets
+        node k + 1 of both where it sets alive[k + 1]."""
+        depth = self.max_depth
+        sc = self.scene
+        h, w = camera_mod.camera_frame(sc)
+        self.camera_rays(h, w)
+        self.acc.zero_()
+        self.thr[0].fill_(1.0)
+        self.tmax.fill_(FLT_MAX)
+        self.alive.zero_()
+        self.alive[:1].fill_(1)
+        fwd = [None] * (depth + 1)
+        rev = [None] * (depth + 1)
+        if if_nodes:
+            body = torch.cuda.Stream(self.dev)
+            fwd[1:depth] = [_if_handle() for _ in range(1, depth)]
+            rev[1:depth] = [_if_handle() for _ in range(1, depth)]
+        for k in range(depth):
+            with (contextlib.nullcontext() if fwd[k] is None
+                  else _if_node(fwd[k], body)):
+                self.forward(k, fwd[k + 1], rev[k + 1])
+        # render_loss's ops, so the loss is the eager step's bits; its
+        # cotangent (1 / M) * 2 (rgb - target), M = 3N, is one rounding
+        diff = self.acc - self.target
+        self.loss.copy_(torch.mean(diff ** 2))
+        torch.mul(diff, 2.0 / diff.numel(), out=self.g_acc)
+        for t in (self.g_thr, self.g_ro, self.g_rd, self.rev["sums"]):
+            t.zero_()
+        for k in reversed(range(depth)):
+            with (contextlib.nullcontext() if rev[k] is None
+                  else _if_node(rev[k], body)):
+                self.reverse(k)
+        self.leaf_grads(h, w)
+
+    def camera_rays(self, h, w) -> None:
+        sc = self.scene
+        if self.cuda:
+            camera_mod.camera_rays_launch(
+                self.ids, sc.cam_axes, sc.cam_o, h, w, sc.cam_focus,
+                self.width, self.height, self.samples,
+                out=(self.uv, self.ro[0], self.rd[0]))
+            return
+        uv, ro, rd = camera_mod.camera_rays_plain(sc, self.ids, self.width,
+                                                  self.height, self.samples)
+        for dst, src in zip((self.uv, self.ro[0], self.rd[0]), (uv, ro, rd)):
+            dst.copy_(src)
+
+    def forward(self, k, next_if, rev_if) -> None:
+        """Bounce ``k``, saving what its reverse reads; K12 writes bounce
+        k + 1's slots, sets its alive word and, in the graph, both its IF
+        nodes (``next_if``, ``rev_if``)."""
+        sc = self.scene
+        ro, rd = self.ro[k], self.rd[k]
+        word, nxt = self.alive[k:k + 1], self.alive[k + 1:k + 2]
+        if self.cuda:
+            hits = traverse.intersect_scene_cuda(
+                sc, ro, rd, self.tmin, self.tmax, records=self.hrec,
+                alive=word, out=dict(hit=self.mask[k], inst=self.inst[k],
+                                     prim=self.prim[k], t=self.t))
+            color, kr, p, refl = shade_mod.shade_bounce_cuda(
+                sc, ro, rd, hits, self.amb, self.occluder(word, k), word,
+                self.kd_tex, self.ks_tex, None, self.srec,
+                dict(self.fwd, outs=[self.color[k], self.kr[k], self.p,
+                                     self.refl]))
+        else:
+            if not bool(word):   # the card's graph skips it whole
+                return
+            hits = traverse.intersect_scene_plain(sc, ro, rd, self.tmin,
+                                                  self.tmax)
+            for name, dst in (("hit", self.mask[k]), ("inst", self.inst[k]),
+                              ("prim", self.prim[k])):
+                dst.copy_(hits[name])
+
+            def occluder(*args):
+                return self.occ[k].copy_(self.plain_occluder(*args))
+
+            color, kr, p, refl, _ = shade_mod.shade_step_plain(
+                sc, ro, rd, hits, self.amb, hits["hit"], occluder,
+                self.kd_tex, self.ks_tex)
+            self.color[k].copy_(color)
+            self.kr[k].copy_(kr)
+        bounce_update_out(self.acc, self.thr[k], self.thr[k + 1],
+                          self.ro[k + 1], self.rd[k + 1], self.tmax, color,
+                          kr, p, refl, self.mask[k], word, nxt, next_if,
+                          rev_if)
+
+    def occluder(self, word, k):
+        # K4 prep writes tmax = -FLT_MAX on the masked lanes' shadow rays
+        # (see _FrameState.occluder); the hit flags land in bounce k's
+        # occlusion slot, the rest in shared scratch
+        out = dict(self.any_hits, hit=self.occ[k].view(-1))
+
+        def occluder(p, d, tmin, tmax, mask):
+            res = traverse.intersect_scene_cuda(
+                self.scene, p.reshape(-1, 3), d.reshape(-1, 3),
+                tmin.reshape(-1), tmax.reshape(-1), any_hit=True,
+                records=self.hrec, alive=word, out=out)
+            return res["hit"].reshape(p.shape[:-1])
+        return occluder
+
+    def reverse(self, k) -> None:
+        """Bounce ``k``'s reverse: K14 from the carried cotangents (of
+        bounce k + 1's thr, ro, rd) to the shading's and to thr's, then K5
+        from the saved bounce to ro's and rd's, its leaf gradients added
+        into the f64 sums."""
+        if not self.cuda and not bool(self.alive[k]):
+            return   # the card's graph skips it whole
+        bounce_update_bwd(self.g_acc, self.g_thr, self.g_ro, self.g_rd,
+                          self.thr[k], self.color[k], self.kr[k],
+                          self.mask[k], self.g_shade)
+        shade_mod.shade_bwd_into(
+            self.scene, self.amb, self.ro[k], self.rd[k], self.inst[k],
+            self.prim[k], self.mask[k], self.occ[k], self.g_shade,
+            self.g_ro, self.g_rd, self.rev,
+            self.args if self.cuda else None, self.kd_tex, self.ks_tex)
+
+    def leaf_grads(self, h, w) -> None:
+        """Every trained leaf's gradient, or with ``update`` its new value
+        ``d - lr * g``, into ``out``: K5's sums rounded to f32 once, the
+        camera's from K6 (bounce 0's d_ro, d_rd) and the frame chain,
+        zeros where the loss does not reach."""
+        sc = self.scene
+        grads = dict(self.zeros)
+        if any(k in shade_mod.GRAD_LEAVES for k in self.trained):
+            grads.update(shade_mod.reverse_grads(self.rev, sc))
+        if self.camera:
+            cam = camera_mod.camera_rays_bwd(
+                self.uv, self.g_ro, self.g_rd, sc.cam_axes, sc.cam_o, h, w,
+                sc.cam_focus, out=self.cam_sums, partials=self.cam_partials)
+            grads.update(zip(("cam_fovy", "cam_focus", "cam_aspect"),
+                             camera_mod.camera_frame_bwd(sc, cam[12],
+                                                         cam[13], cam[14])))
+            grads.update(cam_axes=cam[0:9].view(3, 3), cam_o=cam[9:12])
+        for k in self.trained:
+            if self.update:
+                torch.sub(getattr(sc, k), grads[k] * self.lr, out=self.out[k])
+            else:
+                self.out[k].copy_(grads[k])
+
+    def results(self):
+        """(loss, the out list of ``loss_grads_device``): clones, so that
+        the next call leaves them as they are."""
+        out = [None] * len(scene_lib.LEAF_NAMES)
+        for k in self.trained:
+            out[scene_lib.LEAF_NAMES.index(k)] = self.out[k].clone()
+        return self.loss.clone(), out
 
 
 def _capture(dev, fn) -> torch.cuda.CUDAGraph:

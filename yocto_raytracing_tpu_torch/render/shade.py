@@ -506,6 +506,112 @@ def shade_step_bwd(scene, leaves, amb, ro, rd, inst, prim, mask, occ,
     return d_ro, d_rd, bwd_results(sums, leaves, d_lpr)
 
 
+def shade_args(scene, amb, records, has_kd_textures=True,
+               has_ks_textures=True):
+    """The ``ShadeScene`` struct of K4 and K5 launches on ``scene``'s own
+    leaves and ``records`` (``shade_records.pack`` of them), fixed
+    lights: what a caller that launches many times builds once (its
+    pointers are the tensors' own, so the tensors must stay where they
+    are)."""
+    leaves = {k: getattr(scene, k) for k in GRAD_LEAVES}
+    return _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
+                       records=records)
+
+
+def reverse_buffers(scene, n: int) -> dict:
+    """The buffers of a caller that runs one bounce's reverse after another
+    into one set of leaf gradients (``shade_bwd_into``), made once: the
+    f64 sums of every GRAD_LEAVES leaf (one buffer, "sums", which each
+    bounce adds to and the caller zeroes; "views", each leaf's slice in its
+    shape), and on CUDA their ``ShadeGrads`` struct ("grads") and K5's
+    scratch of light partials for ``n`` rays ("scratch"), which each
+    launch rewrites."""
+    leaves = {k: getattr(scene, k) for k in GRAD_LEAVES}
+    dev = scene.pos.device
+    sums = torch.zeros(sum(t.numel() for t in leaves.values()),
+                       dtype=torch.float64, device=dev)
+    views = _leaf_views(sums, leaves)
+    out = dict(sums=sums, views=views, grads=None, scratch=None)
+    if dev.type == "cuda":
+        out["grads"] = _build.ShadeGrads(
+            **{k: v.data_ptr() for k, v in views.items()},
+            light_pos_ray=None)
+        out["scratch"] = torch.empty(
+            _build.library().yrt_shade_bwd_scratch(
+                n, scene.light_ke.shape[0]),
+            dtype=torch.float64, device=dev)
+    return out
+
+
+def reverse_grads(bufs, scene) -> dict:
+    """The f32 leaf gradients of ``reverse_buffers``' f64 sums, rounded once
+    (one op on the whole buffer), each in its leaf's shape."""
+    return _leaf_views(bufs["sums"].to(torch.float32),
+                       {k: getattr(scene, k) for k in GRAD_LEAVES})
+
+
+def shade_step_bwd_plain(scene, amb, ro, rd, inst, prim, mask, occ,
+                         cotangents, has_kd_textures=True,
+                         has_ks_textures=True):
+    """K5's plain version for a bounce saved by the device loop: the
+    bounce's shading recomputed by ``shade_step_plain`` from its rays, hit
+    topology (``inst``, ``prim``, ``mask`` = active & hit) and (L, N)
+    occlusion, as the JAX package's remat recomputes it, then
+    ``torch.autograd.grad`` of (color, kr, p, refl_dir) with
+    ``cotangents``. Returns (d_ro, d_rd, {GRAD_LEAVES name: gradient}),
+    zeros where the bounce does not reach; fixed lights."""
+    leaves = {k: getattr(scene, k).detach().requires_grad_(True)
+              for k in GRAD_LEAVES}
+    ro = ro.detach().requires_grad_(True)
+    rd = rd.detach().requires_grad_(True)
+    hits = dict(hit=mask, inst=inst, prim=prim)
+    with torch.enable_grad():
+        outs = shade_step_plain(
+            dataclasses.replace(scene, **leaves), ro, rd, hits, amb, mask,
+            lambda *_: occ, has_kd_textures, has_ks_textures)[:4]
+        wrt = [ro, rd, *leaves.values()]
+        got = torch.autograd.grad(outs, wrt, cotangents, allow_unused=True)
+    got = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, got)]
+    return got[0], got[1], dict(zip(GRAD_LEAVES, got[2:]))
+
+
+def shade_bwd_into(scene, amb, ro, rd, inst, prim, mask, occ, cotangents,
+                   d_ro, d_rd, bufs, args=None, has_kd_textures=True,
+                   has_ks_textures=True) -> None:
+    """One bounce's reverse into the caller's buffers: d_ro and d_rd
+    (N, 3) written, the leaf gradients added into ``bufs``
+    (``reverse_buffers``) in f64. CPU tensors take the plain version
+    (``shade_step_bwd_plain``); CUDA tensors launch K5 (or raise) with
+    ``args`` (``shade_args`` of ``scene``, its records and ``amb``), which
+    allocates nothing and waits for nothing: the device loop's reverse
+    runs it inside a CUDA graph."""
+    if _build.device_kind(ro) == "cpu":
+        g_ro, g_rd, grads = shade_step_bwd_plain(
+            scene, amb, ro, rd, inst, prim, mask, occ, cotangents,
+            has_kd_textures, has_ks_textures)
+        d_ro.copy_(g_ro)
+        d_rd.copy_(g_rd)
+        for k, g in grads.items():
+            bufs["views"][k].add_(g)
+        return
+    n = ro.shape[0]
+    dev = ro.device
+    check = _build.check_tensor
+    check_rays(ro, rd, inst, prim, mask)
+    check("occ", occ, torch.bool, (args.num_lights, n), dev)
+    for name, g in zip(("g_color", "g_kr", "g_p", "g_refl", "d_ro", "d_rd"),
+                       (*cotangents, d_ro, d_rd)):
+        check(name, g, torch.float32, (n, 3), dev)
+    ptr = _build.ptr
+    err = _build.library().yrt_shade_bwd(
+        ctypes.byref(args), ctypes.byref(bufs["grads"]), ptr(ro), ptr(rd),
+        ptr(inst), ptr(prim), ptr(mask), ptr(occ), n,
+        *(ptr(g) for g in cotangents), ptr(d_ro), ptr(d_rd),
+        ptr(bufs["scratch"]), _build.current_stream())
+    _build.check_launch(err, "yrt_shade_bwd")
+    _build.launches["shade_bwd"] += 1
+
+
 def shade_bounce_cuda(scene, ro, rd, hits, amb, occluder, alive,
                       has_kd_textures=True, has_ks_textures=True,
                       light_pos=None, records=None, bufs=None):
