@@ -24,9 +24,13 @@ floor; K9's 15 shared sums at aperture 0 bit-equal to K6's), K7
 stochastic camera rays, K8 area-light points, K11 overlap query with
 its refit kernel, K12, the device loop's bounce update (bit-equal; K12
 also writes nothing under a zero alive word, and its out-of-place form
-equals its in-place one), K14, its reverse (bit-equal), and K13, the device loop's
-records (bit-equal to the packers on three scenes, before and after leaves
-edited in place). K8 and K10 are also held
+equals its in-place one), K14, its reverse (bit-equal; on lanes with an
+infinite thr or a NaN kr its NaN at plain's positions, as JAX's transpose
+gives), and K13, the device loop's records (it and its first form,
+``records_simple.cu``, bit-equal to the packers on four scenes, the
+10,004-instance scene among them, before and after leaves edited in
+place; timed in turns on hair and the 10,004-instance scene beside an
+empty launch of its grid). K8 and K10 are also held
 against their first forms (``lights_simple.cu``) and timed in turns with
 them on the area hair frame's lights (a quad and a polyline), the area
 mirror frame's quad and a lamp panel of 2,048 triangles: K8 bit-equal to
@@ -245,11 +249,13 @@ K3_BIG_SPP = 4900        # render_image's spp at --samples 70
 # idle host seconds on each side of a profiled call, their growth from one
 # attempt to the next and their most, and the most sessions tried for one
 # profile (see profile_summary): on some hosts a trace loses device events
-# at pads of 0.05 and 0.4 s in most profiles, and now and then at 3.2 s
+# at pads of 0.05 and 0.4 s in most profiles, and now and then at 3.2 s,
+# or gives a graph's kernels out of their order (a frame miss's trace, in
+# all of five attempts once)
 PROFILE_PAD_S = 0.05
 PROFILE_PAD_GROWTH = 8
 PROFILE_PAD_MAX_S = 3.2
-PROFILE_ATTEMPTS = 5
+PROFILE_ATTEMPTS = 8
 
 
 def log(*args):
@@ -410,7 +416,9 @@ DEVICE_FUNCTIONS = {
     "overlap_simple": ("simple::overlap_kernel",),
     "bounce": ("bounce_kernel",),
     "bounce_bwd": ("bounce_bwd_kernel",),
-    "records": ("records_kernel",)}
+    "records": ("records_kernel",),
+    "records_simple": ("simple::records_kernel",),
+    "records_empty": ("records_empty_kernel",)}
 
 
 def device_us(by_name: dict, kernel: str) -> float:
@@ -1645,6 +1653,31 @@ def phase_bounce_bwd_kernel(device) -> dict:
                                  f"{int((a != b).sum())} values")
         both = torch.isfinite(a) & torch.isfinite(b)
         err = max(err, float((a[both] - b[both]).abs().max()))
+    # lanes with an infinite thr beside the NaN kr: JAX's transpose gives
+    # NaN where a lane that does not go on multiplies its zero cotangent by
+    # them; K14 the same NaN positions, and the finite values bit-equal
+    thr_inf = thr.clone()
+    thr_inf[::16] = float("inf")
+    want_inf = renderer.bounce_update_bwd_plain(g_acc, g_thr, g_ro, g_rd,
+                                                thr_inf, color, kr, mask)
+    out_inf = [torch.zeros_like(acc) for _ in range(4)]
+    carry_inf = g_thr.clone()
+    renderer.bounce_update_bwd_cuda(g_acc, carry_inf, g_ro, g_rd, thr_inf,
+                                    color, kr, mask, out_inf)
+    nan_values = 0
+    for name, a, b in zip(("g_color", "g_kr", "g_p", "g_refl", "g_thr"),
+                          (*out_inf, carry_inf), want_inf):
+        nan = b.isnan()
+        if not torch.equal(a.isnan(), nan) or not torch.equal(
+                a[~nan].view(torch.int32), b[~nan].view(torch.int32)):
+            raise AssertionError(f"K14 {name} with infinite thr: differs "
+                                 f"from plain")
+        nan_values += int(nan.sum())
+    dead = ~(mask & (kr > 0).any(-1))
+    dead_nan = int(want_inf[1][dead].isnan().any(-1).sum())
+    if dead_nan == 0:
+        raise AssertionError("K14: no dead lane with an infinite thr or a "
+                             "NaN kr")
     # K12 out of place against in place
     words = torch.tensor([1, 0, 1, 0], dtype=torch.int32, device=device)
     ins = (color, kr, p, refl, mask)
@@ -1685,7 +1718,10 @@ def phase_bounce_bwd_kernel(device) -> dict:
             g_acc, g_thr, g_ro, g_rd, thr, color, kr, mask), 5),
         library_ms=None, device_us=dev_us, **bound("bounce_bwd", moved, n))
     log(f"K14 bounce_bwd: {n} rays, the four shading cotangents and g_thr "
-        f"bit-equal to plain; K12 out of place bit-equal to in place; "
+        f"bit-equal to plain; with an infinite thr on every 16th ray, "
+        f"{nan_values} NaN values at plain's positions ({dead_nan} dead "
+        f"lanes with a NaN g_kr, as JAX's transpose gives), the rest "
+        f"bit-equal; K12 out of place bit-equal to in place; "
         f"timed call {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms; "
         f"device us per launch (profiler) {dev_us:.2f}; bound "
         f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}, "
@@ -1694,59 +1730,100 @@ def phase_bounce_bwd_kernel(device) -> dict:
 
 
 RECORDS_ROUNDS = 20      # K13 launches per profile
+# the scenes on which K13 is timed in turns with its first form (all four
+# of phase_records_kernel are held bit-equal)
+RECORDS_TIMED = ("hair", "random 10004 instances")
 
 
 def phase_records_kernel(device) -> dict:
-    """K13 against its plain version (``hit_records.pack`` and
-    ``shade_records.pack``) on the hair scene (the main path's), a random
-    8-instance scene and the mirror pair: every record table bit-equal,
-    and again after leaves are edited in place. On the hair scene its timed
-    call, plain time and device time per launch beside its bound (the
-    leaves it reads once, the tables it writes once)."""
+    """K13 and its first form (``records_simple.cu``) against their plain
+    version (``hit_records.pack`` and ``shade_records.pack``) on the hair
+    scene (the main path's), the 10,004-instance scene (the benchmark's
+    instance10000 stand-in), a random 8-instance scene and the mirror
+    pair: every record table bit-equal from either form, and again after
+    leaves are edited in place (node starts whose packed sums wrap). On
+    hair and the 10,004-instance scene: the prepared launches (the device
+    loops' way, ``records.prepare``) of the first and the new form in
+    turns (``kernel_turns``: CUDA events, and device us per launch by
+    kernel name from profiles of RECORDS_ROUNDS launches), an empty launch
+    of the new form's grid and arguments profiled and timed the same way
+    (the floor of any such launch), the unprepared ``pack_into`` (its
+    arguments checked on every call), the packers' time and the bound (the
+    leaves read once, the tables written once). Returns the hair scene's
+    record, the 10,004-instance scene's under "big"."""
     from yocto_raytracing_tpu_torch import testscenes
     from yocto_raytracing_tpu_torch.ops import (hit_records, records,
                                                 shade_records)
 
-    cases = [("hair", testscenes.make_hair_scene(256)),
-             ("random", testscenes.make_random_scene(seed=0)),
-             ("mirror pair", testscenes.make_mirror_pair_scene())]
-    for name, host in cases:
-        scene, _ = scene_on(host, device)
+    cases = [("hair", lambda: testscenes.make_hair_scene(256)),
+             ("random 10004 instances",
+              lambda: testscenes.make_random_scene(n_instances=10004)),
+             ("random", lambda: testscenes.make_random_scene(seed=0)),
+             ("mirror pair", testscenes.make_mirror_pair_scene)]
+    out = {}
+    for name, make in cases:
+        scene, _ = scene_on(make(), device)
         hrec, srec = records.empty(scene)
+        new = records.prepare(scene, hrec, srec)
+        first = records.prepare_first_form(scene, hrec, srec)
         for edit in (False, True):
             if edit:
                 scene.pos.mul_(1.5)
                 scene.mat_kd.add_(0.25)
                 scene.node_skip.add_(3)
-            records.pack_into(scene, hrec, srec)
+                scene.node_start[::3] = 2 ** 29 + 7   # 8 * start wraps
             want = (*hit_records.pack(scene)[:3], *shade_records.pack(scene))
-            for i, (a, b) in enumerate(zip(records.tables(hrec, srec), want)):
-                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-                    raise AssertionError(f"K13 {name} table {i} (edited "
-                                         f"{edit}): differs from plain")
-        if name == "hair":
-            hair = scene, hrec, srec
-    scene, hrec, srec = hair
-    ins = [getattr(scene, k) for k, _, _ in records.LEAVES]
-    moved = nbytes(*ins, *records.tables(hrec, srec))
-    prof = profile_summary(
-        lambda: [records.pack_into(scene, hrec, srec)
-                 for _ in range(RECORDS_ROUNDS)], "K13 records", ("records",))
-    rec = dict(
-        max_abs_err=0.0, ms=cuda_ms(
-            lambda: records.pack_into(scene, hrec, srec), 20),
-        plain_ms=cuda_ms(lambda: (hit_records.pack(scene),
-                                  shade_records.pack(scene)), 5),
-        library_ms=None,
-        device_us=device_us(prof["by_name"], "records") / RECORDS_ROUNDS,
-        **bound("records", moved, 0, ops=0))
-    log(f"K13 records: the hair, random and mirror-pair scenes' six tables "
-        f"bit-equal to plain, before and after leaves edited in place; hair "
-        f"({scene.node_start.shape[0]} nodes, {scene.prim_v.shape[0]} "
-        f"prims): timed call {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
-        f"ms; device us per launch (profiler) {rec['device_us']:.2f}; bound "
-        f"{rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}, {moved} bytes)")
-    return rec
+            for form, fill in (("new", new if edit else lambda: records.
+                                pack_into(scene, hrec, srec)),
+                               ("first form", first)):
+                for t in records.tables(hrec, srec):
+                    t.fill_(float("nan"))
+                fill()
+                for i, (a, b) in enumerate(zip(records.tables(hrec, srec),
+                                               want)):
+                    if not torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32)):
+                        raise AssertionError(
+                            f"K13 ({form}) {name} table {i} (edited "
+                            f"{edit}): differs from plain")
+        if name not in RECORDS_TIMED:
+            continue
+        t = kernel_turns(f"K13 {name}", {"simple": (first, "records_simple"),
+                                         "new": (new, "records")},
+                         20, per_profile=RECORDS_ROUNDS)
+        empty = records.prepare_cuda(scene, hrec, srec, empty=True)
+        prof = profile_summary(lambda: [empty() for _ in range(
+            RECORDS_ROUNDS)], f"K13 {name}: empty launch", ("records_empty",))
+        ins = [getattr(scene, k) for k, _, _ in records.LEAVES]
+        moved = nbytes(*ins, *records.tables(hrec, srec))
+        out[name] = rec = dict(
+            max_abs_err=0.0, ms=t["ms"], simple_ms=t["simple_ms"],
+            turns_ms=t["turns_ms"], device_us=t["device_us"],
+            simple_device_us=t["simple_device_us"],
+            empty_us=launch_us(prof, "records_empty")[0],
+            empty_ms=cuda_ms(empty, 20), blocks=new.blocks,
+            unprepared_ms=cuda_ms(
+                lambda: records.pack_into(scene, hrec, srec), 20),
+            plain_ms=cuda_ms(lambda: (hit_records.pack(scene),
+                                      shade_records.pack(scene)), 5),
+            library_ms=None, moved=moved, **bound("records", moved, 0, ops=0))
+        log(f"K13 records, {name} ({scene.node_start.shape[0]} nodes, "
+            f"{scene.prim_v.shape[0]} prims, {scene.inst_axes.shape[0]} "
+            f"instances; {new.blocks} blocks of 256 threads, a thread a "
+            f"16-byte quad): device us per launch (profiler, in turns) "
+            f"first form / new {rec['simple_device_us']:.2f} / "
+            f"{rec['device_us']:.2f}, an empty launch of the new grid "
+            f"{rec['empty_us']:.2f}; prepared launch timed in turns (first, "
+            f"new, new, first) " + ", ".join(f"{m:.4f}" for m in
+                                             rec["turns_ms"])
+            + f" ms, the empty launch {rec['empty_ms']:.4f} ms; unprepared "
+            f"pack_into {rec['unprepared_ms']:.4f} ms; plain "
+            f"{rec['plain_ms']:.4f} ms; bound {rec['bound_ms'] * 1e3:.3f} us "
+            f"({rec['bound_by']}, {moved} bytes)")
+    log("K13 records: the hair, 10,004-instance, random and mirror-pair "
+        "scenes' six tables bit-equal to plain from the new form and the "
+        "first form, before and after leaves edited in place")
+    return dict(out["hair"], big=out["random 10004 instances"])
 
 
 # the device loop's ways of running a frame, timed in turns (eager loop,
@@ -2748,7 +2825,7 @@ def phase_train(name, scene, w, h, last, device, dev_info, depth=DEPTH,
     device_step()   # the entry of the profiled configuration: a hit
     profs["hit"] = profile_summary(
         device_step, f"warm {label} step (a hit), every float leaf "
-        f"trainable", ("shade_bwd", "camera_bwd", "bounce_bwd"),
+        f"trainable", ("shade_bwd", "camera_bwd", "bounce_bwd", "records"),
         check=lambda ev: step_bounce_launches(ev, kernels.last_step()))
     if not kernels.last_step()["cache_hit"]:
         raise AssertionError(f"{label}: the profiled step missed the cache")
@@ -4164,6 +4241,18 @@ def run_phases(dev_info, device, shade_regs, camera_build, plain_walk,
             f"{p['first']['idle']:.3f}, {p['first']['ops']} device ops; the "
             f"entry {r['entry_mib']:.1f} MiB, reserved +{r['grown_mib']:.1f}"
             f" MiB over {len(STEP_TURNS)} calls; on {dev_info['smi']}")
+    r, big = by_name["records"], rec["records"]["big"]
+    step_us = (device_us(main_train["prof"]["by_name"], "records")
+               / main_train["made"]["records"])
+    log(f"K13 records, device us per launch, first form / new, in turns: "
+        f"hair {r['simple_device_us']:.2f} / {r['device_us']:.2f} (an empty "
+        f"launch of its grid {r['empty_us']:.2f}; bound "
+        f"{r['bound_ms'] * 1e3:.3f}), 10,004 instances "
+        f"{big['simple_device_us']:.2f} / {big['device_us']:.2f} (empty "
+        f"{big['empty_us']:.2f}; bound {big['bound_ms'] * 1e3:.3f}); in the "
+        f"hair frame's profile {r['device_ms'] * 1e3:.2f}, in the hair "
+        f"step's {step_us:.2f}; on {dev_info['smi']}")
+    r["step_device_us"] = step_us
     for r in kernels_rec:
         log(f"{r['name']}: {r['launches']} launches made on its path "
             f"({r['counted']} counted, {r['skipped']} of them in dead "

@@ -27,6 +27,9 @@ Usage from a test:
   ``sum(trace_rays(..., differentiable=True) * weights)`` with respect to
   every float leaf, ``{name: array}``, optionally with the stochastic
   modes;
+* ``loss_grads(leaves, ids, target, amb, width=, height=, samples=,
+  max_depth=)``: ``jax.value_and_grad`` of the JAX ``mesh.render_loss``,
+  ``{name: gradient}`` per float leaf plus ``"loss"``;
 * ``train_step(leaves, ids, target, amb, lr, width=, ..., trainable=)``: the
   JAX ``mesh.train_step``: ``{name: new leaf}`` plus ``"loss"``;
 * ``radiance(leaves, ids, amb, width=, ..., stochastic=, seed=,
@@ -105,6 +108,17 @@ def grads(leaves: dict, ids, weights, amb, *, width: int, height: int,
                 dict(width=width, height=height, samples=samples,
                      max_depth=max_depth, stochastic=stochastic, seed=seed),
                 timeout)
+
+
+def loss_grads(leaves: dict, ids, target, amb, *, width: int, height: int,
+               samples: int, max_depth: int, timeout: float = 600.0) -> dict:
+    """``jax.value_and_grad`` of the JAX ``mesh.render_loss`` (the MSE of
+    the differentiable radiance against ``target``), jitted, per float
+    leaf; the loss under ``"loss"``."""
+    return _run("loss_grads", dict(_scene_arrays(leaves), ids=ids,
+                                   target=target, amb=amb),
+                dict(width=width, height=height, samples=samples,
+                     max_depth=max_depth), timeout)
 
 
 def train_step(leaves: dict, ids, target, amb, lr: float, *, width: int,
@@ -202,6 +216,20 @@ def _main(job: str, spec: str, tmp: str) -> None:
             g = jax.grad(f)(diff)
             out = {k: np.asarray(v) for k, v in zip(names, g)
                    if v is not None}
+        elif job == "loss_grads":
+            diff, static, treedef = mesh.partition_scene(dev)
+            target = jnp.asarray(inp["target"])
+
+            @jax.jit
+            def f(d):
+                return mesh.render_loss(
+                    mesh.combine_scene(d, static, treedef), ids, target, amb,
+                    **kw)
+
+            loss, g = jax.value_and_grad(f)(diff)
+            out = {k: np.asarray(v) for k, v in zip(names, g)
+                   if v is not None}
+            out["loss"] = np.asarray(loss)
         else:
             tr = cfg["trainable"]
             new, loss = mesh.train_step(

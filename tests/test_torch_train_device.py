@@ -19,7 +19,9 @@ versions, against the JAX package, its first form and itself.
 * K12's out-of-place form equals the in-place one; K14's plain version
   (``bounce_update_bwd_plain``) equals torch autograd of
   ``bounce_update_plain`` on random states with dead lanes, kr of 0 and
-  -0.0 and masked lanes, and its wrapper writes the same in place.
+  -0.0 and masked lanes, and its wrapper writes the same in place; on
+  lanes with an infinite thr or a NaN kr both have the NaN positions and
+  the finite values of ``jax.vjp`` of the JAX body's update.
 
 About 20 s alone, most of it the JAX child:
 
@@ -32,6 +34,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
 import jax_nofma
 from bounce_states import random_bounce
 from yocto_raytracing_tpu_torch import kernels
@@ -322,19 +326,113 @@ def test_bounce_update_bwd_plain_is_autograd(seed):
         assert torch.equal(got.view(torch.int32), w.view(torch.int32))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bounce_update_bwd_finite_lanes_keep_their_values(seed):
+    """On finite states, selecting the cotangent before the products (as
+    JAX's transpose does) gives the values of selecting after them: only
+    the sign of a zero may differ, so a step's gradients keep their
+    values."""
+    acc, thr, color, kr, mask, cots = _finite_bounce(seed)
+    g_acc, g_thr, g_ro, g_rd = (torch.from_numpy(c) for c in cots)
+    thr_t, color_t, kr_t = (torch.from_numpy(x) for x in (thr, color, kr))
+    mask_t = torch.from_numpy(mask)
+    got = tren.bounce_update_bwd_plain(g_acc, g_thr, g_ro, g_rd, thr_t,
+                                       color_t, kr_t, mask_t)
+    cont = (mask_t & (kr_t > 0).any(dim=-1))[:, None]
+    after = (g_acc * thr_t, torch.where(cont, g_thr * thr_t, 0.0),
+             torch.where(cont, g_ro, 0.0), torch.where(cont, g_rd, 0.0),
+             g_acc * color_t + torch.where(cont, g_thr * kr_t, g_thr))
+    for name, a, b in zip(("color", "kr", "p", "refl_dir", "thr"), got,
+                          after):
+        assert torch.equal(a, b), name   # -0.0 == 0.0
+
+
+def _jax_update_vjp(acc, thr, color, kr, p, refl, mask, cots):
+    """``jax.vjp`` of the JAX depth loop body's state update: a
+    transcription of JAX ``render/renderer.py:297-304`` (acc, cont, thr,
+    the next ray), since the body is a closure inside ``trace_rays`` that
+    no state reaches, run op by op (``jax.disable_jit``). Returns the
+    cotangents of thr, color, kr, p and refl_dir for the cotangents
+    ``cots`` of the next acc, thr, ro and rd."""
+    m = jnp.asarray(mask)
+
+    def update(thr, color, kr, p, refl_dir):
+        acc2 = jnp.asarray(acc) + thr * color
+        cont = m & jnp.any(kr > 0, axis=-1)
+        thr2 = jnp.where(cont[:, None], thr * kr, thr)
+        p2 = jnp.where(cont[:, None], p, 0.0)
+        rd2 = jnp.where(cont[:, None], refl_dir, 1.0)
+        return acc2, thr2, p2, rd2
+
+    with jax.disable_jit():
+        _, vjp = jax.vjp(update, *(jnp.asarray(x)
+                                   for x in (thr, color, kr, p, refl)))
+        return [np.asarray(g) for g in vjp(tuple(jnp.asarray(c)
+                                                 for c in cots))]
+
+
+def _port_update_grads(acc, thr, color, kr, p, refl, mask, cots):
+    """The same cotangents from the port: ``bounce_update_bwd_plain`` and
+    torch autograd of ``bounce_update_plain``, each in JAX's order."""
+    g_acc, g_thr, g_ro, g_rd = (torch.from_numpy(c) for c in cots)
+    mask_t = torch.from_numpy(mask)
+    g_color, g_kr, g_p, g_refl, g_thr_k = tren.bounce_update_bwd_plain(
+        g_acc, g_thr, g_ro, g_rd, *(torch.from_numpy(x)
+                                    for x in (thr, color, kr)), mask_t)
+    leaves = [torch.from_numpy(x).requires_grad_(True)
+              for x in (thr, color, kr, p, refl)]
+    out = tren.bounce_update_plain(torch.from_numpy(acc), *leaves, mask_t)
+    auto = torch.autograd.grad(out[:4], leaves, (g_acc, g_thr, g_ro, g_rd))
+    return ([t.numpy() for t in (g_thr_k, g_color, g_kr, g_p, g_refl)],
+            [t.numpy() for t in auto])
+
+
+def _same_values(got, want, name):
+    """NaN where ``want`` is NaN, and equal finite and infinite values
+    elsewhere (-0.0 == 0.0)."""
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan), name
+    assert np.array_equal(got[~nan], want[~nan]), name
+
+
+NAMES = ("thr", "color", "kr", "p", "refl_dir")
+
+
 def test_bounce_update_bwd_where_autograd_makes_nan():
-    """On a lane that does not go on, autograd's zero cotangent times an
-    infinite thr or a NaN kr is NaN; K14's plain version gives 0 there
-    (the loss does not read the value)."""
-    thr = torch.tensor([[np.inf, 1.0, 1.0]])
-    kr = torch.tensor([[np.nan, 0.0, 0.0]])
-    ones = torch.ones((1, 3))
-    mask = torch.tensor([True])
-    g = tren.bounce_update_bwd_plain(ones, ones, ones, ones, thr, ones, kr,
-                                     mask)
-    leaves = [t.clone().requires_grad_(True) for t in (thr, kr)]
-    out = tren.bounce_update_plain(ones, leaves[0], ones, leaves[1], ones,
-                                   ones, mask)
-    want = torch.autograd.grad(out[1], leaves, ones)
-    assert torch.isnan(want[0][0, 0]) and torch.isnan(want[1][0, 0])
-    assert float(g[1][0, 0]) == 0.0 and float(g[4][0, 0]) == 2.0
+    """On a lane that does not go on, JAX's transpose multiplies the
+    selected zero cotangent by thr and by kr, so an infinite thr or a NaN
+    kr makes NaN there: the lane of thr [inf, 1, 1], kr [nan, 0, 0], mask
+    true and unit cotangents gets g_thr [nan, 2, 2] and g_kr [nan, 0, 0]
+    from ``jax.vjp``. K14's plain version and torch autograd of
+    ``bounce_update_plain`` give the same."""
+    ones = np.ones((1, 3), np.float32)
+    thr = np.array([[np.inf, 1.0, 1.0]], np.float32)
+    kr = np.array([[np.nan, 0.0, 0.0]], np.float32)
+    state = (ones, thr, ones, kr, ones, ones, np.array([True]))
+    cots = [ones] * 4
+    want = _jax_update_vjp(*state, cots)
+    assert np.isnan(want[0][0, 0]) and list(want[0][0, 1:]) == [2.0, 2.0]
+    assert np.isnan(want[2][0, 0]) and list(want[2][0, 1:]) == [0.0, 0.0]
+    plain, auto = _port_update_grads(*state, cots)
+    for name, a, b, w in zip(NAMES, plain, auto, want):
+        _same_values(a, w, "plain " + name)
+        _same_values(b, w, "autograd " + name)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bounce_update_bwd_nonfinite_is_jax(seed):
+    """On random states with infinite throughputs, NaN kr and NaN colors
+    (``random_bounce``) and normal cotangents: K14's plain version and
+    torch autograd of ``bounce_update_plain`` have JAX's NaN positions and
+    its finite values, and the dead lanes do make NaN."""
+    state = random_bounce(seed, 2048)
+    acc, thr, color, kr, p, refl, mask = state
+    rng = np.random.default_rng(seed + 200)
+    cots = [rng.normal(size=acc.shape).astype(np.float32) for _ in range(4)]
+    want = _jax_update_vjp(*state, cots)
+    cont = mask & (kr > 0).any(-1)
+    assert np.isnan(want[2][~cont]).any() and np.isinf(thr[~cont]).any()
+    plain, auto = _port_update_grads(*state, cots)
+    for name, a, b, w in zip(NAMES, plain, auto, want):
+        _same_values(a, w, "plain " + name)
+        _same_values(b, w, "autograd " + name)

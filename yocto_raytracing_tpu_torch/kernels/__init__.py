@@ -18,15 +18,17 @@
                                                    (ops/overlap.py)
 * K12 ``bounce.cu`` the depth loop's state update and alive word
                                                    (render/renderer.py)
-* K13 ``records.cu`` K1's and K4's records packed in place
-                                                   (ops/records.py)
+* K13 ``records.cu`` K1's and K4's records packed in place, a thread
+                     a 16-byte quad                (ops/records.py)
 * K14 ``bounce.cu`` the reverse of K12, in the training step's device loop
                                                    (render/renderer.py)
 
 ``hit_simple.cu``, ``shade_simple.cu`` and ``shade_bwd_simple.cu`` are the
-first, simple forms of K1, K4 and K5, on the scene's own arrays: only
-``chip_smoke.py`` and the card tests launch them (K4's and K5's through
-``parity.py``), to hold and time old and new in turns on one card.
+first, simple forms of K1, K4 and K5, on the scene's own arrays, and
+``records_simple.cu`` K13's (a thread a row): only ``chip_smoke.py`` and
+the card tests launch them (K4's and K5's through ``parity.py``, K13's
+through ``ops/records.py::prepare_first_form``), to hold and time old and
+new in turns on one card.
 ``host/yrt_native.cpp`` is the host-side OBJ parser and BVH builder (g++,
 ``native.py``). Nothing is compiled at import: ``build()`` runs nvcc on
 first use.

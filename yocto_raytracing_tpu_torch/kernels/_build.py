@@ -13,9 +13,10 @@ bit-equal (K1, K2, K4, K6, K7, K8, K9, K11, K12, K13, K14: K6 and K9 to
 their order of sums, ``render/camera.py::ordered_camera_sums``) or within a
 stated tolerance (K3, K5, K10) to their plain torch versions. ``hit_simple.cu``,
 ``camera_bwd_simple.cu``, ``shade_simple.cu``, ``shade_bwd_simple.cu``,
-``lights_simple.cu`` and ``overlap_simple.cu`` are the first forms of K1,
-K6 with K9, K4, K5, K8 with K10, and K11, built for the same-card
-comparisons of ``chip_smoke.py`` and the card tests only.
+``lights_simple.cu``, ``overlap_simple.cu`` and ``records_simple.cu`` are
+the first forms of K1, K6 with K9, K4, K5, K8 with K10, K11 and K13, built
+for the same-card comparisons of ``chip_smoke.py`` and the card tests
+only.
 
 Each wrapper counts its launches in ``launches``; a run resets the counts
 with ``reset_launches`` and reads them afterwards to show which kernels it
@@ -43,7 +44,7 @@ SOURCES = ("hit.cu", "hit_simple.cu", "camera.cu", "camera_bwd_simple.cu",
            "pixel.cu", "shade.cu", "shade_simple.cu", "shade_bwd.cu",
            "shade_bwd_simple.cu", "stochastic.cu", "lights.cu",
            "lights_simple.cu", "overlap.cu", "overlap_simple.cu", "bounce.cu",
-           "records.cu")
+           "records.cu", "records_simple.cu")
 HEADERS = ("common.cuh", "shade.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
@@ -301,8 +302,12 @@ def library() -> ctypes.CDLL:
                                    + [u64, u64, i32, vp])
     lib.yrt_bounce_bwd.restype = i32
     lib.yrt_bounce_bwd.argtypes = [vp] * 12 + [i32, vp]
-    lib.yrt_records.restype = i32
-    lib.yrt_records.argtypes = [vp, vp] + [i32] * 5 + [vp]
+    for name in ("yrt_records", "yrt_records_empty"):
+        fn = getattr(lib, name)
+        fn.restype = i32
+        fn.argtypes = [vp] * 5
+    lib.yrt_records_simple.restype = i32
+    lib.yrt_records_simple.argtypes = [vp, vp] + [i32] * 5 + [vp]
     lib.yrt_if_handle.restype = i32
     lib.yrt_if_handle.argtypes = [vp, ctypes.POINTER(u64)]
     lib.yrt_if_begin.restype = i32

@@ -58,18 +58,18 @@
 // K14 (yrt_bounce_bwd) is the adjoint of the same glue, for the reverse of
 // the training step's loop: from the cotangents of bounce k + 1's state
 // (g_acc, the loss's, is the same at every bounce; g_thr', g_ro', g_rd')
-// and bounce k's saved thr, color, kr and mask, one thread a ray writes
+// and bounce k's saved thr, color, kr and mask, one thread a ray writes,
+// with g_sel = cont ? g_thr' : 0 (the transpose of the select, taken
+// before the products, as JAX's transpose of thr' takes it):
 //   g_color = g_acc * thr
-//   g_kr    = cont ? g_thr' * thr : 0
+//   g_kr    = g_sel * thr
 //   g_p     = cont ? g_ro' : 0,   g_refl = cont ? g_rd' : 0
-//   g_thr   = g_acc * color + (cont ? g_thr' * kr : g_thr')   (in place)
+//   g_thr   = g_acc * color + (g_sel * kr + (cont ? 0 : g_thr'))  (in place)
 // which K5 (shade_bwd.cu) takes as the cotangents of the bounce's shading.
-// Torch autograd of bounce_update_plain gives the same values wherever kr
-// and thr are finite (it multiplies the dead branch's zero cotangent by kr
-// and thr, so a lane that does not go on with an infinite or NaN kr or thr
-// gets NaN there; K14 gives 0, the cotangent of a value the loss does not
-// read). It launches only in a live bounce (an IF node), so it reads no
-// alive word.
+// A lane that does not go on with an infinite thr or a NaN kr gets 0 * inf
+// or 0 * NaN, NaN, where jax.vjp of the body's update and torch autograd
+// of bounce_update_plain give NaN. It launches only in a live bounce (an
+// IF node), so it reads no alive word.
 //
 // What bounds them on an H100: bytes. K12 reads color, kr, p, refl_dir,
 // acc and thr (72 bytes) and mask (1) a ray, and writes acc, thr, ro and
@@ -188,20 +188,14 @@ __global__ void __launch_bounds__(kBounceThreads)
                      io.g_thr[3 * i + 2]);
   const bool cont =
       io.mask[i] != 0 && (kr.x > 0.0f || kr.y > 0.0f || kr.z > 0.0f);
+  const V3 zero = make(0.0f, 0.0f, 0.0f);
+  const V3 gsel = cont ? gt : zero;
   store3(io.g_color, i, vmul(ga, thr));
-  const V3 gac = vmul(ga, color);
-  if (cont) {
-    store3(io.g_kr, i, vmul(gt, thr));
-    store3(io.g_p, i, load3(io.g_ro, i));
-    store3(io.g_refl, i, load3(io.g_rd, i));
-    store3(io.g_thr, i, add(gac, vmul(gt, kr)));
-  } else {
-    const V3 zero = make(0.0f, 0.0f, 0.0f);
-    store3(io.g_kr, i, zero);
-    store3(io.g_p, i, zero);
-    store3(io.g_refl, i, zero);
-    store3(io.g_thr, i, add(gac, gt));
-  }
+  store3(io.g_kr, i, vmul(gsel, thr));
+  store3(io.g_p, i, cont ? load3(io.g_ro, i) : zero);
+  store3(io.g_refl, i, cont ? load3(io.g_rd, i) : zero);
+  store3(io.g_thr, i,
+         add(vmul(ga, color), add(vmul(gsel, kr), cont ? zero : gt)));
 }
 
 #ifdef YRT_IF_NODES

@@ -1,14 +1,15 @@
 // K13: K1's and K4's records, packed from the scene's leaves in one launch.
 //
-// The device loop (render/renderer.py::frame_device) keeps its records
-// across calls and brings them up to date from its copies of the leaves on
-// every call; the plain version is the two packers' torch ops,
-// ops/hit_records.py::pack and ops/shade_records.py::pack (about 35 ops),
-// which ops/records.py::pack_into runs on the CPU. The JAX package reads
-// its leaves directly (render/renderer.py::trace_rays), so this kernel
-// replaces no JAX function of its own: it is part of B5's port.
+// The device loops (render/renderer.py::frame_device, loss_grads_device)
+// keep their records across calls and bring them up to date from their
+// copies of the leaves on every call; the plain version is the two
+// packers' torch ops, ops/hit_records.py::pack and ops/shade_records.py::
+// pack (about 35 ops), which ops/records.py::pack_into runs on the CPU.
+// The JAX package reads its leaves directly (render/renderer.py::
+// trace_rays), so this kernel replaces no JAX function of its own: it is
+// part of B5's port.
 //
-// Six tables, a thread a row, the rows of the tables one after another:
+// Six tables, each row a whole number of 16-byte quads:
 //   hit nodes  (M, 8):  bbox_min, bbox_max, min(count, 7) + 8 * start,
 //                       kind + 2 * isleaf + 4 * skip
 //   hit prims  (K - I, 12), slot s = I + j, prim = leaf_items[s]:
@@ -25,10 +26,28 @@
 // 32-bit two's complement, as torch's int32 adds wrap), so the records are
 // bit-equal to the packers'.
 //
-// What bounds it on an H100: bytes, a few hundred KB for the port's scenes,
-// so the launch itself (a few us) is its time. The design: one launch in
-// place of the packers' ~35 ops, so the device loop's call stages its
-// records with one launch and no graph of its own.
+// What bounds it on an H100: bytes, a few hundred KB to a few MB (the
+// 10,004-instance scene's 2.5 MB is 0.75 us at the memory rate), so a
+// launch's own floor and the latency of its dependent loads are its time.
+// The first form (records_simple.cu: a thread a row, words copied one by
+// one through pointers that may alias, so each load waited for the store
+// before it, 4-28 round trips a row; a warp could straddle two tables)
+// took 7.63 us on the hair scene. The design:
+//   * a thread per 16-byte quad of an output row, quad q of a table at
+//     row q / Q, quad q % Q (Q = 2, 3, 4, 7, 4, 3 quads a row): 4x the
+//     threads in flight of a thread a row, and a warp's stores one
+//     contiguous 512-byte run;
+//   * every load first (at most 7 words beside the index chain, through
+//     read-only loads), then one int4 store: a thread waits for its
+//     loads once, or for each link of its chain of indices (leaf_items
+//     -> prim_v -> pos for a hit prim, prim_v -> pos for a shade prim);
+//   * one table a block: ops/records.py::block_plan gives each table its
+//     first block on the host, once a configuration, so no warp takes two
+//     tables' paths and an empty table takes no block;
+//   * ops/records.py::prepare refuses a table that is not contiguous and
+//     16-byte aligned.
+// records_empty_kernel takes the same grid and arguments and does
+// nothing: chip_smoke.py times it as the floor of such a launch.
 #include <cstdint>
 
 #include "common.cuh"
@@ -36,43 +55,49 @@
 namespace yrt {
 
 constexpr int kRecordThreads = 256;
+constexpr int kRecordTables = 6;
 constexpr int kCountSat = 7;  // ops/hit_records.py::COUNT_SAT
 
 struct RecordLeaves {
-  const int32_t* node_bbox_min;  // (M, 3) f32 bits
-  const int32_t* node_bbox_max;  // (M, 3)
-  const int32_t* node_count;     // (M,)
-  const int32_t* node_start;
-  const int32_t* node_kind;
-  const int32_t* node_isleaf;
-  const int32_t* node_skip;
-  const int32_t* leaf_items;     // (K,)
-  const int32_t* prim_v;         // (P, 3)
-  const int32_t* prim_type;      // (P,)
-  const int32_t* pos;            // (V, 3) f32 bits
-  const int32_t* radius;         // (V,)
-  const int32_t* norm;           // (V, 3)
-  const int32_t* texcoord;       // (V, 2)
-  const int32_t* inst_axes;      // (I, 9)
-  const int32_t* inst_o;         // (I, 3)
-  const int32_t* inst_shape_root;
-  const int32_t* inst_mat;
-  const int32_t* inst_is_lines;
-  const int32_t* mat_kd;         // (Mt, 3)
-  const int32_t* mat_ks;
-  const int32_t* mat_kr;
-  const int32_t* mat_rs;         // (Mt,)
-  const int32_t* mat_kd_txt;
-  const int32_t* mat_ks_txt;
+  const int32_t* __restrict__ node_bbox_min;  // (M, 3) f32 bits
+  const int32_t* __restrict__ node_bbox_max;  // (M, 3)
+  const int32_t* __restrict__ node_count;     // (M,)
+  const int32_t* __restrict__ node_start;
+  const int32_t* __restrict__ node_kind;
+  const int32_t* __restrict__ node_isleaf;
+  const int32_t* __restrict__ node_skip;
+  const int32_t* __restrict__ leaf_items;     // (K,)
+  const int32_t* __restrict__ prim_v;         // (P, 3)
+  const int32_t* __restrict__ prim_type;      // (P,)
+  const int32_t* __restrict__ pos;            // (V, 3) f32 bits
+  const int32_t* __restrict__ radius;         // (V,)
+  const int32_t* __restrict__ norm;           // (V, 3)
+  const int32_t* __restrict__ texcoord;       // (V, 2)
+  const int32_t* __restrict__ inst_axes;      // (I, 9)
+  const int32_t* __restrict__ inst_o;         // (I, 3)
+  const int32_t* __restrict__ inst_shape_root;
+  const int32_t* __restrict__ inst_mat;
+  const int32_t* __restrict__ inst_is_lines;
+  const int32_t* __restrict__ mat_kd;         // (Mt, 3)
+  const int32_t* __restrict__ mat_ks;
+  const int32_t* __restrict__ mat_kr;
+  const int32_t* __restrict__ mat_rs;         // (Mt,)
+  const int32_t* __restrict__ mat_kd_txt;
+  const int32_t* __restrict__ mat_ks_txt;
 };
 
+// hit nodes, hit prims, hit insts, shade prims, shade insts, shade mats:
+// each 16-byte aligned, rows of 2, 3, 4, 7, 4, 3 quads
 struct RecordTables {
-  int32_t* hit_nodes;     // (M, 8)
-  int32_t* hit_prims;     // (K - I, 12)
-  int32_t* hit_insts;     // (I, 16)
-  int32_t* shade_prims;   // (P, 28)
-  int32_t* shade_insts;   // (I, 16)
-  int32_t* shade_mats;    // (Mt, 12)
+  int4* table[kRecordTables];
+};
+
+// ops/records.py::block_plan: the rows of each table, and the first block
+// of each (start[t] <= blockIdx.x < start[t + 1] serves table t; start[6]
+// is the grid)
+struct RecordPlan {
+  int rows[kRecordTables];
+  int start[kRecordTables + 1];
 };
 
 // a + k * b in int32 as torch.add(a, b, alpha=k) gives it: wrapping
@@ -82,110 +107,165 @@ __device__ __forceinline__ int32_t add_wrap(int32_t a, int32_t b, int k) {
                                   static_cast<uint32_t>(b));
 }
 
-__device__ __forceinline__ void copy_words(int32_t* dst, const int32_t* src,
-                                           int n) {
-  for (int w = 0; w < n; ++w) dst[w] = src[w];
+__device__ __forceinline__ int32_t ld(const int32_t* __restrict__ p,
+                                      long long i) {
+  return __ldg(p + i);
+}
+
+// quad c < 3 of an instance frame's 12 words: axes (9), o (3)
+__device__ __forceinline__ int4 frame_quad(const RecordLeaves& in, int item,
+                                           int c) {
+  const long long a = 9LL * item + 4 * c, o = 3LL * item;
+  if (c < 2)
+    return make_int4(ld(in.inst_axes, a), ld(in.inst_axes, a + 1),
+                     ld(in.inst_axes, a + 2), ld(in.inst_axes, a + 3));
+  return make_int4(ld(in.inst_axes, a), ld(in.inst_o, o), ld(in.inst_o, o + 1),
+                   ld(in.inst_o, o + 2));
+}
+
+// table 0, hit nodes: 2 quads a row
+__device__ __forceinline__ int4 hit_node_quad(const RecordLeaves& in, int q) {
+  const int i = q >> 1;
+  const long long b = 3LL * i;
+  if ((q & 1) == 0)
+    return make_int4(ld(in.node_bbox_min, b), ld(in.node_bbox_min, b + 1),
+                     ld(in.node_bbox_min, b + 2), ld(in.node_bbox_max, b));
+  const int32_t count = ld(in.node_count, i), start = ld(in.node_start, i);
+  const int32_t kind = ld(in.node_kind, i), leaf = ld(in.node_isleaf, i);
+  const int32_t skip = ld(in.node_skip, i);
+  return make_int4(ld(in.node_bbox_max, b + 1), ld(in.node_bbox_max, b + 2),
+                   add_wrap(min(count, kCountSat), start, 8),
+                   add_wrap(add_wrap(kind, leaf, 2), skip, 4));
+}
+
+// table 1, hit prims: 3 quads a row, quad c the vertex c's pos and radius
+// (the last quad's fourth word the prim's type and index)
+__device__ __forceinline__ int4 hit_prim_quad(const RecordLeaves& in, int q,
+                                              int ni) {
+  const int j = q / 3, c = q - 3 * j;
+  const int prim = ld(in.leaf_items, static_cast<long long>(ni) + j);
+  const int v = ld(in.prim_v, 3LL * prim + c);
+  const long long b = 3LL * v;
+  const int32_t w = c < 2 ? ld(in.radius, v)
+                          : add_wrap(ld(in.prim_type, prim), prim, 4);
+  return make_int4(ld(in.pos, b), ld(in.pos, b + 1), ld(in.pos, b + 2), w);
+}
+
+// table 2, hit insts: 4 quads a row
+__device__ __forceinline__ int4 hit_inst_quad(const RecordLeaves& in, int q) {
+  const int j = q >> 2, c = q & 3;
+  const int item = ld(in.leaf_items, j);
+  if (c < 3) return frame_quad(in, item, c);
+  return make_int4(ld(in.inst_shape_root, item), item, item, item);
+}
+
+// table 3, shade prims: 7 quads a row; quad 0 prim_v and prim_type, then
+// two a vertex: pos and norm[0], norm[1..2] and texcoord
+__device__ __forceinline__ int4 shade_prim_quad(const RecordLeaves& in,
+                                                int q) {
+  const int p = q / 7, k = q - 7 * p;
+  const long long b = 3LL * p;
+  if (k == 0)
+    return make_int4(ld(in.prim_v, b), ld(in.prim_v, b + 1),
+                     ld(in.prim_v, b + 2), ld(in.prim_type, p));
+  const int v = ld(in.prim_v, b + ((k - 1) >> 1));
+  const long long v3 = 3LL * v, v2 = 2LL * v;
+  if ((k & 1) != 0)
+    return make_int4(ld(in.pos, v3), ld(in.pos, v3 + 1), ld(in.pos, v3 + 2),
+                     ld(in.norm, v3));
+  return make_int4(ld(in.norm, v3 + 1), ld(in.norm, v3 + 2),
+                   ld(in.texcoord, v2), ld(in.texcoord, v2 + 1));
+}
+
+// table 4, shade insts: 4 quads a row
+__device__ __forceinline__ int4 shade_inst_quad(const RecordLeaves& in,
+                                                int q) {
+  const int i = q >> 2, c = q & 3;
+  if (c < 3) return frame_quad(in, i, c);
+  return make_int4(ld(in.inst_mat, i), ld(in.inst_is_lines, i), 0, 0);
+}
+
+// table 5, shade mats: 3 quads a row
+__device__ __forceinline__ int4 shade_mat_quad(const RecordLeaves& in, int q) {
+  const int i = q / 3, c = q - 3 * i;
+  const long long b = 3LL * i;
+  if (c == 0)
+    return make_int4(ld(in.mat_kd, b), ld(in.mat_kd, b + 1),
+                     ld(in.mat_kd, b + 2), ld(in.mat_ks, b));
+  if (c == 1)
+    return make_int4(ld(in.mat_ks, b + 1), ld(in.mat_ks, b + 2),
+                     ld(in.mat_kr, b), ld(in.mat_kr, b + 1));
+  return make_int4(ld(in.mat_kr, b + 2), ld(in.mat_rs, i),
+                   ld(in.mat_kd_txt, i), ld(in.mat_ks_txt, i));
+}
+
+__constant__ int kRecordQuads[kRecordTables] = {2, 3, 4, 7, 4, 3};
+
+__global__ void __launch_bounds__(kRecordThreads)
+    records_kernel(const __grid_constant__ RecordLeaves in,
+                   const __grid_constant__ RecordTables out,
+                   const __grid_constant__ RecordPlan plan) {
+  const int b = blockIdx.x;
+  int t = 0;  // the block's table: the same for all its threads
+  while (b >= plan.start[t + 1]) ++t;
+  const int q = (b - plan.start[t]) * kRecordThreads +
+                static_cast<int>(threadIdx.x);
+  if (q >= plan.rows[t] * kRecordQuads[t]) return;
+  int4 v;
+  switch (t) {
+    case 0: v = hit_node_quad(in, q); break;
+    case 1: v = hit_prim_quad(in, q, plan.rows[2]); break;
+    case 2: v = hit_inst_quad(in, q); break;
+    case 3: v = shade_prim_quad(in, q); break;
+    case 4: v = shade_inst_quad(in, q); break;
+    default: v = shade_mat_quad(in, q); break;
+  }
+  out.table[t][q] = v;
 }
 
 __global__ void __launch_bounds__(kRecordThreads)
-    records_kernel(RecordLeaves in, RecordTables out, int m, int k, int ni,
-                   int np, int nmat) {
-  long long r = static_cast<long long>(blockIdx.x) * kRecordThreads +
-                threadIdx.x;
-  if (r < m) {
-    const int i = static_cast<int>(r);
-    int32_t* o = out.hit_nodes + 8LL * i;
-    copy_words(o, in.node_bbox_min + 3LL * i, 3);
-    copy_words(o + 3, in.node_bbox_max + 3LL * i, 3);
-    o[6] = add_wrap(min(in.node_count[i], kCountSat), in.node_start[i], 8);
-    o[7] = add_wrap(add_wrap(in.node_kind[i], in.node_isleaf[i], 2),
-                    in.node_skip[i], 4);
-    return;
+    records_empty_kernel(RecordLeaves, RecordTables, RecordPlan) {}
+
+// ``leaves``, ``tables``: the fields of RecordLeaves and RecordTables, in
+// order, as pointer arrays; ``rows`` and ``start``: RecordPlan's
+cudaError_t launch_records(const void* const* leaves, void* const* tables,
+                           const int* rows, const int* start, bool empty,
+                           cudaStream_t stream) {
+  RecordLeaves in;
+  const int32_t** pin = reinterpret_cast<const int32_t**>(&in);
+  for (size_t f = 0; f < sizeof(in) / sizeof(void*); ++f)
+    pin[f] = static_cast<const int32_t*>(leaves[f]);
+  RecordTables out;
+  RecordPlan plan;
+  for (int t = 0; t < kRecordTables; ++t) {
+    out.table[t] = static_cast<int4*>(tables[t]);
+    plan.rows[t] = rows[t];
   }
-  r -= m;
-  if (r < k - ni) {
-    const int j = static_cast<int>(r);
-    const int prim = in.leaf_items[ni + j];
-    const int32_t* v = in.prim_v + 3LL * prim;
-    int32_t* o = out.hit_prims + 12LL * j;
-    for (int c = 0; c < 3; ++c) {
-      copy_words(o + 4 * c, in.pos + 3LL * v[c], 3);
-      if (c < 2) o[4 * c + 3] = in.radius[v[c]];
-    }
-    o[11] = add_wrap(in.prim_type[prim], prim, 4);
-    return;
+  for (int t = 0; t <= kRecordTables; ++t) plan.start[t] = start[t];
+  const int grid = plan.start[kRecordTables];
+  if (grid > 0) {
+    if (empty)
+      records_empty_kernel<<<grid, kRecordThreads, 0, stream>>>(in, out,
+                                                                plan);
+    else
+      records_kernel<<<grid, kRecordThreads, 0, stream>>>(in, out, plan);
   }
-  r -= k - ni;
-  if (r < ni) {
-    const int j = static_cast<int>(r);
-    const int item = in.leaf_items[j];
-    int32_t* o = out.hit_insts + 16LL * j;
-    copy_words(o, in.inst_axes + 9LL * item, 9);
-    copy_words(o + 9, in.inst_o + 3LL * item, 3);
-    o[12] = in.inst_shape_root[item];
-    o[13] = o[14] = o[15] = item;
-    return;
-  }
-  r -= ni;
-  if (r < np) {
-    const int p = static_cast<int>(r);
-    const int32_t* v = in.prim_v + 3LL * p;
-    int32_t* o = out.shade_prims + 28LL * p;
-    copy_words(o, v, 3);
-    o[3] = in.prim_type[p];
-    for (int c = 0; c < 3; ++c) {
-      int32_t* ov = o + 4 + 8 * c;
-      copy_words(ov, in.pos + 3LL * v[c], 3);
-      copy_words(ov + 3, in.norm + 3LL * v[c], 3);
-      copy_words(ov + 6, in.texcoord + 2LL * v[c], 2);
-    }
-    return;
-  }
-  r -= np;
-  if (r < ni) {
-    const int i = static_cast<int>(r);
-    int32_t* o = out.shade_insts + 16LL * i;
-    copy_words(o, in.inst_axes + 9LL * i, 9);
-    copy_words(o + 9, in.inst_o + 3LL * i, 3);
-    o[12] = in.inst_mat[i];
-    o[13] = in.inst_is_lines[i];
-    o[14] = o[15] = 0;
-    return;
-  }
-  r -= ni;
-  if (r < nmat) {
-    const int i = static_cast<int>(r);
-    int32_t* o = out.shade_mats + 12LL * i;
-    copy_words(o, in.mat_kd + 3LL * i, 3);
-    copy_words(o + 3, in.mat_ks + 3LL * i, 3);
-    copy_words(o + 6, in.mat_kr + 3LL * i, 3);
-    o[9] = in.mat_rs[i];
-    o[10] = in.mat_kd_txt[i];
-    o[11] = in.mat_ks_txt[i];
-  }
+  return cudaGetLastError();
 }
 
 }  // namespace yrt
 
-// ``leaves`` and ``tables``: the fields of yrt::RecordLeaves and
-// yrt::RecordTables, in order, as pointer arrays.
 extern "C" int yrt_records(const void* const* leaves, void* const* tables,
-                           int m, int k, int ni, int np, int nmat,
-                           void* stream) {
-  yrt::RecordLeaves in;
-  const int32_t** pin = reinterpret_cast<const int32_t**>(&in);
-  for (size_t f = 0; f < sizeof(in) / sizeof(void*); ++f)
-    pin[f] = static_cast<const int32_t*>(leaves[f]);
-  yrt::RecordTables out;
-  int32_t** pout = reinterpret_cast<int32_t**>(&out);
-  for (size_t f = 0; f < sizeof(out) / sizeof(void*); ++f)
-    pout[f] = static_cast<int32_t*>(tables[f]);
-  const long long rows = static_cast<long long>(m) + (k - ni) + ni + np + ni +
-                         nmat;
-  if (rows > 0)
-    yrt::records_kernel<<<yrt::blocks_for(rows, yrt::kRecordThreads),
-                          yrt::kRecordThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        in, out, m, k, ni, np, nmat);
-  return static_cast<int>(cudaGetLastError());
+                           const int* rows, const int* start, void* stream) {
+  return static_cast<int>(yrt::launch_records(
+      leaves, tables, rows, start, false, static_cast<cudaStream_t>(stream)));
+}
+
+// records_empty_kernel on yrt_records' grid and arguments (chip_smoke.py's
+// launch floor)
+extern "C" int yrt_records_empty(const void* const* leaves,
+                                 void* const* tables, const int* rows,
+                                 const int* start, void* stream) {
+  return static_cast<int>(yrt::launch_records(
+      leaves, tables, rows, start, true, static_cast<cudaStream_t>(stream)));
 }

@@ -304,16 +304,19 @@ def bounce_update_bwd_plain(g_acc, g_thr, g_ro, g_rd, thr, color, kr, mask):
     every bounce; ``g_thr``, ``g_ro``, ``g_rd`` of the next thr, ro, rd)
     and the bounce's own thr, color, kr and mask, the cotangents of the
     bounce's shading (g_color, g_kr, g_p, g_refl) and of its throughput
-    (g_thr). Torch autograd of ``bounce_update_plain`` gives the same
-    values where kr and thr are finite (it multiplies the zero cotangent of
-    a lane that does not go on by kr and thr, so an infinite or NaN one
-    makes NaN where this gives 0)."""
+    (g_thr). As JAX transposes ``thr' = where(cont, thr * kr, thr)``
+    (JAX ``render/renderer.py:297-304``): the cotangent selected first,
+    ``where(cont, g, 0)``, then multiplied by thr and by kr, so a lane
+    that does not go on with an infinite thr or a NaN kr gets NaN there,
+    as in ``jax.vjp`` and torch autograd of ``bounce_update_plain``; the
+    other branch adds ``where(cont, 0, g)``."""
     cont = (mask & (kr > 0).any(dim=-1))[:, None]
+    g_sel = torch.where(cont, g_thr, 0.0)
     g_color = g_acc * thr
-    g_kr = torch.where(cont, g_thr * thr, 0.0)
+    g_kr = g_sel * thr
     g_p = torch.where(cont, g_ro, 0.0)
     g_refl = torch.where(cont, g_rd, 0.0)
-    g_thr = g_acc * color + torch.where(cont, g_thr * kr, g_thr)
+    g_thr = g_acc * color + (g_sel * kr + torch.where(cont, 0.0, g_thr))
     return g_color, g_kr, g_p, g_refl, g_thr
 
 
