@@ -1,0 +1,8 @@
+"""device_idle.step: the share of the traced window in which no operation
+ran on the card, from the profiler's device events (their union)."""
+
+from rtbench.core.trace import idle_percent
+
+
+def read(trace):
+    return idle_percent(trace)

@@ -1,0 +1,10 @@
+"""loop_host_ms.step: the host's milliseconds in the device loop's stages
+(set-up, staging, capture, replay enqueue), summed a request, from the
+program's own record of each traced request (``kernels.last_step()``),
+averaged over the traced requests."""
+
+from rtbench.core.trace import mean
+
+
+def read(trace):
+    return mean(trace.get("host_ms"))
