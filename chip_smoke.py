@@ -1198,13 +1198,15 @@ def phase_frame(path, resolution, samples, max_depth, device, dev_info,
     COMPARE_PIXELS pixels against the all-plain path."""
     from yocto_raytracing_tpu_torch import kernels
     from yocto_raytracing_tpu_torch.render import renderer
+    from yocto_raytracing_tpu_torch.utils import tracer
 
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    img, host, scene, meta = renderer.render_scene_file(
-        path, resolution, samples, max_depth=max_depth,
-        chunk_pixels=CHUNK_PIXELS, device=device, ldr=True)
+    with tracer.recording():   # the dead bounces' tally
+        img, host, scene, meta = renderer.render_scene_file(
+            path, resolution, samples, max_depth=max_depth,
+            chunk_pixels=CHUNK_PIXELS, device=device, ldr=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(kernels.launches)
@@ -2707,6 +2709,7 @@ def phase_train(name, scene, w, h, last, device, dev_info, depth=DEPTH,
     from yocto_raytracing_tpu_torch.kernels import parity
     from yocto_raytracing_tpu_torch.parallel import mesh
     from yocto_raytracing_tpu_torch.render import renderer
+    from yocto_raytracing_tpu_torch.utils import tracer
 
     t_phase = time.perf_counter()
     label = f"train {name}" + ("" if depth == DEPTH else f" depth {depth}")
@@ -2727,7 +2730,8 @@ def phase_train(name, scene, w, h, last, device, dev_info, depth=DEPTH,
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    new_k, loss_k = device_step()
+    with tracer.recording():   # the dead bounces' tally
+        new_k, loss_k = device_step()
     torch.cuda.synchronize()
     wall1 = time.perf_counter() - t0
     counts = dict(kernels.launches)
@@ -3475,6 +3479,7 @@ def phase_gltf(tmp, device, dev_info) -> dict:
     from yocto_raytracing_tpu_torch import testscenes
     from yocto_raytracing_tpu_torch.io import gltf
     from yocto_raytracing_tpu_torch.render import renderer
+    from yocto_raytracing_tpu_torch.utils import tracer
 
     t_phase = time.perf_counter()
     kw = dict(max_depth=DEPTH, chunk_pixels=CHUNK_PIXELS)
@@ -3501,10 +3506,11 @@ def phase_gltf(tmp, device, dev_info) -> dict:
         path = os.path.join(tmp, f"gltf_{ext[1:]}", f"textured_hair{ext}")
         scene_lib.save_scene(host, path)
         kernels.reset_launches()
-        (u8[ext], _, fscene, fmeta), wall = timed_call(
-            lambda: renderer.render_scene_file(path, RES, SAMPLES,
-                                               device=device, ldr=True,
-                                               **kw))
+        with tracer.recording():   # the dead bounces' tally
+            (u8[ext], _, fscene, fmeta), wall = timed_call(
+                lambda: renderer.render_scene_file(path, RES, SAMPLES,
+                                                   device=device, ldr=True,
+                                                   **kw))
         if ext == ".glb":
             counts = kernels.made_launches()
             check_plain("gltf .glb frame", u8[ext], fscene, fmeta)

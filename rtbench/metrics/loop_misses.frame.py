@@ -1,0 +1,9 @@
+"""loop_misses.frame: the share of the frames of the window traced on the
+device alone whose device loop (the ``frame_device`` span) built its graph
+again (``hit`` 0), in % (the program's spans, ``spans.measured``)."""
+
+from rtbench.core import spans
+
+
+def read(trace):
+    return spans.miss_percent(spans.program_spans(trace), "frame_device")

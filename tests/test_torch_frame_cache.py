@@ -45,6 +45,7 @@ from torch_card import cuda_device  # noqa: F401  (fixture)
 from yocto_raytracing_tpu_torch import kernels
 from yocto_raytracing_tpu_torch import scene as scene_lib, testscenes
 from yocto_raytracing_tpu_torch.render import lights, renderer
+from yocto_raytracing_tpu_torch.utils import tracer
 
 # 384 pixels in chunks of 150: two whole chunks and a tail of 84 (CPU)
 W, H, SAMPLES, DEPTH, CHUNK = 24, 16, 2, 4, 150
@@ -315,7 +316,8 @@ def test_card_dead_bounces_launch_nothing(cuda_device, name):
     bounces only: no K1, K4 or K12 launch in a dead bounce, and every
     launch of a live one, bounces 2 and 3 too on the mirror pair, whose IF
     nodes K12 sets from inside the node before. ``made_launches`` counts
-    what the card made."""
+    what the card made (the dead bounces tallied inside
+    ``tracer.recording()``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -324,7 +326,8 @@ def test_card_dead_bounces_launch_nothing(cuda_device, name):
     renderer.frame_device(ts, meta, CW, CH, SAMPLES, **kw)
     torch.cuda.synchronize()
     kernels.reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with tracer.recording(), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
         got = _device(ts, meta, CW, CH, **kw)
         torch.cuda.synchronize()
     made = kernels.made_launches()

@@ -79,6 +79,7 @@ from yocto_raytracing_tpu_torch.kernels import parity
 from yocto_raytracing_tpu_torch.ops import traverse
 from yocto_raytracing_tpu_torch.parallel import mesh
 from yocto_raytracing_tpu_torch.render import camera, lights, renderer, shade
+from yocto_raytracing_tpu_torch.utils import tracer
 
 FLT_MAX = np.float32(3.4028235e38)
 GRAD_RTOL = 1e-4
@@ -1292,8 +1293,10 @@ def test_train_step_device_loop_matches_first_form(cuda_device, name):
     renderer._steps.clear()
     for call in ("miss", "hit"):
         kernels.reset_launches()
-        loss_d, out = renderer.loss_grads_device(ts, ids, target, amb, 32,
-                                                 32, 1, kw["max_depth"])
+        with tracer.recording():   # the dead bounces' tally
+            loss_d, out = renderer.loss_grads_device(ts, ids, target, amb,
+                                                     32, 32, 1,
+                                                     kw["max_depth"])
         made = kernels.made_launches()
         rec = kernels.last_step()
         assert rec["cache_hit"] is (call == "hit")
@@ -1496,8 +1499,9 @@ def test_graph_frame_matches_eager(cuda_device, name):
                                      **kw)
         counts_eager = dict(kernels.launches)
         kernels.reset_launches()
-        dev = renderer.frame_device(ts, meta, LOOP_W, LOOP_H, 2, ldr=ldr,
-                                    **kw)
+        with tracer.recording():   # the dead bounces' tally
+            dev = renderer.frame_device(ts, meta, LOOP_W, LOOP_H, 2,
+                                        ldr=ldr, **kw)
         counts = dict(kernels.launches)
         got = dev[:npix].cpu().numpy()
         assert np.array_equal(got.view(np.uint8), eager.view(np.uint8)), ldr

@@ -22,7 +22,9 @@ Each wrapper counts its launches in ``launches``; a run resets the counts
 with ``reset_launches`` and reads them afterwards to show which kernels it
 went through, and ``skipped_launches`` for those of them that belong to the
 dead bounces of the device loops (the frame's and the training step's),
-which their CUDA graphs do not launch.
+which their CUDA graphs do not launch. The dead bounces are tallied only
+inside a ``utils.tracer.recording()`` block, which a reader of
+``skipped_launches`` opens around the frames and steps it counts.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import torch
+
+from ..utils import tracer
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -67,19 +71,23 @@ launches = {"hit": 0, "hit_any": 0, "camera_rays": 0, "pixel_finish": 0,
             "light_points": 0, "light_points_bwd": 0, "overlap": 0,
             "overlap_refit": 0, "bounce": 0, "records": 0, "bounce_bwd": 0}
 # the device loops' dead bounces since the last reset_launches(), tallied on
-# the card (no sync): device -> (4,) i64, the bounces of frames without and
-# with lights, then of training steps without and with lights; and the
-# records of the last frame and the last step (``note_frame``,
-# ``note_step``)
+# the card (no sync) inside ``tracer.recording()``: device -> (4,) i64, the
+# bounces of frames without and with lights, then of training steps without
+# and with lights; the frames and steps run on the card outside it, whose
+# bounces went untallied; and the records of the last frame and the last
+# step (``note_frame``, ``note_step``)
 _dead_bounces: dict = {}
+_untallied = 0
 _last_frame: dict = {}
 _last_step: dict = {}
 
 
 def reset_launches() -> None:
+    global _untallied
     for k in launches:
         launches[k] = 0
     _dead_bounces.clear()
+    _untallied = 0
 
 
 def note_frame(ran: torch.Tensor, lights: bool, host_ms: dict,
@@ -88,14 +96,14 @@ def note_frame(ran: torch.Tensor, lights: bool, host_ms: dict,
     i32 alive words, a chunk a row (1 where the bounce ran), ``lights``
     whether its scene has lights, ``host_ms`` the host's milliseconds in
     its stages, ``cache_hit`` whether it replayed a graph kept from an
-    earlier call. On CUDA its dead bounces join the tally, on the card,
+    earlier call. On CUDA its dead bounces join the tally (``_note_dead``),
     unless ``dead_launched`` (the loop's first form, which makes their
     launches)."""
     _last_frame.clear()
     _last_frame.update(ran=ran, lights=lights, host_ms=host_ms,
                        cache_hit=cache_hit)
     if not dead_launched:
-        _tally(ran, int(lights))
+        _note_dead(ran, int(lights))
 
 
 def note_step(ran: torch.Tensor, lights: bool, host_ms: dict,
@@ -104,11 +112,25 @@ def note_step(ran: torch.Tensor, lights: bool, host_ms: dict,
     (``render/renderer.py::loss_grads_device``): ``ran`` is its
     (max_depth + 1,) i32 alive words (1 where the bounce, and so its
     reverse, ran), the rest as in ``note_frame``. On CUDA its dead bounces
-    join the tally."""
+    join the tally (``_note_dead``)."""
     _last_step.clear()
     _last_step.update(ran=ran, lights=lights, host_ms=host_ms,
                       cache_hit=cache_hit)
-    _tally(ran[None], 2 + int(lights))
+    _note_dead(ran[None], 2 + int(lights))
+
+
+def _note_dead(ran: torch.Tensor, slot: int) -> None:
+    """Inside a ``tracer.recording()`` block, add the dead bounces of
+    ``ran`` to the tally (``_tally``); outside one, only count a frame or
+    step on the card as untallied, so that ``skipped_launches`` refuses
+    to read a tally that lacks it. Off the path of untraced and
+    profiled calls alike: the tally's four ops a call are work that
+    nothing but the launch counts reads."""
+    global _untallied
+    if tracer.in_recording():
+        _tally(ran, slot)
+    elif ran.is_cuda:
+        _untallied += 1
 
 
 def _tally(ran: torch.Tensor, slot: int) -> None:
@@ -147,9 +169,17 @@ def skipped_launches() -> dict:
     CUDA graphs of ``frame_device`` and ``loss_grads_device`` do not make
     these launches: a dead bounce sits in an IF node whose body does not
     run. Reads the tally: a copy to the host, which waits for the frames.
+    The tally holds the frames and steps run inside
+    ``utils.tracer.recording()``; a frame or step run on the card outside
+    it since the last reset_launches() makes this raise.
     A bounce of the device loop (``render/renderer.py``) holds K1 nearest,
     K4 and K12, and K1 any hit where the scene has lights; a training
     step's bounce also its reverse, K14 and K5."""
+    if _untallied:
+        raise RuntimeError(
+            f"{_untallied} device-loop frames or steps ran on the card "
+            "outside tracer.recording() since reset_launches(): their dead "
+            "bounces were not tallied")
     out = dict.fromkeys(launches, 0)
     out["bounces"] = out["step_bounces"] = 0
     for tally in _dead_bounces.values():

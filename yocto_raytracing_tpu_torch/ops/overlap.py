@@ -35,6 +35,7 @@ import torch
 
 from ..kernels import _build
 from ..scene import PRIM_LINE, PRIM_POINT, PRIM_TRIANGLE
+from ..utils import tracer
 from . import intersect as isect
 
 FLT_MAX = isect.FLT_MAX
@@ -623,10 +624,13 @@ def overlap_scene_cuda(scene, meta, pos, dist_max) -> dict:
     """K11 launch: same contract as ``overlap_scene_plain``, CUDA only. The
     records are refit from the current ``pos`` and ``radius`` on every call
     (``refit_cuda``); thread k of K11 takes query k. No host
-    synchronisation."""
+    synchronisation. Spans (``utils/tracer.py``): ``check`` (the tensor
+    checks and ``dist_max`` broadcast), ``refit``, ``outputs`` and
+    ``walk`` (K11's launch)."""
     dev = pos.device
     n = pos.shape[0]
     f32, i32 = torch.float32, torch.int32
+    sp = tracer.begin("check")
     check = _build.check_tensor
     check("pos (queries)", pos, f32, (n, 3), dev)
     leaves = (("inst_axes", f32, (-1, 3, 3)), ("inst_o", f32, (-1, 3)),
@@ -634,9 +638,15 @@ def overlap_scene_cuda(scene, meta, pos, dist_max) -> dict:
     for name, dtype, shape in leaves:
         check(name, getattr(scene, name), dtype, shape, dev)
     dist_max = _broadcast_dist_max(dist_max, n, dev)
+    tracer.end(sp)
+    sp = tracer.begin("refit")
     records = refit_cuda(scene)
+    tracer.end(sp)
+    sp = tracer.begin("outputs")
     ni = scene.inst_axes.shape[0]
     out = empty_result(n, dev)
+    tracer.end(sp)
+    sp = tracer.begin("walk")
     ptr = _build.ptr
     err = _build.library().yrt_overlap(
         ptr(pos), ptr(dist_max), n, ptr(scene.inst_axes), ptr(scene.inst_o),
@@ -646,6 +656,7 @@ def overlap_scene_cuda(scene, meta, pos, dist_max) -> dict:
         _build.current_stream())
     _build.check_launch(err, "yrt_overlap")
     _build.launches["overlap"] += 1
+    tracer.end(sp)
     return out
 
 
@@ -672,7 +683,13 @@ def overlap_scene(scene, meta, pos, dist_max) -> dict:
     (or raise). K11 runs fastest on queries in spatially coherent order
     (neighbouring queries in neighbouring rows): a warp of queries runs as
     long as its longest walk.
+
+    One span, ``overlap_scene``, around the call (``utils/tracer.py``).
     """
-    if _build.device_kind(pos) == "cpu":
-        return overlap_scene_walk_plain(scene, meta, pos, dist_max)
-    return overlap_scene_cuda(scene, meta, pos, dist_max)
+    sp = tracer.begin("overlap_scene")
+    try:
+        if _build.device_kind(pos) == "cpu":
+            return overlap_scene_walk_plain(scene, meta, pos, dist_max)
+        return overlap_scene_cuda(scene, meta, pos, dist_max)
+    finally:
+        tracer.end(sp)

@@ -43,6 +43,7 @@ import torch.distributed as dist
 
 from ..render import renderer as renderer_mod
 from ..scene import LEAF_NAMES, TorchScene
+from ..utils import tracer
 
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
@@ -307,18 +308,31 @@ def train_step(scene: TorchScene, ray_ids, target_rgb, ambient, lr, *,
     loop and its reverse on the card with dead bounces skipped both ways;
     on the CPU the same structure through the plain versions. ``plain``
     runs the first form (``_train_step_autograd``) through the plain
-    versions of every kernel."""
-    if plain:
-        return _train_step_autograd(
-            scene, ray_ids, target_rgb, ambient, lr, width=width,
-            height=height, samples=samples, max_depth=max_depth,
-            trainable=trainable, plain=True)
-    _, static = partition_scene(scene, trainable)
-    loss, new = _loss_and_grads(
-        scene, ray_ids, target_rgb, ambient,
-        dict(width=width, height=height, samples=samples,
-             max_depth=max_depth), trainable, lr)
-    return combine_scene(new, static), loss
+    versions of every kernel.
+
+    Spans (``utils/tracer.py``): ``train_step`` around
+    ``partition_scene``, ``loss_grads_device`` (its stages as the frame's)
+    and ``combine_scene``."""
+    sp = tracer.begin("train_step")
+    try:
+        if plain:
+            return _train_step_autograd(
+                scene, ray_ids, target_rgb, ambient, lr, width=width,
+                height=height, samples=samples, max_depth=max_depth,
+                trainable=trainable, plain=True)
+        s = tracer.begin("partition_scene")
+        _, static = partition_scene(scene, trainable)
+        tracer.end(s)
+        loss, new = _loss_and_grads(
+            scene, ray_ids, target_rgb, ambient,
+            dict(width=width, height=height, samples=samples,
+                 max_depth=max_depth), trainable, lr)
+        s = tracer.begin("combine_scene")
+        out = combine_scene(new, static)
+        tracer.end(s)
+        return out, loss
+    finally:
+        tracer.end(sp)
 
 
 def _train_step_autograd(scene: TorchScene, ray_ids, target_rgb, ambient, lr,

@@ -67,6 +67,7 @@ from ..ops import hit_records, records as records_mod
 from ..ops import intersect as isect
 from ..ops import shade_records as shade_records_lib
 from ..ops import traverse
+from ..utils import tracer
 from . import camera as camera_mod
 from . import lights as lights_mod
 from . import shade as shade_mod
@@ -509,16 +510,33 @@ def render_image(scene, meta, width: int, height: int, samples: int,
     path tonemaps on the host (``image.tonemap``), so a frame resumed from
     any snapshot is the uninterrupted one bit for bit; without a
     checkpoint, K3 tonemaps on the device (within 1 u8 step of the host).
+
+    Spans (``utils/tracer.py``): ``render_image`` around ``frame_device``
+    (``frame_eager`` has no span of its own), ``to_host`` (``pinned``, the
+    page-locked buffer; ``copy``, which waits for the frame's kernels) and
+    ``image``, the RGBA assembly.
     """
-    spp = samples * samples
+    sp = tracer.begin("render_image")
+    try:
+        npix = width * height
+        device_ldr = ldr and not checkpoint
+        args = (scene, meta, width, height, samples, ambient, max_depth,
+                chunk_pixels, device_ldr, stochastic, seed, light_sampler)
+        if not checkpoint:
+            out = to_host(frame_device(*args)[:npix])
+        else:
+            out = frame_eager(*args, checkpoint=checkpoint)
+        s = tracer.begin("image")
+        img = _rgba(out, width, height, samples * samples, ldr, device_ldr)
+        tracer.end(s)
+        return img
+    finally:
+        tracer.end(sp)
+
+
+def _rgba(out, width, height, spp, ldr, device_ldr) -> np.ndarray:
+    """``render_image``'s image from the frame's (npix, 3) host rows."""
     npix = width * height
-    device_ldr = ldr and not checkpoint
-    args = (scene, meta, width, height, samples, ambient, max_depth,
-            chunk_pixels, device_ldr, stochastic, seed, light_sampler)
-    if not checkpoint:
-        out = to_host(frame_device(*args)[:npix])
-    else:
-        out = frame_eager(*args, checkpoint=checkpoint)
     if device_ldr:
         img = np.full((npix, 4), 255, np.uint8)
         img[:, :3] = out
@@ -641,44 +659,54 @@ def frame_device(scene, meta, width: int, height: int, samples: int,
     (the key, the entry on a miss, the staging), chunk 0 (0: no chunk runs
     eagerly), the chunk graph's capture (0 on a hit) and the replays
     (enqueue time: nothing here waits for the card), and whether the call
-    hit the cache; on CUDA the frame's dead bounces join the device tally
-    that ``kernels.skipped_launches`` reads. One frame at a time: the
-    entry is the module's, not the caller's.
+    hit the cache; on CUDA, inside ``tracer.recording()``, the frame's
+    dead bounces join the device tally that ``kernels.skipped_launches``
+    reads. One frame at a time: the entry is the module's, not the
+    caller's.
+
+    Spans (``utils/tracer.py``): ``frame_device``, with attribute ``hit``,
+    around the stages ``key``, ``entry`` (a miss), ``stage``, ``capture``
+    (a miss on CUDA) and ``replay``, whose clock readings also give the
+    record's milliseconds: setup is key, entry and stage.
     """
-    t0 = time.perf_counter()
-    key = frame_key(scene, meta, width, height, samples, max_depth,
-                    chunk_pixels, ldr, stochastic, seed, light_sampler)
-    state = _frames.get(key)
-    hit = state is not None
-    if not hit:
-        _frames.clear()
-        state = _FrameState(scene, meta, width, height, samples, max_depth,
-                            chunk_pixels, ldr, stochastic, seed,
-                            light_sampler)
-    capture = 0.0
+    sp = tracer.begin("frame_device")
     try:
-        with torch.no_grad():
-            state.stage(scene, light_sampler, ambient)
-            t_stage = time.perf_counter()
-            if state.cuda:
-                if not hit:
+        st = tracer.Stages("key")
+        key = frame_key(scene, meta, width, height, samples, max_depth,
+                        chunk_pixels, ldr, stochastic, seed, light_sampler)
+        state = _frames.get(key)
+        hit = state is not None
+        tracer.note(sp, "hit", hit)
+        if not hit:
+            st.next("entry")
+            _frames.clear()
+            state = _FrameState(scene, meta, width, height, samples,
+                                max_depth, chunk_pixels, ldr, stochastic,
+                                seed, light_sampler)
+        try:
+            with torch.no_grad():
+                st.next("stage")
+                state.stage(scene, light_sampler, ambient)
+                if state.cuda and not hit:
+                    st.next("capture")
                     state.capture(if_nodes=True)
-                    capture = time.perf_counter() - t_stage
-                t_replay = time.perf_counter()
-                state.replay(state.n_chunks)
-                replay = time.perf_counter() - t_replay
-            else:
-                for _ in range(state.n_chunks):
-                    state.run_chunk()
-                replay = time.perf_counter() - t_stage
-    except BaseException:
-        _frames.clear()   # nothing half made is kept
-        raise
-    _frames[key] = state
-    _build.note_frame(state.ran, state.nl > 0, dict(
-        setup=(t_stage - t0) * 1e3, chunk0=0.0, capture=capture * 1e3,
-        replay=replay * 1e3), hit)
-    return state.out
+                st.next("replay")
+                if state.cuda:
+                    state.replay(state.n_chunks)
+                else:
+                    for _ in range(state.n_chunks):
+                        state.run_chunk()
+                st.stop()
+        except BaseException:
+            _frames.clear()   # nothing half made is kept
+            raise
+        _frames[key] = state
+        _build.note_frame(state.ran, state.nl > 0, dict(
+            setup=st.ms("key", "entry", "stage"), chunk0=0.0,
+            capture=st.ms("capture"), replay=st.ms("replay")), hit)
+        return state.out
+    finally:
+        tracer.end(sp)
 
 
 def frame_key(scene, meta, width: int, height: int, samples: int,
@@ -1071,48 +1099,54 @@ def loss_grads_device(scene, ids, target, ambient, width: int, height: int,
 
     Each step leaves a record (``kernels.last_step()``: "ran", the alive
     words; "host_ms" of its set-up, capture and replay; "cache_hit"); on
-    CUDA its dead bounces join the tally of ``kernels.skipped_launches``.
-    One step at a time: the entry is the module's.
+    CUDA, inside ``tracer.recording()``, its dead bounces join the tally of
+    ``kernels.skipped_launches``. One step at a time: the entry is the
+    module's. Spans as ``frame_device``'s, the outer one
+    ``loss_grads_device``; the replay stage is the CPU's bounce loop there.
     """
-    t0 = time.perf_counter()
-    n = ids.shape[0]
-    if ids.shape != (n,) or target.shape != (n, 3):
-        raise ValueError(f"ids {tuple(ids.shape)} and target "
-                         f"{tuple(target.shape)}: want (N,) and (N, 3)")
-    key = step_key(scene, n, width, height, samples, max_depth,
-                   has_kd_textures, has_ks_textures, trainable,
-                   lr is not None)
-    state = _steps.get(key)
-    hit = state is not None
-    if not hit:
-        _steps.clear()
-        state = _StepState(scene, n, width, height, samples, max_depth,
-                           has_kd_textures, has_ks_textures, key[8],
-                           lr is not None)
-    capture = 0.0
+    sp = tracer.begin("loss_grads_device")
     try:
-        with torch.no_grad():
-            state.stage(scene, ids, target, ambient, lr)
-            t_stage = time.perf_counter()
-            if state.cuda:
-                if not hit:
+        st = tracer.Stages("key")
+        n = ids.shape[0]
+        if ids.shape != (n,) or target.shape != (n, 3):
+            raise ValueError(f"ids {tuple(ids.shape)} and target "
+                             f"{tuple(target.shape)}: want (N,) and (N, 3)")
+        key = step_key(scene, n, width, height, samples, max_depth,
+                       has_kd_textures, has_ks_textures, trainable,
+                       lr is not None)
+        state = _steps.get(key)
+        hit = state is not None
+        tracer.note(sp, "hit", hit)
+        if not hit:
+            st.next("entry")
+            _steps.clear()
+            state = _StepState(scene, n, width, height, samples, max_depth,
+                               has_kd_textures, has_ks_textures, key[8],
+                               lr is not None)
+        try:
+            with torch.no_grad():
+                st.next("stage")
+                state.stage(scene, ids, target, ambient, lr)
+                if state.cuda and not hit:
+                    st.next("capture")
                     state.capture()
-                    capture = time.perf_counter() - t_stage
-                t_run = time.perf_counter()
-                state.replay()
-            else:
-                t_run = t_stage
-                state.run()
-            run = time.perf_counter() - t_run
-            out = state.results()
-    except BaseException:
-        _steps.clear()   # nothing half made is kept
-        raise
-    _steps[key] = state
-    _build.note_step(state.alive, state.nl > 0, dict(
-        setup=(t_stage - t0) * 1e3, capture=capture * 1e3,
-        replay=run * 1e3), hit)
-    return out
+                st.next("replay")
+                if state.cuda:
+                    state.replay()
+                else:
+                    state.run()
+                st.stop()
+                out = state.results()
+        except BaseException:
+            _steps.clear()   # nothing half made is kept
+            raise
+        _steps[key] = state
+        _build.note_step(state.alive, state.nl > 0, dict(
+            setup=st.ms("key", "entry", "stage"), capture=st.ms("capture"),
+            replay=st.ms("replay")), hit)
+        return out
+    finally:
+        tracer.end(sp)
 
 
 class _StepState:
@@ -1438,10 +1472,19 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     """A tensor on the host as numpy; from the card in one copy into
     page-locked memory (torch caches it): a fresh pageable buffer pays its
     page faults in the copy."""
-    if t.device.type == "cpu":
-        return t.numpy()
-    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    return out.copy_(t).numpy()
+    sp = tracer.begin("to_host")
+    try:
+        if t.device.type == "cpu":
+            return t.numpy()
+        s = tracer.begin("pinned")
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        tracer.end(s)
+        s = tracer.begin("copy")
+        out = out.copy_(t).numpy()
+        tracer.end(s)
+        return out
+    finally:
+        tracer.end(sp)
 
 
 def _atomic_savez(path: str, **arrays) -> None:

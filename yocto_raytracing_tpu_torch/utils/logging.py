@@ -7,7 +7,7 @@ wall-clock duration, and render phases report rays/s. A copy of the JAX
 package's ``utils/logging.py`` with two changes: the logger is
 ``yrt_torch`` (the JAX package's is ``yrt``), and its handler writes to
 the ``sys.stderr`` of the moment it logs, not the one it was created
-under.
+under. A phase is also a span of ``tracer``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import contextlib
 import logging
 import sys
 import time
+
+from . import tracer
 
 
 class _StderrHandler(logging.StreamHandler):
@@ -67,13 +69,17 @@ class Timer:
 
 @contextlib.contextmanager
 def log_phase(name: str, rays: int | None = None, logger=None):
-    """Context manager: log phase duration (+ Mrays/s when rays given)."""
+    """Context manager: log phase duration (+ Mrays/s when rays given).
+    The phase is also a span ``name`` (``tracer.begin``), so it shows in a
+    profiler's trace."""
     logger = logger or get_logger()
     t = Timer()
     logger.info("%s...", name)
+    sp = tracer.begin(name)
     try:
         yield t
     finally:
+        tracer.end(sp)
         dt = t.stop()
         if rays:
             logger.info("%s done in %.3fs (%.2f Mrays/s)", name, dt,
