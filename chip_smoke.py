@@ -986,7 +986,7 @@ def phase_frame_kernels(scene, width, height, samples, device) -> dict:
         library_ms=cuda_ms(lambda: rgb.view(-1, spp, 3).sum(1), 20),
         ldr_device_us=dev_us["ldr"], hdr_device_us=dev_us["hdr"],
         library_device_us=dev_us["sum1"],
-        **bound("pixel_finish", nbytes(rgb) + CHUNK_PIXELS * 3, n))
+        **bound("pixel_finish", nbytes(rgb) + CHUNK_PIXELS * 4, n))
     sum_ms = cuda_ms(lambda: renderer.pixel_finish(rgb, spp, False), 20)
     log(f"K3 pixel finish: {CHUNK_PIXELS} pixels x {spp} spp, "
         f"max |kernel - plain| sums {errs[0]}, u8 {errs[1]} (tolerance: "
@@ -1274,7 +1274,7 @@ def check_plain_pixels(what, img, scene, meta, samples, max_depth, start,
                                   meta.has_ks_textures, plain=True)
         parts.append(renderer.pixel_finish_plain(rgb, spp, True))
     plain = torch.cat(parts).cpu().numpy()
-    got = img.reshape(-1, 4)[start:stop, :3]
+    got = img.reshape(-1, 4)[start:stop]
     d = np.abs(plain.astype(np.int32) - got)
     log(f"{what}: kernel vs all-plain on pixels {start}-{stop}: max "
         f"{d.max()} u8 steps, {int((d > 0).any(axis=1).sum())} pixels "
@@ -1510,7 +1510,7 @@ def phase_area_frame(path, device, dev_info, name) -> dict:
                                   light_sampler=sampler)
         parts.append(renderer.pixel_finish_plain(rgb, spp, True))
     plain = torch.cat(parts).cpu().numpy()
-    d = np.abs(plain.astype(np.int32) - img.reshape(-1, 4)[:npix, :3])
+    d = np.abs(plain.astype(np.int32) - img.reshape(-1, 4)[:npix])
     log(f"frame {name}: kernel vs all-plain on {npix} pixels: max "
         f"{d.max()} u8 steps, {int((d > 0).any(axis=1).sum())} pixels "
         f"differ ({time.perf_counter() - t0:.1f} s)")

@@ -110,12 +110,15 @@ def test_pixel_finish_writes_the_chunk_rows():
     rng = np.random.default_rng(5)
     rgb = torch.from_numpy(rng.uniform(0, 2, (10 * 4, 3)).astype(np.float32))
     for ldr in (False, True):
-        out = torch.zeros((30, 3), dtype=torch.uint8 if ldr else torch.float32)
+        out = (torch.zeros((30, 4), dtype=torch.uint8) if ldr
+               else torch.zeros((30, 3), dtype=torch.float32))
         got = tren.pixel_finish(rgb, 4, ldr, out=out,
                                 chunk=torch.tensor([2], dtype=torch.int32))
         assert got is out
         assert torch.equal(out[20:], tren.pixel_finish(rgb, 4, ldr))
         assert not out[:20].any()
+        if ldr:   # RGBA, alpha 255
+            assert (out[20:, 3] == 255).all()
 
 
 def _jax_and_torch(host):
@@ -127,8 +130,8 @@ def _jax_and_torch(host):
 
 def _frames(ts, meta, **kw):
     """(device-loop frame, its record of the bounces that ran, eager frame,
-    the eager loop's nearest-hit queries) as (npix, 3) numpy, f32 sums or
-    u8."""
+    the eager loop's nearest-hit queries) as numpy: (npix, 3) f32 sums, or
+    with ``ldr`` (npix, 4) u8 RGBA."""
     calls = []
     query = ttrav.intersect_scene
 
@@ -145,7 +148,7 @@ def _frames(ts, meta, **kw):
                                  chunk_pixels=CHUNK, **kw)
     finally:
         ttrav.intersect_scene = query
-    assert dev.shape == (4 * CHUNK, 3)
+    assert dev.shape == (4 * CHUNK, 4 if kw.get("ldr") else 3)
     return dev[:W * H].numpy(), ran, eager, calls.count(False)
 
 
@@ -185,8 +188,8 @@ def test_device_loop_schedule(name):
     assert d.max() <= 1
     ldr_j = jren.render_image(jscene.to_jax(jd), meta, W, H, SAMPLES,
                               max_depth=DEPTH, ldr=True)
-    assert np.abs(u8.astype(np.int32)
-                  - ldr_j.reshape(-1, 4)[:, :3]).max() <= 1
+    assert np.abs(u8.astype(np.int32) - ldr_j.reshape(-1, 4)).max() <= 1
+    assert (u8[:, 3] == 255).all()
     assert hdr[..., :3].max() > 0.05
 
 

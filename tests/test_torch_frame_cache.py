@@ -267,6 +267,50 @@ def test_bounces_past_the_first_mirror_run():
     _check(ts, meta, True, **kw)
 
 
+def _old_rgba(ts, meta, w, h, max_depth, **kw):
+    """``render_image(ldr=True)``'s image as the host assembled it before K3
+    wrote RGBA: the three-channel u8 tonemap of the plain pixel finish (sum
+    in sample order, / spp, pow(max(x, 0), 1/2.2), clip, * 255, truncate),
+    copied into a full-255 (npix, 4) buffer."""
+    spp = SAMPLES * SAMPLES
+    kw.pop("chunk_pixels", None)
+    ids = torch.arange(w * h * spp, dtype=torch.int32)
+    rgb = renderer.trace_rays(ts, ids, torch.full((3,), 0.1), w, h, SAMPLES,
+                              max_depth, meta.has_kd_textures,
+                              meta.has_ks_textures, **kw)
+    per = rgb.reshape(-1, spp, 3)
+    acc = per[:, 0]
+    for k in range(1, spp):
+        acc = acc + per[:, k]
+    x = acc / torch.tensor(spp, dtype=torch.float32)
+    x = torch.pow(torch.clamp(x, min=0.0), renderer.INV_GAMMA)
+    out = (torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8).numpy()
+    img = np.full((w * h, 4), 255, np.uint8)
+    img[:, :3] = out
+    return img.reshape(h, w, 4)
+
+
+@pytest.mark.parametrize("name", ["hair", "area_mirror"])
+def test_render_image_rgba_is_the_old_assembly(name):
+    """``render_image(ldr=True)`` returns K3's RGBA buffer as copied: a
+    C-contiguous (h, w, 4) u8 image, alpha 255, bit-equal to the old host
+    assembly of the three tonemapped channels; the image is the call's own,
+    not a view of the loop's buffer."""
+    _, _, ts, meta, kw = _case(name, "cpu")
+    renderer._frames.clear()
+    img = renderer.render_image(ts, meta, W, H, SAMPLES, ldr=True, **kw)
+    assert img.dtype == np.uint8 and img.shape == (H, W, 4)
+    assert img.flags["C_CONTIGUOUS"]
+    assert (img[..., 3] == 255).all()
+    assert np.array_equal(img, _old_rgba(ts, meta, W, H, **kw))
+    (state,) = renderer._frames.values()
+    assert not np.shares_memory(img, state.out.numpy())
+    again = img.copy()
+    renderer.render_image(ts, meta, W, H, SAMPLES, ldr=True, ambient=0.4,
+                          **kw)
+    assert np.array_equal(img, again)
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
@@ -367,3 +411,23 @@ def test_card_first_form_gives_the_same_frame(cuda_device, name):
     want = _device(ts, meta, CW, CH, **kw)
     first = renderer._frame_device_first(ts, meta, CW, CH, SAMPLES, **kw)
     assert np.array_equal(_bits(first[:CW * CH].cpu().numpy()), _bits(want))
+
+
+@pytest.mark.cuda
+def test_card_render_image_returns_its_own_buffer(cuda_device):
+    """Two successive ``render_image`` calls return distinct page-locked
+    copies: the first image is unchanged by the second frame, which differs
+    from it."""
+    _, ts, meta, kw = _card_case("mirror", cuda_device)
+    renderer._frames.clear()
+    a = renderer.render_image(ts, meta, CW, CH, SAMPLES, ldr=True, **kw)
+    first = a.copy()
+    b = renderer.render_image(ts, meta, CW, CH, SAMPLES, ldr=True,
+                              ambient=0.4, **kw)
+    assert a.shape == b.shape == (CH, CW, 4) and a.dtype == np.uint8
+    assert not np.shares_memory(a, b)
+    assert np.array_equal(a, first) and not np.array_equal(a, b)
+    assert (a[..., 3] == 255).all() and (b[..., 3] == 255).all()
+    want = renderer.frame_eager(ts, meta, CW, CH, SAMPLES, ldr=True,
+                                ambient=0.4, **kw)
+    assert np.array_equal(b.reshape(-1, 4), want)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain torch versions, on a card.
 
 K1-K3 bit-equal (K3's u8 within 1 step, also on partial blocks, views at
-a 12-byte offset and 4,900 spp; K1 also on dead, NaN-tmax and
+a 12-byte offset and 4,900 spp; its RGBA equal to plain's at 16 spp, alone
+and at a frame buffer's chunk rows; K1 also on dead, NaN-tmax and
 partial batches, the 10,004-instance scene, equal-t ties, axis-parallel and
 NaN directions, and after a training step); K4 (shading)
 bit-equal to the plain shading and to its first form (``shade_simple.cu``)
@@ -257,7 +258,40 @@ def test_pixel_kernel_matches_plain(cuda_device, spp):
         assert torch.equal(x, y), (npix, offset)
         x = renderer.pixel_finish_plain(rgb, spp, True)
         y = renderer.pixel_finish(rgb, spp, True)
+        assert y.shape == (npix, 4) and (y[:, 3] == 255).all()
         assert (x.int() - y.int()).abs().max() <= 1, (npix, offset)
+
+
+@pytest.mark.cuda
+def test_pixel_kernel_rgba_in_a_frame_buffer(cuda_device):
+    """K3's LDR RGBA (one 4-byte store a pixel, alpha 255) equals the plain
+    version's, launched alone and into a frame buffer at a chunk's rows (the
+    other rows untouched); a misaligned buffer is refused; the device
+    loop's RGBA frame is the eager loop's."""
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+    npix, spp = 3001, 16
+    rgb = torch.rand((npix * spp, 3), device=cuda_device,
+                     generator=g) * 1.5 - 0.2
+    plain = renderer.pixel_finish_plain(rgb, spp, True)
+    alone = renderer.pixel_finish(rgb, spp, True)
+    assert torch.equal(alone, plain)
+    out = torch.zeros((3 * npix, 4), dtype=torch.uint8, device=cuda_device)
+    chunk = torch.tensor([1], dtype=torch.int32, device=cuda_device)
+    assert renderer.pixel_finish(rgb, spp, True, out=out, chunk=chunk) is out
+    assert torch.equal(out[npix:2 * npix], plain)
+    assert not out[:npix].any() and not out[2 * npix:].any()
+    flat = torch.zeros(3 * npix * 4 + 1, dtype=torch.uint8,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        renderer.pixel_finish(rgb, spp, True, out=flat[1:].view(-1, 4),
+                              chunk=chunk)
+    ts, meta, kw = _loop_case("mirror", cuda_device)
+    npix = LOOP_W * LOOP_H
+    eager = renderer.frame_eager(ts, meta, LOOP_W, LOOP_H, 2, ldr=True, **kw)
+    dev = renderer.frame_device(ts, meta, LOOP_W, LOOP_H, 2, ldr=True, **kw)
+    assert dev.shape[1] == 4 and eager.shape == (npix, 4)
+    assert np.array_equal(dev[:npix].cpu().numpy(), eager)
+    assert (eager[:, 3] == 255).all()
 
 
 @pytest.mark.cuda
@@ -635,7 +669,7 @@ def test_stochastic_area_frame_matches_plain(cuda_device):
                               has_kd_textures=meta.has_kd_textures,
                               has_ks_textures=meta.has_ks_textures, **kw)
     plain = renderer.pixel_finish_plain(rgb, 4, True).cpu().numpy()
-    d = np.abs(plain.astype(np.int32) - img.reshape(-1, 4)[:, :3])
+    d = np.abs(plain.astype(np.int32) - img.reshape(-1, 4))
     assert d.max() <= 1
     again = renderer.render_image(ts, meta, w, h, 2, ldr=True,
                                   chunk_pixels=100, **kw)

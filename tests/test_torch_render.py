@@ -203,8 +203,9 @@ def test_pixel_finish_plain():
         acc = acc + ref[:, k]
     np.testing.assert_array_equal(sums, acc)
     u8 = tren.pixel_finish(torch.from_numpy(rgb), 9, ldr=True).numpy()
+    assert u8.shape == (40, 4) and (u8[:, 3] == 255).all()
     img = np.ones((40, 1, 4), np.float32)
     img[:, 0, :3] = acc / np.float32(9)
-    host = image_mod.tonemap(img)[:, 0, :3]
+    host = image_mod.tonemap(img)[:, 0]
     assert np.abs(u8.astype(np.int32) - host).max() <= 1
 

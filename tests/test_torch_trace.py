@@ -9,6 +9,8 @@ On the CPU:
 * with no profiler and no ``recording()`` block nothing is recorded, no
   clock is read and nothing is allocated;
 * a span's self time is its duration less its children's;
+* ``render_image``'s ``host_rgba`` is 0 where the image is K3's copied
+  RGBA buffer, 1 where the host made a pass over the pixels;
 * the loop span's ``hit`` is the record's ``cache_hit``, and the record's
   ``host_ms`` are the stage spans' durations, frames and steps alike;
 * the ring keeps the last ``RING`` requests;
@@ -244,6 +246,25 @@ def test_loop_span_hit_and_host_ms_are_the_records(which):
             assert host["replay"] == ns["replay"] / 1e6
             assert host.get("chunk0", 0.0) == 0.0
     assert rec["cache_hit"]
+
+
+@pytest.mark.parametrize("mode,host_rgba", [
+    ("ldr", 0), ("hdr", 1), ("ldr checkpointed", 1)])
+def test_render_image_notes_host_rgba(tmp_path, mode, host_rgba):
+    """``render_image``'s ``host_rgba`` is 0 where the image is K3's copied
+    RGBA buffer, 1 where the host made a pass over the pixels (f32 sums,
+    the checkpointed path's host tonemap); the ``image`` span is there
+    either way."""
+    ts, meta = _frame_case()
+    kw = dict(ldr=mode != "hdr", max_depth=DEPTH, chunk_pixels=CHUNK)
+    if mode == "ldr checkpointed":
+        kw["checkpoint"] = str(tmp_path / "ck.npz")
+    with tracer.recording():
+        renderer.render_image(ts, meta, W, H, SAMPLES, **kw)
+    spans = tracer.spans()
+    (root,) = _named(spans, "render_image")
+    assert root.attrs == {"host_rgba": host_rgba}
+    assert [s.name for s in _children(spans, root)][-1] == "image"
 
 
 def test_first_form_records_no_spans():

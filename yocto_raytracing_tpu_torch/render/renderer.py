@@ -89,8 +89,9 @@ def image_width(aspect: float, resolution: int) -> int:
 
 def pixel_finish_plain(rgb, spp: int, ldr: bool):
     """(npix*spp, 3) f32 per-ray radiance -> (npix, 3) per-pixel sums (f32),
-    or with ``ldr`` the tonemapped u8: sum/spp, pow(max(x, 0), 1/2.2), clip
-    to [0, 1], * 255, truncate (image.tonemap, exposure 0)."""
+    or with ``ldr`` the (npix, 4) u8 RGBA: each channel sum/spp, pow(max(x,
+    0), 1/2.2), clip to [0, 1], * 255, truncate (image.tonemap, exposure
+    0), and alpha 255."""
     per = rgb.reshape(-1, spp, 3)
     acc = per[:, 0]
     for k in range(1, spp):      # sample order, as the reference accumulates
@@ -99,15 +100,20 @@ def pixel_finish_plain(rgb, spp: int, ldr: bool):
         return acc
     x = acc / isect.device_scalar(spp, rgb.device)
     x = torch.pow(torch.clamp(x, min=0.0), INV_GAMMA)
-    return (torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
+    out = torch.full((acc.shape[0], 4), 255, dtype=torch.uint8,
+                     device=rgb.device)
+    out[:, :3] = (torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
+    return out
 
 
 def pixel_finish_cuda(rgb, spp: int, ldr: bool, out=None, chunk=None):
-    """K3 launch: same contract as ``pixel_finish_plain``, CUDA only.
+    """K3 launch: same contract as ``pixel_finish_plain``, CUDA only: one
+    thread a pixel, (npix, 3) f32 sums, or with ``ldr`` (npix, 4) u8 RGBA
+    written as one 4-byte store a pixel.
 
-    With ``out`` (a frame buffer of (rows, 3), u8 with ``ldr``, else f32)
-    and ``chunk`` (a (1,) i32 device chunk index), K3 writes the npix
-    pixels into ``out``'s rows chunk * npix.., reading the index on the
+    With ``out`` (a frame buffer of (rows, 4) u8 with ``ldr``, else (rows,
+    3) f32) and ``chunk`` (a (1,) i32 device chunk index), K3 writes the
+    npix pixels into ``out``'s rows chunk * npix.., reading the index on the
     card, and returns ``out``."""
     dev = rgb.device
     _build.check_tensor("rgb", rgb, torch.float32, (-1, 3), dev)
@@ -117,15 +123,17 @@ def pixel_finish_cuda(rgb, spp: int, ldr: bool, out=None, chunk=None):
     npix = rgb.shape[0] // spp
     if (out is None) != (chunk is None):
         raise ValueError("out and chunk go together")
-    dtype = torch.uint8 if ldr else torch.float32
+    dtype, cols = (torch.uint8, 4) if ldr else (torch.float32, 3)
     if out is None:
-        out = torch.empty((npix, 3), dtype=dtype, device=dev)
+        out = torch.empty((npix, cols), dtype=dtype, device=dev)
     else:
-        _build.check_tensor("out", out, dtype, (-1, 3), dev)
+        _build.check_tensor("out", out, dtype, (-1, cols), dev)
         _build.check_tensor("chunk", chunk, torch.int32, (1,), dev)
         if out.shape[0] % npix:
             raise ValueError(f"out: {out.shape[0]} rows are not whole "
                              f"chunks of {npix} pixels")
+        if out.data_ptr() % 4:
+            raise ValueError("out: not 4-byte aligned")
     ptr = _build.ptr
     err = _build.library().yrt_pixel_finish(
         ptr(rgb), npix, spp, int(ldr), None if ldr else ptr(out),
@@ -137,10 +145,10 @@ def pixel_finish_cuda(rgb, spp: int, ldr: bool, out=None, chunk=None):
 
 
 def pixel_finish(rgb, spp: int, ldr: bool, out=None, chunk=None):
-    """Per-pixel spp sum (and tonemap with ``ldr``); with ``out`` and
-    ``chunk`` written into a frame buffer at the chunk's rows, as
-    ``pixel_finish_cuda`` says. CPU tensors take the plain version; CUDA
-    tensors launch K3 (or raise)."""
+    """Per-pixel spp sums, (npix, 3) f32, or with ``ldr`` the tonemapped
+    (npix, 4) u8 RGBA, alpha 255; with ``out`` and ``chunk`` written into a
+    frame buffer at the chunk's rows, as ``pixel_finish_cuda`` says. CPU
+    tensors take the plain version; CUDA tensors launch K3 (or raise)."""
     if _build.device_kind(rgb) == "cuda":
         return pixel_finish_cuda(rgb, spp, ldr, out, chunk)
     px = pixel_finish_plain(rgb, spp, ldr)
@@ -490,7 +498,8 @@ def render_image(scene, meta, width: int, height: int, samples: int,
                  light_sampler=None, checkpoint: str | None = None
                  ) -> np.ndarray:
     """Full frame -> (height, width, 4) f32 linear with alpha 1, or with
-    ``ldr`` the tonemapped (height, width, 4) u8 with alpha 255.
+    ``ldr`` the tonemapped (height, width, 4) u8 with alpha 255, C-contiguous
+    either way.
 
     Pixels are rendered in scanline order, ``chunk_pixels`` at a time, on
     the scene's device; the tail chunk's extra lanes repeat the last ray
@@ -509,17 +518,27 @@ def render_image(scene, meta, width: int, height: int, samples: int,
     kept and the render resumes after them. With ``ldr`` the checkpointed
     path tonemaps on the host (``image.tonemap``), so a frame resumed from
     any snapshot is the uninterrupted one bit for bit; without a
-    checkpoint, K3 tonemaps on the device (within 1 u8 step of the host).
+    checkpoint, K3 tonemaps on the device (within 1 u8 step of the host)
+    into the image's own layout, RGBA with alpha 255, and the image is the
+    host buffer that the frame was copied into, reshaped: the host makes no
+    pass over its pixels. That buffer is the call's own (on the card a
+    fresh page-locked tensor from torch's caching host allocator, kept
+    alive by the returned array), so the next frame never overwrites an
+    image returned before it.
 
     Spans (``utils/tracer.py``): ``render_image`` around ``frame_device``
     (``frame_eager`` has no span of its own), ``to_host`` (``pinned``, the
     page-locked buffer; ``copy``, which waits for the frame's kernels) and
-    ``image``, the RGBA assembly.
+    ``image``, the image made from the host rows (a reshape where K3
+    tonemapped). ``render_image``'s attribute ``host_rgba`` is 1 where the
+    host made a pass over the pixels (f32, or the checkpointed path), 0
+    where the image is the copied buffer.
     """
     sp = tracer.begin("render_image")
     try:
         npix = width * height
         device_ldr = ldr and not checkpoint
+        tracer.note(sp, "host_rgba", not device_ldr)
         args = (scene, meta, width, height, samples, ambient, max_depth,
                 chunk_pixels, device_ldr, stochastic, seed, light_sampler)
         if not checkpoint:
@@ -527,20 +546,20 @@ def render_image(scene, meta, width: int, height: int, samples: int,
         else:
             out = frame_eager(*args, checkpoint=checkpoint)
         s = tracer.begin("image")
-        img = _rgba(out, width, height, samples * samples, ldr, device_ldr)
+        if device_ldr:
+            img = out.reshape(height, width, 4)
+        else:
+            img = _rgba(out, width, height, samples * samples, ldr)
         tracer.end(s)
         return img
     finally:
         tracer.end(sp)
 
 
-def _rgba(out, width, height, spp, ldr, device_ldr) -> np.ndarray:
-    """``render_image``'s image from the frame's (npix, 3) host rows."""
+def _rgba(out, width, height, spp, ldr) -> np.ndarray:
+    """``render_image``'s image from the frame's (npix, 3) f32 host sums:
+    divided by spp, alpha 1, and with ``ldr`` tonemapped on the host."""
     npix = width * height
-    if device_ldr:
-        img = np.full((npix, 4), 255, np.uint8)
-        img[:, :3] = out
-        return img.reshape(height, width, 4)
     img = np.ones((npix, 4), np.float32)
     img[:, :3] = out / np.float32(spp)
     img = img.reshape(height, width, 4)
@@ -554,10 +573,11 @@ def frame_eager(scene, meta, width: int, height: int, samples: int,
                 chunk_pixels: int = 1 << 15, ldr: bool = False,
                 stochastic: bool = False, seed: int = 0, light_sampler=None,
                 checkpoint: str | None = None) -> np.ndarray:
-    """The frame's (npix, 3) per-pixel sums (f32), or with ``ldr`` K3's u8
-    tonemap, on the host: ``trace_rays`` and ``pixel_finish`` chunk by
-    chunk, each chunk copied to the host, with ``render_image``'s
-    ``checkpoint`` (which resumes after a snapshot's pixels)."""
+    """The frame's (npix, 3) per-pixel sums (f32), or with ``ldr`` K3's
+    (npix, 4) u8 RGBA tonemap, on the host: ``trace_rays`` and
+    ``pixel_finish`` chunk by chunk, each chunk copied to the host, with
+    ``render_image``'s ``checkpoint`` (which resumes after a snapshot's
+    pixels)."""
     spp = samples * samples
     npix = width * height
     dev = scene.device
@@ -570,7 +590,8 @@ def frame_eager(scene, meta, width: int, height: int, samples: int,
         records=hit_records.pack(scene_lib.detached(scene)))
         if dev.type == "cuda" else None)
     srec = shade_records_lib.pack(scene) if dev.type == "cuda" else None
-    out = np.empty((npix, 3), np.uint8 if ldr else np.float32)
+    out = (np.empty((npix, 4), np.uint8) if ldr
+           else np.empty((npix, 3), np.float32))
     done = 0
     if checkpoint:
         # every knob that changes per-chunk pixel values is in the key, or
@@ -614,9 +635,10 @@ def frame_device(scene, meta, width: int, height: int, samples: int,
                  chunk_pixels: int = 1 << 15, ldr: bool = False,
                  stochastic: bool = False, seed: int = 0,
                  light_sampler=None) -> torch.Tensor:
-    """The frame's per-pixel sums (f32), or with ``ldr`` K3's u8 tonemap,
-    as a (chunks * chunk_pixels, 3) tensor on the scene's device: rows past
-    width * height repeat the last pixel (the caller drops them). The same
+    """The frame's per-pixel sums, a (chunks * chunk_pixels, 3) f32 tensor
+    on the scene's device, or with ``ldr`` K3's tonemap, a (chunks *
+    chunk_pixels, 4) u8 RGBA tensor with alpha 255: rows past width *
+    height repeat the last pixel (the caller drops them). The same
     bits as ``frame_eager``. The tensor is the loop's own frame buffer,
     valid until the next ``frame_device`` call: copy it to keep it.
 
@@ -814,8 +836,9 @@ class _FrameState:
         self.lane = torch.arange(n, dtype=i32, device=dev)
         self.tmin = torch.full((n,), RAY_EPS, dtype=f32, device=dev)
         self.chunk = torch.zeros((1,), dtype=i32, device=dev)
-        self.out = torch.empty((self.n_chunks * self.chunk_pixels, 3),
-                               dtype=torch.uint8 if ldr else f32, device=dev)
+        rows = self.n_chunks * self.chunk_pixels
+        self.out = (torch.empty((rows, 4), dtype=torch.uint8, device=dev)
+                    if ldr else torch.empty((rows, 3), dtype=f32, device=dev))
         self.ids = torch.empty((n,), dtype=i32, device=dev)
         self.acc = torch.empty((n, 3), dtype=f32, device=dev)
         self.thr = torch.empty((n, 3), dtype=f32, device=dev)
@@ -1469,13 +1492,14 @@ def _if_node(handle, body):
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
-    """A tensor on the host as numpy; from the card in one copy into
-    page-locked memory (torch caches it): a fresh pageable buffer pays its
-    page faults in the copy."""
+    """A tensor on the host as numpy, in a buffer of its own (never a view
+    of ``t``); from the card in one copy into page-locked memory (torch
+    caches it): a fresh pageable buffer pays its page faults in the
+    copy."""
     sp = tracer.begin("to_host")
     try:
         if t.device.type == "cpu":
-            return t.numpy()
+            return t.numpy().copy()
         s = tracer.begin("pinned")
         out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         tracer.end(s)
@@ -1521,8 +1545,8 @@ def render_scene_file(path: str, resolution: int = 720, samples: int = 1,
     ``stochastic`` (jittered AA + thin-lens DOF), ``seed`` and
     ``area_lights`` (soft shadows from the emissive shapes' elements) are
     the JAX package's stochastic modes.
-    Returns (image, host scene, TorchScene, meta); the image is f32 HDR, or
-    u8 with ``ldr``.
+    Returns (image, host scene, TorchScene, meta); the image is
+    ``render_image``'s: (height, width, 4) f32 HDR, or u8 RGBA with ``ldr``.
     """
     check_intersector(intersector)
     host = scene_lib.load_scene(path)
