@@ -52,8 +52,7 @@ def hand_miss(args, kw, npix, eager_chunk0):
     from yocto_raytracing_tpu_torch.render import renderer
 
     scene, sampler = args[0], kw["light_sampler"]
-    pos = (kw["max_depth"], kw["chunk_pixels"], False, kw["stochastic"],
-           kw["seed"], sampler)
+    pos = (kw["max_depth"], kw["chunk_pixels"], False, kw["stochastic"])
     renderer._frames.clear()
     names, t = [], [time.perf_counter()]
 
@@ -62,9 +61,9 @@ def hand_miss(args, kw, npix, eager_chunk0):
         t.append(time.perf_counter())
 
     with torch.no_grad():
-        state = renderer._FrameState(*args, *pos)
+        state = renderer._FrameState(*args, *pos, sampler)
         mark("entry")
-        state.stage(scene, sampler, 0.1)
+        state.stage(scene, sampler, 0.1, kw["seed"])
         mark("stage")
         if eager_chunk0:
             state.run_chunk()
@@ -73,7 +72,8 @@ def hand_miss(args, kw, npix, eager_chunk0):
         mark("capture")
         state.replay(state.n_chunks - int(eager_chunk0))
         mark("replay")
-    renderer._frames[renderer.frame_key(*args, *pos)] = state
+    renderer._frames[renderer.frame_key(*args, *pos, kw["seed"],
+                                        sampler)] = state
     out = renderer.to_host(state.out[:npix])
     return out, dict(zip(names, np.diff(t) * 1e3))
 
@@ -128,7 +128,7 @@ def staging(label, args, kw, reps, smi) -> None:
     want = [t.clone() for t in dst]
 
     def k13():
-        state.stage(args[0], kw["light_sampler"], 0.1)
+        state.stage(args[0], kw["light_sampler"], 0.1, kw["seed"])
 
     def eager():
         new = (*hit_records.pack(state.fixed)[:3],

@@ -348,7 +348,7 @@ def library() -> ctypes.CDLL:
     u32p = ctypes.POINTER(u32)   # magic_divisor's numbers
     lib.yrt_camera_rays_stochastic.restype = i32
     lib.yrt_camera_rays_stochastic.argtypes = ([vp, i32, i32, i32, i32, u32p,
-                                                u32] + [vp] * 10)
+                                                u32] + [vp] * 11)
     lib.yrt_camera_stochastic_bwd.restype = i32
     lib.yrt_camera_stochastic_bwd.argtypes = ([vp, i32, i32, i32, i32, u32p,
                                                u32] + [vp] * 12)
@@ -356,11 +356,12 @@ def library() -> ctypes.CDLL:
     lib.yrt_camera_stochastic_bwd_simple.argtypes = ([vp, i32, i32, i32, i32,
                                                       u32] + [vp] * 11)
     light_args = [vp, i32, u32, vp, i32, i32] + [vp] * 5 + [i32]
-    for name in ("yrt_light_points", "yrt_light_points_simple",
-                 "yrt_light_points_bwd_simple"):
+    for name in ("yrt_light_points_simple", "yrt_light_points_bwd_simple"):
         fn = getattr(lib, name)
         fn.restype = i32
         fn.argtypes = light_args + [vp] * 4
+    lib.yrt_light_points.restype = i32
+    lib.yrt_light_points.argtypes = light_args + [vp] * 5   # + seed word
     lib.yrt_light_points_bwd.restype = i32
     lib.yrt_light_points_bwd.argtypes = light_args + [vp, i32] + [vp] * 4
     lib.yrt_light_points_bwd_scratch.restype = ctypes.c_longlong

@@ -13,7 +13,8 @@
 //   1. the ray's variates r0, r1, r2, once: the top 24 bits of
 //      pcg(id ^ h_k) times 2^-24, with h_k = pcg(lseed + k) and
 //      lseed = seed ^ 0x85EBCA6B; h_k depends on the seed alone and is
-//      computed once per thread;
+//      computed once per thread (the seed is the launch argument, or the
+//      caller's device seed word, read once per thread where it is given);
 //   2. slot = the count of cdf[l, :] < r0 * cdf[l, E-1], by binary search
 //      (below);
 //   3. prim = clip(prim_lo[l] + min(slot, n[l] - 1), 0, P - 1), its type
@@ -297,7 +298,7 @@ __device__ __forceinline__ V3 elem_point(const ElemPoints& r, float r1,
 __global__ void __launch_bounds__(kPointsThreads) light_points_kernel(
     const int* __restrict__ ids, int n, unsigned int seed, LightTables t,
     const float* __restrict__ pos, const float* __restrict__ light_pos,
-    float* __restrict__ out) {
+    const unsigned int* __restrict__ seed_word, float* __restrict__ out) {
   __shared__ float s_cdf[kStageSlots];
   __shared__ ElemPoints s_rec[kStageSlots];
   const int e = t.num_elems;
@@ -314,7 +315,8 @@ __global__ void __launch_bounds__(kPointsThreads) light_points_kernel(
     stage_tables(t, pos, light_pos, s_cdf, s_rec);
     __syncthreads();
   }
-  const LightSeed ls = light_seed(seed);
+  const LightSeed ls =
+      light_seed(seed_word != nullptr ? __ldg(seed_word) : seed);
   const long long stride = 3LL * n;
 #pragma unroll
   for (int r = 0; r < kPointsRays; ++r) {
@@ -683,13 +685,17 @@ yrt::LightTables light_tables(const float* cdf, int num_lights,
 
 }  // namespace
 
+// K8. seed_word, where not null, is a device word holding the seed's 32
+// bits, read in place of `seed` when the kernel runs (the device loop's kept
+// graph, whose launch arguments are fixed at capture).
 extern "C" int yrt_light_points(const int* ids, int n, unsigned int seed,
                                 const float* cdf, int num_lights,
                                 int num_elems, const int* elem_n,
                                 const int* prim_lo, const uint8_t* deg,
                                 const int* prim_v, const int* prim_type,
                                 int num_prims, const float* pos,
-                                const float* light_pos, float* out,
+                                const float* light_pos,
+                                const unsigned int* seed_word, float* out,
                                 void* stream) {
   if (n > 0 && num_lights > 0) {
     yrt::light_points_kernel<<<yrt::blocks_for(n, yrt::kPointsBlockRays),
@@ -698,7 +704,7 @@ extern "C" int yrt_light_points(const int* ids, int n, unsigned int seed,
         ids, n, seed,
         light_tables(cdf, num_lights, num_elems, elem_n, prim_lo, deg,
                      prim_v, prim_type, num_prims),
-        pos, light_pos, out);
+        pos, light_pos, seed_word, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

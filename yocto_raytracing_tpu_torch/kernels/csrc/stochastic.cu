@@ -16,7 +16,10 @@
 // normalized direction to the pinhole target), built with --fmad=false, so
 // K7 is held bit-equal to it on the card. With aperture 0 the origin is the
 // camera origin and the ray equals K2's for the same uv. The frame scalars
-// h, w, focus and aperture are read from device memory, as in K2.
+// h, w, focus and aperture are read from device memory, as in K2. So is the
+// seed where the caller gives a seed word (the device loop's kept graph,
+// whose launch arguments are fixed at capture): each thread reads it once;
+// without one, the launch's own seed argument is used.
 //
 // What bounds K7 on an H100: 4 bytes read and 32 bytes written per ray
 // (uv, ro, rd), about 5.6 us per 524,288-ray chunk at 3.35 TB/s; ~150
@@ -160,14 +163,16 @@ __device__ __forceinline__ LensRay lens_ray(const CamFrame& c,
 
 __global__ void camera_rays_stochastic_kernel(
     const int* __restrict__ ids, int n, FrameDivisors dv, int height,
-    unsigned int seed, const float* __restrict__ axes,
+    unsigned int seed, const unsigned int* __restrict__ seed_word,
+    const float* __restrict__ axes,
     const float* __restrict__ org, const float* __restrict__ h_p,
     const float* __restrict__ w_p, const float* __restrict__ focus_p,
     const float* __restrict__ aperture_p, float* __restrict__ uv,
     float* __restrict__ ro, float* __restrict__ rd) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
-  const StochasticSample sm = stochastic_sample(ids[k], dv, height, seed);
+  const unsigned int s = seed_word != nullptr ? __ldg(seed_word) : seed;
+  const StochasticSample sm = stochastic_sample(ids[k], dv, height, s);
   const CamFrame c = cam_frame(axes, org, h_p, w_p, focus_p, aperture_p);
   const LensRay r = lens_ray(c, sm);
   uv[2 * k] = sm.u;
@@ -254,18 +259,21 @@ yrt::FrameDivisors frame_divisors(const unsigned int* magic, int width,
 
 }  // namespace
 
+// K7. seed_word, where not null, is a device word holding the seed's 32
+// bits, read in place of `seed` when the kernel runs.
 extern "C" int yrt_camera_rays_stochastic(
     const int* ids, int n, int width, int height, int samples,
-    const unsigned int* magic, unsigned int seed, const float* cam_axes,
-    const float* cam_o, const float* h, const float* w, const float* focus,
+    const unsigned int* magic, unsigned int seed,
+    const unsigned int* seed_word, const float* cam_axes, const float* cam_o,
+    const float* h, const float* w, const float* focus,
     const float* aperture, float* uv, float* ro, float* rd, void* stream) {
   if (n > 0) {
     constexpr int kThreads = 256;
     yrt::camera_rays_stochastic_kernel<<<yrt::blocks_for(n, kThreads),
                                          kThreads, 0,
                                          static_cast<cudaStream_t>(stream)>>>(
-        ids, n, frame_divisors(magic, width, samples), height, seed, cam_axes,
-        cam_o, h, w, focus, aperture, uv, ro, rd);
+        ids, n, frame_divisors(magic, width, samples), height, seed,
+        seed_word, cam_axes, cam_o, h, w, focus, aperture, uv, ro, rd);
   }
   return static_cast<int>(cudaGetLastError());
 }

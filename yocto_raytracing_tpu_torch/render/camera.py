@@ -452,6 +452,23 @@ def camera_rays_stochastic_plain(scene: TorchScene, ids, width: int,
     return uv, ro, rd
 
 
+def seed_word_value(seed: int) -> int:
+    """The i32 whose bits are the seed's 32 (``seed & 0xFFFFFFFF``): what a
+    seed word holds, and what K7 and K8 read from it as u32."""
+    v = seed & U32
+    return v - (1 << 32) if v >> 31 else v
+
+
+def _seed_args(seed, device) -> tuple:
+    """(u32 seed, seed word pointer or None) of a K7 or K8 launch: an int
+    seed is passed by value; a (1,) i32 tensor on the launch's device is
+    the word the kernel reads instead."""
+    if isinstance(seed, torch.Tensor):
+        _build.check_tensor("seed_word", seed, torch.int32, (1,), device)
+        return 0, _build.ptr(seed)
+    return seed & U32, None
+
+
 def _check_stochastic_args(ids, cam_axes, cam_o, h, w, focus, aperture,
                            width, height, samples):
     dev = ids.device
@@ -500,14 +517,17 @@ def camera_rays_stochastic_launch(ids, cam_axes, cam_o, h, w, focus,
                                   aperture, width, height, samples, seed,
                                   out=None):
     """K7 launch, no autograd: (uv, ro, rd), written into ``out`` when
-    given. CUDA only."""
+    given. CUDA only. ``seed`` is an int, or a (1,) i32 device tensor
+    holding the seed's 32 bits (``seed_word``), which K7 reads when it runs:
+    a captured graph's launch then follows the word."""
     _check_stochastic_args(ids, cam_axes, cam_o, h, w, focus, aperture,
                            width, height, samples)
     uv, ro, rd = _outputs(out, ids.shape[0], ids.device)
+    value, word = _seed_args(seed, ids.device)
     ptr = _build.ptr
     err = _build.library().yrt_camera_rays_stochastic(
         ptr(ids), ids.shape[0], width, height, samples,
-        _magic_arg(width, samples), seed & U32,
+        _magic_arg(width, samples), value, word,
         ptr(cam_axes), ptr(cam_o), ptr(h), ptr(w), ptr(focus), ptr(aperture),
         ptr(uv), ptr(ro), ptr(rd), _build.current_stream())
     _build.check_launch(err, "yrt_camera_rays_stochastic")

@@ -234,10 +234,12 @@ class LightPointsFn(torch.autograd.Function):
         return None, None, None, None, d_pos, d_light_pos
 
 
-def light_points_launch(scene, sampler, ids, seed: int, pos, light_pos,
+def light_points_launch(scene, sampler, ids, seed, pos, light_pos,
                         out=None):
     """K8 launch, no autograd: the (L, N, 3) points, written into ``out``
-    when given. CUDA only."""
+    when given. CUDA only. ``seed`` is an int, or a (1,) i32 device tensor
+    holding the seed's 32 bits (a seed word), which K8 reads when it runs:
+    a captured graph's launch then follows the word."""
     dev = ids.device
     shape = (sampler["cdf"].shape[0], ids.shape[0], 3)
     _build.check_tensor("pos", pos, torch.float32, (-1, 3), dev)
@@ -246,8 +248,9 @@ def light_points_launch(scene, sampler, ids, seed: int, pos, light_pos,
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=dev)
     _build.check_tensor("out", out, torch.float32, shape, dev)
-    _launch("yrt_light_points", scene, sampler, ids, seed, pos, light_pos,
-            out)
+    value, word = camera_mod._seed_args(seed, dev)
+    _launch("yrt_light_points", scene, sampler, ids, value, pos, light_pos,
+            word, out)
     _build.launches["light_points"] += 1
     return out
 

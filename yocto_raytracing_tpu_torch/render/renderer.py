@@ -665,12 +665,15 @@ def frame_device(scene, meta, width: int, height: int, samples: int,
     copied into the entry's, K1's and K4's records packed from the copies
     into the entry's record tensors by one launch of K13
     (``ops/records.py``), the camera's frame written by five small ops,
-    ``ambient`` written. A call with a new key (a miss) first frees the
-    last entry and makes its own, then captures the chunk before chunk 0
-    and replays the graph for every chunk; a call with the key of the last
-    one (a hit) replays it for every chunk: no capture, no eager chunk, no
-    allocation. So a leaf edited in place, or a new scene of the same
-    shapes, gives its own frame, never the last one's. If the IF nodes
+    ``ambient`` and, in a sampled mode, the seed's 32 bits written into the
+    entry's seed word, which K7 and K8 read on the card (and the CPU's
+    plain versions on the host). A call with a new key (a miss) first frees
+    the last entry and makes its own, then captures the chunk before chunk
+    0 and replays the graph for every chunk; a call with the key of the
+    last one (a hit) replays it for every chunk: no capture, no eager
+    chunk, no allocation. So a leaf edited in place, a new scene of the
+    same shapes, a new pose or a new seed is a hit and gives its own
+    frame, never the last one's. If the IF nodes
     cannot be made (a runtime older than CUDA 12.4), the call raises. On
     the CPU the chunks run one after another through the plain versions,
     a dead bounce skipped on the host.
@@ -686,10 +689,12 @@ def frame_device(scene, meta, width: int, height: int, samples: int,
     reads. One frame at a time: the entry is the module's, not the
     caller's.
 
-    Spans (``utils/tracer.py``): ``frame_device``, with attribute ``hit``,
-    around the stages ``key``, ``entry`` (a miss), ``stage``, ``capture``
-    (a miss on CUDA) and ``replay``, whose clock readings also give the
-    record's milliseconds: setup is key, entry and stage.
+    Spans (``utils/tracer.py``): ``frame_device``, with attributes ``hit``
+    and ``seed_new`` (1 where a hit's seed differs from the last call's on
+    the same entry; 0 on a miss, which has no last call), around the stages
+    ``key``, ``entry`` (a miss), ``stage``, ``capture`` (a miss on CUDA)
+    and ``replay``, whose clock readings also give the record's
+    milliseconds: setup is key, entry and stage.
     """
     sp = tracer.begin("frame_device")
     try:
@@ -699,16 +704,18 @@ def frame_device(scene, meta, width: int, height: int, samples: int,
         state = _frames.get(key)
         hit = state is not None
         tracer.note(sp, "hit", hit)
+        tracer.note(sp, "seed_new",
+                    hit and state.last_seed != seed & camera_mod.U32)
         if not hit:
             st.next("entry")
             _frames.clear()
             state = _FrameState(scene, meta, width, height, samples,
                                 max_depth, chunk_pixels, ldr, stochastic,
-                                seed, light_sampler)
+                                light_sampler)
         try:
             with torch.no_grad():
                 st.next("stage")
-                state.stage(scene, light_sampler, ambient)
+                state.stage(scene, light_sampler, ambient, seed)
                 if state.cuda and not hit:
                     st.next("capture")
                     state.capture(if_nodes=True)
@@ -736,12 +743,13 @@ def frame_key(scene, meta, width: int, height: int, samples: int,
               stochastic: bool, seed: int, light_sampler) -> tuple:
     """What a device-loop frame's graph and buffers are made for: the
     device; the frame's size, samples, depth, chunk and ``ldr``; the
-    sampled modes and the seed where they read it (K7 and K8 take it as a
-    launch argument); whether there is a light sampler, and the number of
+    sampled modes; whether there is a light sampler, and the number of
     lights; the texture flags; the shape and dtype of every scene leaf and
     sampler table. Not their values, which ``_FrameState.stage`` copies in
-    on every call, and not ``ambient``, which it writes."""
-    sampled = stochastic or light_sampler is not None
+    on every call, not ``ambient``, and not ``seed``, which it writes: K7
+    and K8 read the seed from the entry's seed word, so every seed is
+    served by one graph."""
+    del seed
     tables = (None if light_sampler is None else tuple(
         (k, tuple(v.shape), v.dtype)
         for k, v in sorted(light_sampler.items())))
@@ -749,7 +757,7 @@ def frame_key(scene, meta, width: int, height: int, samples: int,
         getattr(scene, k) for k in scene_lib.LEAF_NAMES))
     return (scene.device, width, height, samples, max_depth,
             min(chunk_pixels, width * height), bool(ldr), bool(stochastic),
-            seed if sampled else 0, light_sampler is not None,
+            light_sampler is not None,
             scene.light_ke.shape[0], bool(meta.has_kd_textures),
             bool(meta.has_ks_textures), leaves, tables)
 
@@ -770,10 +778,10 @@ def _frame_device_first(scene, meta, width: int, height: int, samples: int,
     bits and record as ``frame_device`` (never a cache hit)."""
     t0 = time.perf_counter()
     state = _FrameState(scene, meta, width, height, samples, max_depth,
-                        chunk_pixels, ldr, stochastic, seed, light_sampler,
+                        chunk_pixels, ldr, stochastic, light_sampler,
                         own_inputs=False)
     with torch.no_grad():
-        state.stage(scene, light_sampler, ambient)
+        state.stage(scene, light_sampler, ambient, seed)
         marks = [t0, time.perf_counter()]
         state.run_chunk()
         marks.append(time.perf_counter())
@@ -801,11 +809,15 @@ class _FrameState:
     in place on every call; without (the first form) it reads the caller's
     own leaves and tables and records that ``stage`` packs anew. Every
     buffer of ``frame_device`` is made here, once: the graph bakes its
-    pointers in.
+    pointers in. One of them is the seed word, a (1,) i32 tensor holding
+    the seed's 32 bits, which ``stage`` writes in a sampled mode and K7
+    and K8 read when they run (the CPU's plain versions read it on the
+    host), so the graph serves every seed; ``last_seed`` is the seed of
+    the last call staged, on the host.
     """
 
     def __init__(self, scene, meta, width, height, samples, max_depth,
-                 chunk_pixels, ldr, stochastic, seed, light_sampler,
+                 chunk_pixels, ldr, stochastic, light_sampler,
                  own_inputs=True):
         self.dev = dev = scene.device
         self.cuda = dev.type == "cuda"
@@ -818,7 +830,7 @@ class _FrameState:
         self.n = n = self.chunk_pixels * self.spp
         self.last_id = npix * self.spp - 1
         self.max_depth, self.ldr = max_depth, ldr
-        self.stochastic, self.seed = stochastic, seed
+        self.stochastic = stochastic
         self.kd_tex, self.ks_tex = meta.has_kd_textures, meta.has_ks_textures
         self.nl = nl = scene.light_ke.shape[0]
         self.own_inputs = own_inputs
@@ -833,6 +845,8 @@ class _FrameState:
             self.scene, self.sampler = scene_lib.detached(scene), light_sampler
         self.fixed = scene_lib.detached(self.scene)
         self.amb = torch.empty((3,), dtype=f32, device=dev)
+        self.seed_word = torch.zeros((1,), dtype=i32, device=dev)
+        self.last_seed = None
         self.lane = torch.arange(n, dtype=i32, device=dev)
         self.tmin = torch.full((n,), RAY_EPS, dtype=f32, device=dev)
         self.chunk = torch.zeros((1,), dtype=i32, device=dev)
@@ -875,16 +889,17 @@ class _FrameState:
             self.cam = (torch.empty((), dtype=f32, device=dev),
                         torch.empty((), dtype=f32, device=dev))
 
-    def stage(self, scene, light_sampler, ambient) -> None:
+    def stage(self, scene, light_sampler, ambient, seed) -> None:
         """Bring the frame's inputs up to date before its chunks: the
         caller's leaves and sampler tables copied into this state's (one
-        ``_foreach_copy_`` a dtype), ``ambient`` written, the chunk index
-        and the record's row set to 0, and on CUDA the records and camera
-        frame packed from the copies: in place, K1's and K4's records by
-        one launch of K13 and the frame by ``camera.camera_frame``'s ops
-        with ``out=``; the first form packs new ones with the packers'
-        torch ops. Nothing here waits for the card or allocates (but in the
-        first form)."""
+        ``_foreach_copy_`` a dtype), ``ambient`` written, in a sampled mode
+        the seed's 32 bits written into the seed word (``fill_``), the
+        chunk index and the record's row set to 0, and on CUDA the records
+        and camera frame packed from the copies: in place, K1's and K4's
+        records by one launch of K13 and the frame by
+        ``camera.camera_frame``'s ops with ``out=``; the first form packs
+        new ones with the packers' torch ops. Nothing here waits for the
+        card or allocates (but in the first form)."""
         if self.own_inputs:
             pairs = [(getattr(self.scene, k), getattr(scene, k))
                      for k in scene_lib.LEAF_NAMES]
@@ -898,6 +913,9 @@ class _FrameState:
                 torch._foreach_copy_([d for d, _ in group],
                                      [s for _, s in group])
         self.amb.fill_(ambient)
+        if self.stochastic or self.sampler is not None:
+            self.seed_word.fill_(camera_mod.seed_word_value(seed))
+        self.last_seed = seed & camera_mod.U32
         self.chunk.zero_()
         self.row.zero_()
         if not self.cuda:
@@ -950,14 +968,14 @@ class _FrameState:
             light_pos = self.points
             if self.sampler is not None:
                 lights_mod.light_points_launch(sc, self.sampler, self.ids,
-                                               self.seed, sc.pos,
+                                               self.seed_word, sc.pos,
                                                sc.light_pos, light_pos)
         else:
             _, ro, rd = self.camera_rays()
             ro, rd = ro.contiguous(), rd.contiguous()
             light_pos = (None if self.sampler is None else
                          lights_mod.sample_light_points_plain(
-                             sc, self.sampler, self.ids, self.seed))
+                             sc, self.sampler, self.ids, self.host_seed()))
         self.acc.zero_()
         self.thr.fill_(1.0)
         self.tmax.fill_(FLT_MAX)
@@ -980,13 +998,17 @@ class _FrameState:
                      chunk=self.chunk)
         self.chunk.add_(1)
 
+    def host_seed(self) -> int:
+        """The seed word's 32 bits, read on the host (the CPU's chunks)."""
+        return int(self.seed_word) & camera_mod.U32
+
     def camera_rays(self):
         sc = self.scene
         if not self.cuda:
             if self.stochastic:
                 return camera_mod.camera_rays_stochastic_plain(
                     sc, self.ids, self.width, self.height, self.samples,
-                    seed=self.seed)
+                    seed=self.host_seed())
             return camera_mod.camera_rays_plain(sc, self.ids, self.width,
                                                 self.height, self.samples)
         h, w = self.cam
@@ -994,7 +1016,7 @@ class _FrameState:
             return camera_mod.camera_rays_stochastic_launch(
                 self.ids, sc.cam_axes, sc.cam_o, h, w, sc.cam_focus,
                 sc.cam_aperture, self.width, self.height, self.samples,
-                self.seed, out=self.rays)
+                self.seed_word, out=self.rays)
         return camera_mod.camera_rays_launch(
             self.ids, sc.cam_axes, sc.cam_o, h, w, sc.cam_focus, self.width,
             self.height, self.samples, out=self.rays)
