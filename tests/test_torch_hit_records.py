@@ -10,6 +10,11 @@
   every ray, equal-t ties on shared edges and vertices included: this
   holds the kernel's control flow and record layout on the CPU, where no
   CUDA kernel runs. The card tests hold the kernel itself.
+* The walk enters an instance whose 12 frame words are the identity's
+  bits on the world ray, as ``hit.cu::enter_slot`` does: equal to the
+  plain walk on a scene that mixes such frames with frames a bit away from
+  them (a -0.0 origin, axis words 1 ulp off 1.0 and +0.0, a -0.0 axis
+  word) and rotated ones; ``identity_share`` counts those instances.
 * Records packed after a training step hold the new positions.
 * The dead-lane rule, ``!(tmax >= tmin)`` -> ``(0, -1, -1, tmax)``, is
   what the plain walk answers for such rays.
@@ -51,6 +56,7 @@ SCENES = {
         seed=21, n_shapes=2, n_tris=10, n_lines=0, n_points=2,
         n_instances=300),
     "degenerate": _degenerate_scene,
+    "mixed": tts.make_mixed_frame_scene,
 }
 
 
@@ -136,7 +142,10 @@ def _records_walk(rec, ro, rd, tmin, tmax, any_hit):
 
     def enter(slot):
         w = insts[slot]
-        lo, ld = frame(_f32(w[0:9]).reshape(3, 3), _f32(w[9:12]))
+        if np.array_equal(w[0:12], hit_records.IDENTITY_WORDS):
+            lo, ld = world               # the identity's bits: world itself
+        else:
+            lo, ld = frame(_f32(w[0:9]).reshape(3, 3), _f32(w[9:12]))
         return lo, ld, int(w[12]), int(w[13])
 
     world = frame(torch.eye(3), torch.zeros(3))
@@ -210,9 +219,10 @@ def _tie_aims(ts, seed, n):
 
 @pytest.mark.parametrize("any_hit", [False, True])
 @pytest.mark.parametrize("name", ["random0", "hair64", "inst300",
-                                  "degenerate", "ties"])
+                                  "degenerate", "ties", "mixed",
+                                  "mixed_ties"])
 def test_records_walk_matches_plain(name, any_hit):
-    ts = _scene("hair64" if name == "ties" else name)
+    ts = _scene({"ties": "hair64", "mixed_ties": "mixed"}.get(name, name))
     rec = hit_records.pack(ts)
     ro, _, tmin, tmax = _rays(31, 96)
     # aimed at points of the scene's box, so that most rays walk into it,
@@ -220,7 +230,7 @@ def test_records_walk_matches_plain(name, any_hit):
     lo, hi = ts.node_bbox_min[0], ts.node_bbox_max[0]
     aim = lo + (hi - lo) * torch.from_numpy(
         np.random.default_rng(32).uniform(size=(96, 3)).astype(np.float32))
-    if name == "ties":
+    if name in ("ties", "mixed_ties"):
         aim = _tie_aims(ts, 33, 96)
     rd = aim - ro
     rd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
@@ -239,6 +249,32 @@ def test_records_walk_matches_plain(name, any_hit):
     t = torch.cat([g[3] for g in got])
     assert np.array_equal(_bits(t), _bits(want["t"]))
     assert int(want["hit"].sum()) > 10
+
+
+def _nan_frame_scene():
+    """The mixed-frame scene with instance 0's origin word a NaN."""
+    host = tts.make_mixed_frame_scene()
+    host.instances[0].o[1] = np.float32("nan")
+    return host
+
+
+@pytest.mark.parametrize("make,share", [
+    (lambda: tts.make_hair_scene(64), 1.0),
+    (tts.make_random_scene, 0.0),
+    (tts.make_mixed_frame_scene, 5 / 12),
+    (_nan_frame_scene, 4 / 12),
+], ids=["hair", "random", "mixed", "mixed_nan"])
+def test_identity_share(make, share):
+    """``identity_share`` counts the instances whose 12 frame words are the
+    identity's bits (those K1 enters on the world ray): not a -0.0 origin,
+    an axis word 1 ulp off 1.0 or +0.0, a -0.0 axis word or a NaN word."""
+    leaves, _ = tscene.build_device_scene(make())
+    ts = tscene.to_torch(leaves, "cpu")
+    assert hit_records.identity_share(ts) == share
+    words = hit_records.unpack(hit_records.pack(ts))
+    ident = np.concatenate([words["inst_axes"].reshape(-1, 9),
+                            words["inst_o"]], 1) == hit_records.IDENTITY_WORDS
+    assert ident.all(1).mean() == share   # the records' words, per slot
 
 
 def test_records_follow_train_step():

@@ -4,7 +4,8 @@ K1-K3 bit-equal (K3's u8 within 1 step, also on partial blocks, views at
 a 12-byte offset and 4,900 spp; its RGBA equal to plain's at 16 spp, alone
 and at a frame buffer's chunk rows; K1 also on dead, NaN-tmax and
 partial batches, the 10,004-instance scene, equal-t ties, axis-parallel and
-NaN directions, and after a training step); K4 (shading)
+NaN directions, identity instance frames beside frames a bit away from
+them, and after a training step); K4 (shading)
 bit-equal to the plain shading and to its first form (``shade_simple.cu``)
 on the same K1 hits and shadow query; K5 (shading backward) and K6 (camera
 backward) within relative L2 error 1e-4 per leaf of torch autograd of the
@@ -143,7 +144,10 @@ def _axis_rays(ts, seed, n, device):
 # instance scene on 8,192 random rays; half the lanes dead, interleaved;
 # batches that fill no warp or block; every third lane with a NaN tmax;
 # rays on shared edges and vertices; axis-parallel rays on slab planes and
-# NaN directions
+# NaN directions; identity instance frames, which K1 enters on the world
+# ray, beside frames a bit away from them (a -0.0 origin, axis words 1 ulp
+# off 1.0 and +0.0, a -0.0 axis word) and rotated ones, on random rays and
+# on rays at shared edges and vertices
 HIT_CASES = {
     "random0": (lambda: testscenes.make_random_scene(seed=0), 8192),
     "hair64": (lambda: testscenes.make_hair_scene(64), 8192),
@@ -159,6 +163,8 @@ HIT_CASES = {
     "nan_tmax": (lambda: testscenes.make_hair_scene(64), "nan_tmax"),
     "ties": (lambda: testscenes.make_hair_scene(64), "ties"),
     "axis_nan": (lambda: testscenes.make_hair_scene(64), "axis_nan"),
+    "mixed_frames": (testscenes.make_mixed_frame_scene, 8192),
+    "mixed_ties": (testscenes.make_mixed_frame_scene, "ties"),
 }
 
 

@@ -13,6 +13,8 @@ On the CPU:
   RGBA buffer, 1 where the host made a pass over the pixels;
 * the loop span's ``hit`` is the record's ``cache_hit``, and the record's
   ``host_ms`` are the stage spans' durations, frames and steps alike;
+* the loop span's ``k1_ident`` is the scene's share of identity instance
+  frames, counted once when the entry is built;
 * the ring keeps the last ``RING`` requests;
 * ``train_step``, ``overlap_scene`` and ``log_phase`` leave their spans,
   the loop's first form none; the dead-bounce tally runs only inside
@@ -246,6 +248,48 @@ def test_loop_span_hit_and_host_ms_are_the_records(which):
             assert host["replay"] == ns["replay"] / 1e6
             assert host.get("chunk0", 0.0) == 0.0
     assert rec["cache_hit"]
+
+
+@pytest.mark.parametrize("which", ["frame", "step"])
+@pytest.mark.parametrize("make,share", [
+    (lambda: testscenes.make_hair_scene(8), 1.0),
+    (testscenes.make_mixed_frame_scene, 5 / 12)], ids=["hair", "mixed"])
+def test_loop_span_notes_k1_ident(monkeypatch, which, make, share):
+    """The loop span carries ``k1_ident``, the share of the scene's
+    instances whose frame words are the identity's bits, on a miss and on
+    a hit; it is counted once, when the entry is built, so a hit reads
+    nothing for it."""
+    from yocto_raytracing_tpu_torch.ops import hit_records
+
+    counted = []
+    real = hit_records.identity_share
+
+    def identity_share(scene):
+        counted.append(1)
+        return real(scene)
+
+    monkeypatch.setattr(hit_records, "identity_share", identity_share)
+    leaves, meta = scene_lib.build_device_scene(make())
+    ts = scene_lib.to_torch(leaves, "cpu")
+    if which == "frame":
+        call, loop = (lambda: _render(ts, meta)), "frame_device"
+    else:
+        n = W * H
+        ids = torch.arange(n, dtype=torch.int32)
+        target = torch.full((n, 3), 0.5, dtype=torch.float32)
+        amb = torch.full((3,), 0.1, dtype=torch.float32)
+        call, loop = (lambda: mesh.train_step(
+            ts, ids, target, amb, 0.5, width=W, height=H, samples=SAMPLES,
+            max_depth=DEPTH, trainable=["mat_kd"])), "loss_grads_device"
+    with tracer.recording():
+        for _ in range(2):     # a miss, then a hit
+            call()
+    sps = _named(tracer.spans(), loop)
+    assert [sp.attrs["hit"] for sp in sps] == [0, 1]
+    for sp in sps:
+        assert isinstance(sp.attrs["k1_ident"], float)
+        assert sp.attrs["k1_ident"] == share
+    assert len(counted) == 1
 
 
 @pytest.mark.parametrize("mode,host_rgba", [

@@ -46,6 +46,16 @@
 //   instances (the same bits as recomputing it), and the slab test drops
 //   NaN guards that fmaxf/fminf make redundant for a live ray
 //   (hit_bbox_live: the same bits).
+// * An instance whose 12 frame words are the identity's bits is entered on
+//   that kept world ray (enter_slot): local_ray of the identity is `world`
+//   itself, so the entry skips its 9 dot products, IEEE sqrt, divide and
+//   three reciprocals for 12 integer compares of words already loaded.
+//   Scenes loaded from OBJ are identity-instanced: a live lane of the
+//   benchmark's frames enters 4.00-4.61 instances a nearest walk and
+//   3.64-4.43 an any-hit walk (rtbench/ref/walk.py's counts on the CPU),
+//   each one identity; K1's device time there fell 8-11% (PERF.md). Other
+//   frames take local_ray as before; the choice is per entry, from the
+//   record's bits alone.
 // * Two kernels, nearest and any hit: a template parameter, so each
 //   compiles without the other's branch and the profiler names them
 //   apart.
@@ -92,15 +102,29 @@ constexpr int kHitThreads = 128;
 
 __device__ __forceinline__ V3 xyz(float4 a) { return make(a.x, a.y, a.z); }
 
+constexpr int kOneBits = 0x3f800000;  // 1.0f; +0.0f is 0
+
 // Into the instance of scene-leaf slot `slot`: its local ray, shape root
-// and instance id.
+// and instance id. Where the 12 frame words are the identity's bits (axes
+// rows 1 0 0, 0 1 0, 0 0 1, origin +0 +0 +0), local_ray would compute
+// `world` from the same inputs, so the walk's `world` is taken. The test is
+// on bits: a -0.0 origin word changes the sign of a zero in the local
+// origin, and a NaN word is no identity; both take local_ray.
 __device__ __forceinline__ Ray enter_slot(const HitView& s, int slot, V3 ro,
-                                          V3 rd, int* root, int* item) {
+                                          V3 rd, const Ray& world, int* root,
+                                          int* item) {
   const float4* q = s.insts + 4 * slot;
   const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2),
                d = __ldg(q + 3);
   *root = __float_as_int(d.x);
   *item = __float_as_int(d.y);
+  const int off = (__float_as_int(a.x) ^ kOneBits) | __float_as_int(a.y) |
+                  __float_as_int(a.z) | __float_as_int(a.w) |
+                  (__float_as_int(b.x) ^ kOneBits) | __float_as_int(b.y) |
+                  __float_as_int(b.z) | __float_as_int(b.w) |
+                  (__float_as_int(c.x) ^ kOneBits) | __float_as_int(c.y) |
+                  __float_as_int(c.z) | __float_as_int(c.w);
+  if (off == 0) return world;
   return local_ray(xyz(a), make(a.w, b.x, b.y), make(b.z, b.w, c.x),
                    make(c.y, c.z, c.w), ro, rd);
 }
@@ -184,7 +208,7 @@ __device__ __forceinline__ void walk(const HitView& s, V3 ro, V3 rd,
       slot = nstart;
       slot_end = nstart + (c == kCountSat ? __ldg(s.node_count + node) : c);
       leaf_skip = nskip;
-      r = enter_slot(s, slot, ro, rd, &nxt, &inst);
+      r = enter_slot(s, slot, ro, rd, world, &nxt, &inst);
     } else {
       nxt = nskip;
     }
@@ -192,7 +216,7 @@ __device__ __forceinline__ void walk(const HitView& s, V3 ro, V3 rd,
     // the scene leaf's skip pointer
     if (nxt < 0 && inst >= 0) {
       if (++slot < slot_end) {
-        r = enter_slot(s, slot, ro, rd, &nxt, &inst);
+        r = enter_slot(s, slot, ro, rd, world, &nxt, &inst);
       } else {
         nxt = leaf_skip;
         inst = -1;

@@ -97,6 +97,25 @@ def pack(scene: TorchScene) -> HitRecords:
                       scene.node_count)
 
 
+IDENTITY_WORDS = np.concatenate([np.eye(3, dtype=np.float32).reshape(9),
+                                 np.zeros(3, np.float32)]).view(np.int32)
+
+
+def identity_share(scene: TorchScene) -> float:
+    """The share (0-1) of ``scene``'s instances whose 12 frame words
+    (``inst_axes`` rows, ``inst_o``) are the identity's bits, which K1
+    enters on the world ray (``hit.cu::enter_slot``); 0.0 without
+    instances. A -0.0 or NaN word is no identity. Reads the two leaves to
+    the host: a device loop calls it when it builds its state, for the
+    counter ``k1_ident``."""
+    ni = scene.inst_axes.shape[0]
+    if ni == 0:
+        return 0.0
+    words = torch.cat([scene.inst_axes.detach().reshape(ni, 9),
+                       scene.inst_o.detach()], 1).cpu().numpy()
+    return float((words.view(np.int32) == IDENTITY_WORDS).all(1).mean())
+
+
 def unpack(rec: HitRecords) -> dict:
     """The fields that the records hold, as numpy arrays (floats by their
     bits, as int32): what K1 reads back, for the tests."""

@@ -689,9 +689,12 @@ def frame_device(scene, meta, width: int, height: int, samples: int,
     reads. One frame at a time: the entry is the module's, not the
     caller's.
 
-    Spans (``utils/tracer.py``): ``frame_device``, with attributes ``hit``
-    and ``seed_new`` (1 where a hit's seed differs from the last call's on
-    the same entry; 0 on a miss, which has no last call), around the stages
+    Spans (``utils/tracer.py``): ``frame_device``, with attributes ``hit``,
+    ``seed_new`` (1 where a hit's seed differs from the last call's on
+    the same entry; 0 on a miss, which has no last call) and ``k1_ident``
+    (the entry's share of identity instances, counted on the host when
+    the entry is built: a hit reads nothing from the card for it; an
+    instance frame edited in place after that is not seen), around the stages
     ``key``, ``entry`` (a miss), ``stage``, ``capture`` (a miss on CUDA)
     and ``replay``, whose clock readings also give the record's
     milliseconds: setup is key, entry and stage.
@@ -712,6 +715,7 @@ def frame_device(scene, meta, width: int, height: int, samples: int,
             state = _FrameState(scene, meta, width, height, samples,
                                 max_depth, chunk_pixels, ldr, stochastic,
                                 light_sampler)
+        tracer.note(sp, "k1_ident", state.k1_ident)
         try:
             with torch.no_grad():
                 st.next("stage")
@@ -813,7 +817,10 @@ class _FrameState:
     the seed's 32 bits, which ``stage`` writes in a sampled mode and K7
     and K8 read when they run (the CPU's plain versions read it on the
     host), so the graph serves every seed; ``last_seed`` is the seed of
-    the last call staged, on the host.
+    the last call staged, on the host. ``k1_ident`` is the share of the
+    scene's instances that K1 enters on the world ray
+    (``hit_records.identity_share``), read from the leaves the state was
+    built from.
     """
 
     def __init__(self, scene, meta, width, height, samples, max_depth,
@@ -833,6 +840,7 @@ class _FrameState:
         self.stochastic = stochastic
         self.kd_tex, self.ks_tex = meta.has_kd_textures, meta.has_ks_textures
         self.nl = nl = scene.light_ke.shape[0]
+        self.k1_ident = hit_records.identity_share(scene)
         self.own_inputs = own_inputs
         if own_inputs:
             self.scene = scene_lib.TorchScene(*(
@@ -1146,8 +1154,9 @@ def loss_grads_device(scene, ids, target, ambient, width: int, height: int,
     words; "host_ms" of its set-up, capture and replay; "cache_hit"); on
     CUDA, inside ``tracer.recording()``, its dead bounces join the tally of
     ``kernels.skipped_launches``. One step at a time: the entry is the
-    module's. Spans as ``frame_device``'s, the outer one
-    ``loss_grads_device``; the replay stage is the CPU's bounce loop there.
+    module's. Spans as ``frame_device``'s (``k1_ident`` too, not
+    ``seed_new``), the outer one ``loss_grads_device``; the replay stage is
+    the CPU's bounce loop there.
     """
     sp = tracer.begin("loss_grads_device")
     try:
@@ -1168,6 +1177,7 @@ def loss_grads_device(scene, ids, target, ambient, width: int, height: int,
             state = _StepState(scene, n, width, height, samples, max_depth,
                                has_kd_textures, has_ks_textures, key[8],
                                lr is not None)
+        tracer.note(sp, "k1_ident", state.k1_ident)
         try:
             with torch.no_grad():
                 st.next("stage")
@@ -1208,6 +1218,7 @@ class _StepState:
     the (L, N) occlusion, color and kr; the loss, the cotangents carried
     from bounce to bounce (of thr, ro and rd), K14's four outputs, K5's
     f64 leaf sums and scratch, K6's sums, and the returned leaves.
+    ``k1_ident`` as ``_FrameState``'s.
     """
 
     def __init__(self, scene, n, width, height, samples, max_depth,
@@ -1220,6 +1231,7 @@ class _StepState:
         self.kd_tex, self.ks_tex = kd_tex, ks_tex
         self.trained, self.update = trained, update
         self.nl = nl = scene.light_ke.shape[0]
+        self.k1_ident = hit_records.identity_share(scene)
         self.scene = sc = scene_lib.TorchScene(*(
             torch.empty_like(getattr(scene, k))
             for k in scene_lib.LEAF_NAMES))

@@ -331,3 +331,24 @@ def make_random_scene(seed=0, n_shapes=3, n_tris=40, n_lines=12, n_points=6,
     return HostScene(cameras=[cam], shapes=shapes, textures=[],
                      materials=materials, instances=instances,
                      environments=[])
+
+
+def make_mixed_frame_scene(seed=0) -> HostScene:
+    """``make_random_scene``'s shapes under 12 instances whose frames mix
+    the identity's bits with frames a bit away from them: instances 0-4
+    identity (axes rows 1 0 0, 0 1 0, 0 0 1, origin +0 +0 +0); 5 with an
+    origin of (-0.0, +0, +0); 6 with an axis word 1 ulp above 1.0; 7 with
+    one 1 ulp above +0.0 (the smallest subnormal); 8 with one -0.0; 9-11
+    rotated and moved. Shares of identity frames: 5 / 12."""
+    host = make_random_scene(seed=seed, n_instances=12)
+    one_up = np.nextafter(np.float32(1), np.float32(2))
+    zero_up = np.nextafter(np.float32(0), np.float32(1))
+    for k, ist in enumerate(host.instances[:9]):
+        ist.axes = np.eye(3, dtype=np.float32)
+        ist.o = np.zeros(3, np.float32)
+        ist.shape = k % len(host.shapes)
+    host.instances[5].o[0] = np.float32(-0.0)
+    host.instances[6].axes[1, 1] = one_up
+    host.instances[7].axes[2, 0] = zero_up
+    host.instances[8].axes[0, 2] = np.float32(-0.0)
+    return host

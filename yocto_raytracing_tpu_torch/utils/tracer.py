@@ -2,7 +2,7 @@
 
 A span is a named stretch of host time: its start and end, the span open
 around it (its parent), the request it belongs to (its root span's id),
-and a few integer attributes (``note``). The program opens spans at its
+and a few numeric attributes (``note``). The program opens spans at its
 layer boundaries: the entry points (``render_image``, ``train_step``,
 ``overlap_scene``), the device loops' stages, the copy to the host.
 
@@ -60,7 +60,7 @@ _ids = itertools.count(1)
 class Span:
     """One span: ``name``; ``start_ns`` and ``end_ns`` on ``clock`` (None
     while open); ``id``; ``parent``, the id of the span open around it
-    (None for a root); ``request``, its root's id; ``attrs``, its integer
+    (None for a root); ``request``, its root's id; ``attrs``, its numeric
     attributes by name."""
 
     __slots__ = ("name", "start_ns", "end_ns", "id", "parent", "request",
@@ -105,9 +105,10 @@ def end(span: Span | None) -> None:
 
 
 def note(span: Span | None, key: str, value) -> None:
-    """Set the integer attribute ``key`` of ``span``; nothing for None."""
+    """Set the attribute ``key`` of ``span``: a float stays one (a share),
+    any other value is taken as an integer; nothing for None."""
     if span is not None:
-        span.attrs[key] = int(value)
+        span.attrs[key] = value if isinstance(value, float) else int(value)
 
 
 def _begin(name):
