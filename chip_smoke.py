@@ -4,39 +4,34 @@
 
 Builds the port's CUDA kernels from this checkout and holds each against its
 plain torch version on the card: K1 hit (its nearest-hit and any-hit
-kernels, also against K1's first, simple kernel, on every hit query of the
-hair and area hair frames, timed in turns with it; the 10,004-instance
+kernels, on random rays, and on every hit query of the hair and area hair
+frames, every launch against the plain walk; the 10,004-instance
 scene's nearest hits against the plain walk run on the host CPU by worker
 processes beside the card's phases), K2 camera rays, K3 pixel finish
 (also at 4,900 spp, its device time beside torch's sum(1)), K4
-shading (bit-equal, also with per-ray light positions, and to its first
-form, ``shade_simple.cu``, timed in turns with it; the four frames
-bit-equal through either), K5 shading backward (also with per-ray light
-positions; against its first form, ``shade_bwd_simple.cu``, too, timed in
-turns with it, its light gradients bit-identical over two runs), K6 camera
-backward, K9 thin-lens camera backward and K10 light-points backward
-(relative L2 error <= 1e-4 per gradient leaf of torch autograd; K6 and K9
-also bit-equal to ``ordered_camera_sums`` of their plain per-ray terms on
-the card and over two launches, within 1e-4 of the f64 sum of those terms,
-and timed in turns with their first forms, ``camera_bwd_simple.cu``, at
-2**20 rays, beside their registers, their SASS count a ray and its issue
-floor; K9's 15 shared sums at aperture 0 bit-equal to K6's), K7
-stochastic camera rays, K8 area-light points, K11 overlap query with
-its refit kernel, K12, the device loop's bounce update (bit-equal; K12
-also writes nothing under a zero alive word, and its out-of-place form
-equals its in-place one), K14, its reverse (bit-equal; on lanes with an
-infinite thr or a NaN kr its NaN at plain's positions, as JAX's transpose
-gives), and K13, the device loop's records (it and its first form,
-``records_simple.cu``, bit-equal to the packers on four scenes, the
-10,004-instance scene among them, before and after leaves edited in
-place; timed in turns on hair and the 10,004-instance scene beside an
-empty launch of its grid). K8 and K10 are also held
-against their first forms (``lights_simple.cu``) and timed in turns with
-them on the area hair frame's lights (a quad and a polyline), the area
-mirror frame's quad and a lamp panel of 2,048 triangles: K8 bit-equal to
-both, K10 within 1 ULP of the explicit f64 reverse and 1e-4 of autograd
-and the first form, bit-identical over two runs where every light spans
-at most 8 vertices.
+shading (bit-equal, also with per-ray light positions), K5 shading
+backward (also with per-ray light positions, and through its saved-bounce
+entry against its plain version; its light gradients bit-identical over
+two runs), K6 camera backward, K9 thin-lens camera backward and K10
+light-points backward (relative L2 error <= 1e-4 per gradient leaf of
+torch autograd; K6 and K9 also bit-equal to ``ordered_camera_sums`` of
+their plain per-ray terms on the card and over two launches, within 1e-4
+of the f64 sum of those terms, at 2**20 rays, beside their registers,
+their SASS count a ray and its issue floor; K9's 15 shared sums at
+aperture 0 bit-equal to K6's), K7 stochastic camera rays, K8 area-light
+points, K11 overlap query with its refit kernel, K12, the device loop's
+bounce update (bit-equal; K12 also writes nothing under a zero alive word,
+and its out-of-place form equals its in-place one), K14, its reverse
+(bit-equal; on lanes with an infinite thr or a NaN kr its NaN at plain's
+positions, as JAX's transpose gives), and K13, the device loop's records
+(bit-equal to the packers on four scenes, the 10,004-instance scene among
+them, before and after leaves edited in place; timed on hair and the
+10,004-instance scene beside an empty launch of its grid). K8 and K10 are
+also held on the area hair frame's lights (a quad and a polyline), the
+area mirror frame's quad and a lamp panel of 2,048 triangles: K8
+bit-equal to the plain version, K10 within 1 ULP of the explicit f64
+reverse and 1e-4 of autograd, bit-identical over two runs where every
+light spans at most 8 vertices.
 Then it drives the port's eight paths through their user entry points:
 
 * rendering, ``render_scene_file(..., device="cuda")``: the hair scene
@@ -50,11 +45,11 @@ Then it drives the port's eight paths through their user entry points:
   holds its f32 sums bit-equal to the eager per-chunk loop's
   (``frame_eager``) on the hair, mirror, area hair, area mirror and
   mirror-pair frames (two facing mirrors, where bounces 2 and 3 must run
-  in some chunks) and the hair frame at depth 8, timed in turns with it,
-  with the loop's first form (a graph captured per call, every bounce
-  launched) and with its own first and repeated calls, and prints for each
+  in some chunks) and the hair frame at depth 8, timed in turns with its
+  own first and repeated calls, and prints for each
   the wall, host enqueue by stage, device busy time, idle share, device
-  ops, copies to the host (1), live bounces by depth, dead bounces and
+  ops, copies to the host (the frame's 1; a miss also reads the
+  instances' frame words), live bounces by depth, dead bounces and
   their launches and device time in its own profile, the reserved
   memory's growth and the kept entry's size; and ``render_scene_file``'s
   wall split into load, build, upload and ``render_image``;
@@ -66,14 +61,14 @@ Then it drives the port's eight paths through their user entry points:
   (``renderer.loss_grads_device``: one CUDA graph kept across calls, K12
   out of place and K14, its reverse, beside K1, K2, K4, K5, K6 and K13,
   each bounce after the first and its reverse in IF nodes that K12 sets).
-  Step 1 with every float leaf trainable: its loss bit-equal to the first
-  form's (``mesh._train_step_autograd``, the eager loop under autograd),
-  the device loop's gradient and the first form's against an f64
-  reference, each update ``d - lr * g`` of its own gradient; the first
-  form, the loop's first call of a key (a miss) and its repeated call (a
-  hit) timed in turns, with a profile of a hit (no launch in a dead bounce,
-  forward or reverse) and of the first form; then 5 steps on the
-  materials and lights with a strictly falling loss;
+  Step 1 with every float leaf trainable: its loss bit-equal to the
+  step through autograd (``mesh._train_step_autograd``, the eager loop
+  under autograd), the device loop's gradient and the autograd step's
+  against an f64 reference, each update ``d - lr * g`` of its own
+  gradient; the loop's first call of a key (a miss) and its repeated call
+  (a hit) timed in turns, with a profile of a hit (no launch in a dead
+  bounce, forward or reverse); then 5 steps on the materials and lights
+  with a strictly falling loss;
 * the stochastic modes, ``render_scene_file(..., stochastic=True, seed=7,
   area_lights=True, device="cuda")``: the hair scene with an emissive quad
   and an emissive polyline for its two lights and a 0.1 aperture, at
@@ -92,10 +87,9 @@ Then it drives the port's eight paths through their user entry points:
   records, then K11's culled walk) on 2**20 query points against the hair
   scene (capsule radii), a random scene (points, lines, triangles), the
   hair scene with pos and radius moved after the build, and points along
-  the hair strands in strand order (coherent traffic): bit-equal to K11's
-  first form (``overlap_simple.cu``) on every query and to the brute-force
-  plain query and the plain walk on a 65,536-query subset, whose walk work
-  gives the walk's bound; timed in turns with the first form;
+  the hair strands in strand order (coherent traffic): bit-equal to the
+  brute-force plain query on every query and to the plain walk on a
+  65,536-query subset, whose walk work gives the walk's bound;
 * the ray-sharded paths, ``parallel.mesh`` in a one-rank NCCL group:
   ``render_image_sharded`` of the hair and area hair frames (host spp sum,
   no K3) within 1 u8 step of ``render_image`` (the f32 ULP gap printed),
@@ -206,6 +200,7 @@ HIT_PLAIN_STRIDE = 16
 HIT_PLAIN_WORKERS = 4
 HIT_BIG_SEED = 300
 HIT_BIG_RAYS = 1 << 16
+HIT_FRAME_BATCH = 8      # a frame's K1 launches walked by one plain call
 OVERLAP_QUERIES = 1 << 20
 OVERLAP_COMPARE = 1 << 16
 # K11's operations per unit of its culled walk's work (the plain walk counts
@@ -220,9 +215,6 @@ WALK_OPS = {"nodes": 50, "point_tests": 25, "line_tests": 60,
 OVERLAP_KERNELS = ("overlap", "overlap_refit")
 K3_ROUNDS = 8            # K3 launches per profile
 BOUNCE_ROUNDS = 20       # K12 launches per profile
-# the bounce launches of the device loop, by launch-count key, whose dead
-# launches are reported apart
-BOUNCE_KERNELS = ("hit_nearest", "hit_any", "shade", "bounce")
 # the device functions of one bounce of the device loop in launch order,
 # each with its launch-count key: K1 nearest, K4 prep, K1 any hit, K4
 # finish, K12; a scene without lights launches no prep and no any hit
@@ -239,11 +231,10 @@ STEP_BOUNCE_FUNCTIONS = (("hit_nearest", "hit_nearest_kernel"),
                          ("bounce", "bounce_kernel"),
                          ("bounce_bwd", "bounce_bwd_kernel"),
                          ("shade_bwd", "shade_bwd_kernel"))
-# the training step's ways, timed in turns: its first form (autograd, the
-# eager loop), the device loop's first call of a key (a miss: its entry
-# cleared first) and its repeated call (a hit); eight calls, over which the
-# reserved memory's growth is read
-STEP_TURNS = ("first", "miss", "hit", "hit", "miss", "first", "hit", "hit")
+# the training step's device loop, timed in turns: its first call of a key
+# (a miss: its entry cleared first) and its repeated call (a hit); six
+# calls, over which the reserved memory's growth is read
+STEP_TURNS = ("miss", "hit", "hit", "miss", "hit", "hit")
 PANEL_CELLS = 32         # the lamp panel light: 32 x 32 cells, 2,048 triangles
 K3_BIG_SPP = 4900        # render_image's spp at --samples 70
 # idle host seconds on each side of a profiled call, their growth from one
@@ -287,18 +278,6 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
-
-
-def event_ms(fn) -> float:
-    """Device milliseconds of one call of ``fn``, without a warm-up."""
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop)
 
 
 def profile_summary(fn, label: str, expect=(), check=None) -> dict:
@@ -369,7 +348,9 @@ def profile_summary(fn, label: str, expect=(), check=None) -> dict:
     out = dict(wall_ms=wall, busy_ms=busy, idle=1.0 - busy / wall,
                ops=len(evs), by_name=by_name, events=events, host=host,
                checked=checked,
-               d2h=sum(e.name.startswith("Memcpy DtoH") for e in evs))
+               d2h=sum(e.name.startswith("Memcpy DtoH") for e in evs),
+               d2h_pinned=sum(e.name == "Memcpy DtoH (Device -> Pinned)"
+                              for e in evs))
     log(f"profile {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
         f"idle share {out['idle']:.3f}, device ops {len(evs)}; top: "
         + "; ".join(f"{n[:48]} {t / 1e3:.2f} ms" for n, t in top))
@@ -381,43 +362,24 @@ DEVICE_FUNCTIONS = {
     "hit": ("hit_nearest_kernel", "hit_any_kernel"),
     "hit_nearest": ("hit_nearest_kernel",),
     "hit_any": ("hit_any_kernel",),
-    "hit_simple": ("hit_simple_kernel",),
     "camera_rays": ("camera_rays_kernel",),
     "pixel_finish": ("pixel_finish_kernel",),
     "shade": ("shade_prep_kernel", "shade_finish_kernel"),
     "shade_prep": ("shade_prep_kernel",),
     "shade_finish": ("shade_finish_kernel",),
-    "shade_prep_simple": ("simple::shade_prep_kernel",),
-    "shade_finish_simple": ("simple::shade_finish_kernel",),
     "shade_bwd": ("shade_bwd_kernel", "light_sum_kernel"),
-    "shade_bwd_simple": ("simple::shade_bwd_kernel",),
     "camera_bwd": ("camera_bwd_kernel",),
-    "camera_bwd_simple": ("simple::camera_bwd_partial_kernel",
-                          "simple::camera_bwd_sum_kernel"),
-    "camera_bwd_simple_partial": ("simple::camera_bwd_partial_kernel",),
-    "camera_bwd_simple_sum": ("simple::camera_bwd_sum_kernel",),
     "camera_rays_stochastic": ("camera_rays_stochastic_kernel",),
     "light_points": ("light_points_kernel",),
-    "light_points_simple": ("simple::light_points_kernel",),
     "shade_bwd_lights": ("shade_bwd_kernel", "light_sum_kernel"),
     "camera_bwd_stochastic": ("camera_stochastic_bwd_kernel",),
-    "camera_bwd_stochastic_simple": (
-        "simple::camera_stochastic_bwd_partial_kernel",
-        "simple::camera_stochastic_bwd_sum_kernel"),
-    "camera_bwd_stochastic_simple_partial": (
-        "simple::camera_stochastic_bwd_partial_kernel",),
-    "camera_bwd_stochastic_simple_sum": (
-        "simple::camera_stochastic_bwd_sum_kernel",),
     "light_points_bwd": ("light_span_kernel", "light_points_bwd_kernel",
                          "light_points_bwd_finish_kernel"),
-    "light_points_bwd_simple": ("simple::light_points_bwd_kernel",),
     "overlap": ("overlap_kernel",),
     "overlap_refit": ("overlap_parent_kernel", "overlap_refit_kernel"),
-    "overlap_simple": ("simple::overlap_kernel",),
     "bounce": ("bounce_kernel",),
     "bounce_bwd": ("bounce_bwd_kernel",),
     "records": ("records_kernel",),
-    "records_simple": ("simple::records_kernel",),
     "records_empty": ("records_empty_kernel",)}
 
 
@@ -440,53 +402,38 @@ def device_ms(prof: dict, kernel: str, launches: int) -> float:
     return us / 1e3 / launches
 
 
-def dead_bounce_time(events, record, dead_launched=False) -> dict:
-    """The device loop's dead bounces in a profiled frame. ``events`` are
-    the trace's device events in the order they started
-    (``profile_summary``), ``record`` the frame's ``kernels.last_frame()``.
-    The launches of the bounce kernels go a bounce (BOUNCE_SEQUENCE) after
-    another, chunk after chunk: in ``frame_device``'s graph only the live
-    bounces launch (a dead one sits in an IF node whose body does not run);
-    in the first form (``dead_launched``) every bounce does, a dead one's
-    launches reading its alive word and returning at once. Each group is
-    matched to its bounce in the record: returns the dead bounces
-    ("bounces"), their launches in the trace by BOUNCE_KERNELS key
-    ("launches"), their device us by key ("us") and in all ("total_us"),
+def dead_bounce_launches(events, record) -> dict:
+    """The device loop's bounces in a profiled frame. ``events`` are the
+    trace's device events in the order they started (``profile_summary``),
+    ``record`` the frame's ``kernels.last_frame()``. The launches of the
+    bounce kernels go a bounce (BOUNCE_SEQUENCE) after another, chunk after
+    chunk: in ``frame_device``'s graph only the live bounces launch (a dead
+    one sits in an IF node whose body does not run). Each group is matched
+    to a live bounce of the record: returns the dead bounces ("bounces")
     and the live bounces by depth ("live_by_depth"). Raises ValueError
     where the launches do not fit the record (the tracer lost one),
     AssertionError where the graph launched a dead bounce."""
     ran = record["ran"].cpu()
     chunks, depth = ran.shape[0], ran.shape[1] - 1
     live = ran[:, :-1].flatten().tolist()
-    seq = [(k, fn) for k, fn in BOUNCE_SEQUENCE if record["lights"]
+    fns = [fn for _, fn in BOUNCE_SEQUENCE if record["lights"]
            or fn not in ("shade_prep_kernel", "hit_any_kernel")]
-    fns = [fn for _, fn in seq]
-    launched = [(name[5:].split("(")[0], us) for name, us in events
+    launched = [name[5:].split("(")[0] for name, _ in events
                 if name.startswith(tuple(f"yrt::{fn}(" for fn in fns))]
-    m = len(seq)
-    bounces = [b for b in range(chunks * depth) if dead_launched or live[b]]
+    m = len(fns)
+    bounces = [b for b in range(chunks * depth) if live[b]]
     if len(launched) != len(bounces) * m:
-        if not dead_launched and len(launched) == chunks * depth * m:
+        if len(launched) == chunks * depth * m:
             raise AssertionError(f"the graph launched its "
                                  f"{live.count(0)} dead bounces")
         raise ValueError(f"{len(launched)} bounce launches, not "
                          f"{len(bounces) * m}")
-    out = dict(bounces=live.count(0),
-               launches=dict.fromkeys(BOUNCE_KERNELS, 0),
-               us=dict.fromkeys(BOUNCE_KERNELS, 0.0))
     for j, b in enumerate(bounces):
         group = launched[j * m:(j + 1) * m]
-        if [fn for fn, _ in group] != fns:
-            raise ValueError(f"bounce {b}: launches {[g[0] for g in group]}")
-        if live[b]:
-            continue
-        for key in dict.fromkeys(k for k, _ in seq):
-            out["launches"][key] += 1
-        for (key, _), (_, us) in zip(seq, group):
-            out["us"][key] += us
-    out["total_us"] = sum(out["us"].values())
-    out["live_by_depth"] = ran[:, :-1].sum(0).tolist()
-    return out
+        if group != fns:
+            raise ValueError(f"bounce {b}: launches {group}")
+    return dict(bounces=live.count(0),
+                live_by_depth=ran[:, :-1].sum(0).tolist())
 
 
 def nbytes(*tensors) -> int:
@@ -542,26 +489,6 @@ def assert_same_hits(a: dict, b: dict, what: str) -> None:
                                  f"{int((x != y).sum())} rays")
 
 
-def hit_simple(scene, ro, rd, tmin, tmax, any_hit=False) -> dict:
-    """K1's first, simple kernel (``csrc/hit_simple.cu``) on the scene's own
-    arrays: the other side of the K1 comparison. It adds to no launch
-    count, and no path of the package launches it."""
-    from yocto_raytracing_tpu_torch.kernels import _build
-
-    n, dev = ro.shape[0], ro.device
-    out = dict(hit=torch.empty(n, dtype=torch.bool, device=dev),
-               inst=torch.empty(n, dtype=torch.int32, device=dev),
-               prim=torch.empty(n, dtype=torch.int32, device=dev),
-               t=torch.empty(n, dtype=torch.float32, device=dev))
-    ptr = _build.ptr
-    err = _build.library().yrt_hit_simple(
-        *(ptr(getattr(scene, k)) for k in HIT_LEAVES), ptr(ro), ptr(rd),
-        ptr(tmin), ptr(tmax), n, int(any_hit),
-        *(ptr(out[k]) for k in HIT_OUTPUTS), _build.current_stream())
-    _build.check_launch(err, "yrt_hit_simple")
-    return out
-
-
 def timed(fn):
     """(fn(), its CUDA-event milliseconds), one cold call."""
     start = torch.cuda.Event(enable_timing=True)
@@ -611,7 +538,7 @@ def phase_device() -> dict:
 
 
 # the shading kernels whose registers and spills the build reports apart:
-# K4's two launches and K5's, new and first form
+# K4's two launches and K5's
 SHADE_ENTRIES = ("shade_prep_kernel", "shade_finish_kernel",
                  "shade_bwd_kernel", "light_sum_kernel")
 
@@ -708,7 +635,7 @@ def ptxas_entries(log_text: str) -> dict:
 
 def phase_build() -> tuple:
     """Build the kernels; log ptxas's lines, and the registers and spills
-    of K4's and K5's kernels, new and first form; then the camera reverses'
+    of K4's and K5's kernels; then the camera reverses'
     (``phase_camera_build``). Returns (shading registers, camera
     reverses' record)."""
     from yocto_raytracing_tpu_torch import kernels
@@ -723,14 +650,13 @@ def phase_build() -> tuple:
     for mangled, (r, st, ld) in ptxas_entries(info.log).items():
         for entry in SHADE_ENTRIES:
             if entry in mangled:
-                which = ("simple::" if "6simple" in mangled else "") + entry
-                regs[which] = dict(registers=r, spill_stores=st,
+                regs[entry] = dict(registers=r, spill_stores=st,
                                    spill_loads=ld)
     log("ptxas, shading kernels: " + "; ".join(
         f"{k} {v['registers']} registers, spill stores/loads "
         f"{v['spill_stores']}/{v['spill_loads']} bytes"
         for k, v in sorted(regs.items())))
-    if len(regs) != 7:
+    if len(regs) != len(SHADE_ENTRIES):
         raise AssertionError(f"ptxas reported {sorted(regs)}")
     return regs, phase_camera_build(info)
 
@@ -738,10 +664,7 @@ def phase_build() -> tuple:
 # the camera reverses' kernels (and K7, which shares K9's sample), by the
 # DEVICE_FUNCTIONS key whose registers the build reports: its one function
 CAMERA_ENTRIES = {key: DEVICE_FUNCTIONS[key][0] for key in (
-    "camera_bwd", "camera_bwd_stochastic", "camera_rays_stochastic",
-    "camera_bwd_simple_partial", "camera_bwd_simple_sum",
-    "camera_bwd_stochastic_simple_partial",
-    "camera_bwd_stochastic_simple_sum")}
+    "camera_bwd", "camera_bwd_stochastic", "camera_rays_stochastic")}
 
 
 def phase_camera_build(info) -> dict:
@@ -757,10 +680,7 @@ def phase_camera_build(info) -> dict:
     out = {}
     for mangled, (r, st, ld) in ptxas_entries(info.log).items():
         for key, entry in CAMERA_ENTRIES.items():
-            name = entry.split("::")[-1]
-            simple = entry.startswith("simple::")
-            if (re.search(rf"\d{name}E", mangled)
-                    and simple == ("6simple" in mangled)):
+            if re.search(rf"\d{entry}E", mangled):
                 out[key] = dict(registers=r, spill_stores=st, spill_loads=ld)
     if len(out) != len(CAMERA_ENTRIES):
         raise AssertionError(f"ptxas reported {sorted(out)}")
@@ -841,16 +761,15 @@ def check_plain_walk(pending, kern: dict) -> None:
 
 
 def phase_hit_kernel(device) -> dict:
-    """K1 against the plain walk and against the simple kernel, nearest and
-    any hit, on random rays; on the 10,004-instance scene, where frame
-    changes dominate, the two kernels timed in turns. There the nearest-hit
+    """K1 against the plain walk, nearest and any hit, on random rays. On
+    the 10,004-instance scene, where frame changes dominate, the nearest-hit
     walk is held against the plain walk on every HIT_PLAIN_STRIDE-th ray
     (each ray's answer is its own) on the host CPU (``check_plain_walk``,
     later): the lockstep plain walk runs as many steps as the batch's
     longest walk, ~22,500 here, 243 s on the card. The kernel's answers on
-    those rays are returned under "big_nearest"."""
-    from yocto_raytracing_tpu_torch import scene as scene_lib, testscenes
-    from yocto_raytracing_tpu_torch.ops import hit_records, traverse
+    those rays are returned."""
+    from yocto_raytracing_tpu_torch import testscenes
+    from yocto_raytracing_tpu_torch.ops import traverse
 
     cases = [(f"random seed {s}", lambda s=s: testscenes.make_random_scene(
         seed=s), 1 << 16, 100 + s) for s in range(4)]
@@ -859,50 +778,31 @@ def phase_hit_kernel(device) -> dict:
     cases.append(("random 10004 instances", lambda: testscenes.
                   make_random_scene(n_instances=10004), HIT_BIG_RAYS,
                   HIT_BIG_SEED))
-    out = {}
+    big = None
     for name, make, n, seed in cases:
         scene, _ = scene_on(make(), device)
         rays = random_rays(seed, n, device)
-        big = "10004" in name
         for any_hit in (False, True):
             what = f"K1 {name} {'any' if any_hit else 'nearest'}-hit"
             t0 = time.perf_counter()
             kern = traverse.intersect_scene(scene, *rays, any_hit)
             torch.cuda.synchronize()
             kern_s = time.perf_counter() - t0
-            assert_same_hits(kern, hit_simple(scene, *rays, any_hit),
-                             what + " (simple kernel)")
-            if big and not any_hit:
+            if "10004" in name and not any_hit:
                 # held against the host CPU's plain walk later
-                out["big_nearest"] = {k: v[::HIT_PLAIN_STRIDE].cpu()
-                                      for k, v in kern.items()}
-                against = "the simple kernel"
-            else:
-                t1 = time.perf_counter()
-                plain = traverse.intersect_scene_plain(scene, *rays,
-                                                       any_hit)
-                torch.cuda.synchronize()
-                assert_same_hits(plain, kern, what)
-                against = (f"the plain walk ({time.perf_counter() - t1:.2f} "
-                           f"s) and the simple kernel")
-            log(f"{what}: {n} rays, {int(kern['hit'].sum())} hits, equal "
-                f"to {against} (tolerance: bit-equal); kernel "
-                f"{kern_s:.4f} s")
-            if not big:
+                big = {k: v[::HIT_PLAIN_STRIDE].cpu()
+                       for k, v in kern.items()}
+                log(f"{what}: {n} rays, {int(kern['hit'].sum())} hits; "
+                    f"kernel {kern_s:.4f} s")
                 continue
-            fixed = scene_lib.detached(scene)
-            recs = hit_records.pack(fixed)
-            new = lambda: traverse.intersect_scene_cuda(  # noqa: E731
-                fixed, *rays, any_hit, records=recs)
-            old = lambda: hit_simple(fixed, *rays, any_hit)  # noqa: E731
-            ms = [cuda_ms(f, 5) for f in (old, new, new, old)]
-            kind = "hit_any" if any_hit else "hit_nearest"
-            out[kind] = dict(simple_ms=(ms[0] + ms[3]) / 2,
-                             ms=(ms[1] + ms[2]) / 2)
-            log(f"{what}: timed in turns (simple, new, new, simple) "
-                + ", ".join(f"{m:.4f}" for m in ms) + " ms; simple / new "
-                f"{out[kind]['simple_ms'] / out[kind]['ms']:.2f}x")
-    return out
+            t1 = time.perf_counter()
+            plain = traverse.intersect_scene_plain(scene, *rays, any_hit)
+            torch.cuda.synchronize()
+            assert_same_hits(plain, kern, what)
+            log(f"{what}: {n} rays, {int(kern['hit'].sum())} hits, equal "
+                f"to the plain walk ({time.perf_counter() - t1:.2f} s; "
+                f"tolerance: bit-equal); kernel {kern_s:.4f} s")
+    return big
 
 
 def phase_frame_kernels(scene, width, height, samples, device) -> dict:
@@ -1028,21 +928,44 @@ def record_hit_queries(scene, meta, width, **trace_kw) -> list:
     return queries
 
 
+def check_frame_launches(scene, qs, any_hit, kernel, what) -> float:
+    """``kernel`` (K1) on every launch ``qs`` of one kind of a frame
+    bit-equal to the plain walk, HIT_FRAME_BATCH launches concatenated into
+    one plain call (each ray's answer is its own). Returns the plain walk's
+    seconds."""
+    from yocto_raytracing_tpu_torch.ops import traverse
+
+    t0 = time.perf_counter()
+    for first in range(0, len(qs), HIT_FRAME_BATCH):
+        batch = qs[first:first + HIT_FRAME_BATCH]
+        plain = traverse.intersect_scene_plain(
+            scene, *(torch.cat(x) for x in zip(*batch)), any_hit)
+        start = 0
+        for k, args in enumerate(batch, first):
+            n = args[0].shape[0]
+            assert_same_hits({key: v[start:start + n]
+                              for key, v in plain.items()},
+                             kernel(args), f"{what} launch {k}")
+            start += n
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def phase_hit_frame(name, scene, meta, width, **trace_kw) -> dict:
     """K1 on every query of one frame, each launch kind apart (nearest hit:
     the camera rays; any hit: the stacked shadow rays):
 
-    * the new kernel equal to the simple one on every launch, and both
-      equal to the plain walk on the middle launch;
+    * the kernel equal to the plain walk on every launch
+      (``check_frame_launches``);
     * the live-lane share (tmax >= tmin) and the share of 32-lane groups
       that mix live and dead lanes;
     * the middle launch (the chunk that crosses the hair ball) held against
       its own bound: HIT_OPS over the plain walk's counts on its live lanes
-      (a dead lane needs no test), beside the two kernels' times on that
-      launch alone (CUDA events in turns, simple, new, new, simple; and
-      the profiler's device time of that one launch);
-    * the simple and the new kernel over the frame's launches of the kind,
-      timed in turns the same way and profiled: time per launch."""
+      (a dead lane needs no test), beside the kernel's time on that launch
+      alone (CUDA events, and the profiler's device time of that one
+      launch);
+    * the kernel over the frame's launches of the kind, timed the same way
+      and profiled: time per launch."""
     from yocto_raytracing_tpu_torch import scene as scene_lib
     from yocto_raytracing_tpu_torch.ops import hit_records, traverse
 
@@ -1059,12 +982,6 @@ def phase_hit_frame(name, scene, meta, width, **trace_kw) -> dict:
             return traverse.intersect_scene_cuda(fixed, *args, any_hit,
                                                  records=recs)
 
-        def old(args):
-            return hit_simple(fixed, *args, any_hit)
-
-        for k, args in enumerate(qs):
-            assert_same_hits(old(args), new(args),
-                             f"K1 {kind} {name} launch {k}: simple vs new")
         live = [args[3] >= args[2] for args in qs]
         lanes = sum(x.numel() for x in live)
         n_live = sum(int(x.sum()) for x in live)
@@ -1072,12 +989,12 @@ def phase_hit_frame(name, scene, meta, width, **trace_kw) -> dict:
         n_groups = sum(g.shape[0] for g in groups)
         mixed = sum(int((g.any(1) & ~g.all(1)).sum()) for g in groups)
 
+        plain_s = check_frame_launches(fixed, qs, any_hit, new,
+                                       f"K1 {kind} {name}")
         mid = qs[len(qs) // 2]
         plain, plain_ms = timed(lambda: traverse.intersect_scene_plain(
             fixed, *mid, any_hit))
-        variants = {"simple": (old, "hit_simple"), "new": (new, kind)}
-        for v, (fn, _) in variants.items():
-            assert_same_hits(plain, fn(mid), f"K1 {kind} {name}: {v}")
+        t_new = new(mid)
         mid_live = live[len(qs) // 2]
         work = {}
         traverse.intersect_scene_plain(
@@ -1086,101 +1003,44 @@ def phase_hit_frame(name, scene, meta, width, **trace_kw) -> dict:
         b = bound(kind, nbytes(*mid, *plain.values())
                   + leaves_bytes(fixed, HIT_LEAVES), 0, ops=ops)
 
-        def frame_pass(fn):
+        def frame_pass():
             for args in qs:
-                fn(args)
+                new(args)
 
-        mid_turns = [cuda_ms(lambda f=f: f(mid), 5)
-                     for f in (old, new, new, old)]
-        turns = [cuda_ms(lambda f=f: frame_pass(f), 3) / len(qs)
-                 for f in (old, new, new, old)]
-        mid_us, dev_us = {}, {}
-        for v, (fn, dkind) in variants.items():
-            prof = profile_summary(lambda fn=fn: fn(mid),
-                                   f"K1 {kind} {name} middle launch: {v}",
-                                   (dkind,))
-            mid_us[v] = device_us(prof["by_name"], dkind)
-            prof = profile_summary(lambda fn=fn: frame_pass(fn),
-                                   f"K1 {kind} {name} frame: {v}", (dkind,))
-            dev_us[v] = device_us(prof["by_name"], dkind) / len(qs)
+        mid_ms = cuda_ms(lambda: new(mid), 5)
+        frame_ms = cuda_ms(frame_pass, 3) / len(qs)
+        prof = profile_summary(lambda: new(mid),
+                               f"K1 {kind} {name} middle launch", (kind,))
+        mid_us = device_us(prof["by_name"], kind)
+        prof = profile_summary(frame_pass, f"K1 {kind} {name} frame",
+                               (kind,))
+        frame_us = device_us(prof["by_name"], kind) / len(qs)
         both = plain["hit"]
-        t_new = new(mid)["t"]
-        err = float((plain["t"][both] - t_new[both]).abs().max()) \
+        err = float((plain["t"][both] - t_new["t"][both]).abs().max()) \
             if bool(both.any()) else 0.0
         out[kind] = dict(
-            max_abs_err=err, ms=(mid_turns[1] + mid_turns[2]) / 2,
-            plain_ms=plain_ms, library_ms=None,
-            simple_ms=(mid_turns[0] + mid_turns[3]) / 2,
-            mid_device_ms=mid_us["new"] / 1e3,
-            simple_mid_device_ms=mid_us["simple"] / 1e3,
-            frame_ms=(turns[1] + turns[2]) / 2,
-            simple_frame_ms=(turns[0] + turns[3]) / 2,
-            frame_device_ms=dev_us["new"] / 1e3,
-            simple_frame_device_ms=dev_us["simple"] / 1e3,
+            max_abs_err=err, ms=mid_ms, plain_ms=plain_ms, library_ms=None,
+            mid_device_ms=mid_us / 1e3, frame_ms=frame_ms,
+            frame_device_ms=frame_us / 1e3,
             live_share=n_live / lanes, mixed_group_share=mixed / n_groups,
             **b)
         log(f"K1 {kind} {name} frame: {len(qs)} launches, {lanes} lanes, "
             f"live share {n_live / lanes:.4f}, 32-lane groups that mix live "
-            f"and dead lanes {mixed / n_groups:.4f}; the new kernel equal to "
-            f"the simple one on every launch, and both equal to the plain "
-            f"walk on the middle launch (tolerance: bit-equal)")
+            f"and dead lanes {mixed / n_groups:.4f}; the kernel equal to "
+            f"the plain walk on every launch (tolerance: bit-equal; the "
+            f"plain walk {plain_s:.1f} s, {HIT_FRAME_BATCH} launches a "
+            f"call)")
         log(f"K1 {kind} {name} middle launch: work per live lane (the plain "
             f"walk's counts) " + ", ".join(
                 f"{k} {v / max(int(mid_live.sum()), 1):.3f}"
                 for k, v in work.items())
             + f"; bound {b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}); "
-            f"device us (profiler) simple {mid_us['simple']:.1f}, new "
-            f"{mid_us['new']:.1f}: new / bound "
-            f"{mid_us['new'] / (b['bound_ms'] * 1e3):.2f}x, simple / new "
-            f"{mid_us['simple'] / mid_us['new']:.2f}x; timed in turns "
-            f"(simple, new, new, simple) "
-            + ", ".join(f"{m * 1e3:.1f}" for m in mid_turns)
-            + f" us; plain walk {plain_ms:.1f} ms")
-        log(f"K1 {kind} {name} frame, device us per launch (profiler): "
-            f"simple {dev_us['simple']:.1f}, new {dev_us['new']:.1f}; simple "
-            f"/ new {dev_us['simple'] / dev_us['new']:.2f}x; timed per launch "
-            f"in turns (simple, new, new, simple): "
-            + ", ".join(f"{m * 1e3:.1f}" for m in turns)
-            + f" us; simple / new "
-            f"{out[kind]['simple_frame_ms'] / out[kind]['frame_ms']:.2f}x")
+            f"device us (profiler) {mid_us:.1f}: kernel / bound "
+            f"{mid_us / (b['bound_ms'] * 1e3):.2f}x; timed "
+            f"{mid_ms * 1e3:.1f} us; plain walk {plain_ms:.1f} ms")
+        log(f"K1 {kind} {name} frame, device us per launch (profiler) "
+            f"{frame_us:.1f}; timed per launch {frame_ms * 1e3:.1f} us")
     return out
-
-
-def check_simple_k4_frame(name, scene, meta, width, height, **kw) -> None:
-    """The f32 sums of the eager frame (``frame_eager``: RES rows, SAMPLES,
-    DEPTH, CHUNK_PIXELS; ``kw`` for the stochastic modes) through K4 and
-    through its first form, the renderer's ``shade.shade_step`` swapped for
-    ``parity.shade_step_simple`` for the call: equal bit for bit. (The
-    device loop's frame, which launches K4 itself, equals the eager frame
-    bit for bit: ``phase_frame_device_loop``.)"""
-    from yocto_raytracing_tpu_torch.kernels import parity
-    from yocto_raytracing_tpu_torch.render import renderer, shade
-
-    def frame():
-        return renderer.frame_eager(scene, meta, width, height, SAMPLES,
-                                    max_depth=DEPTH,
-                                    chunk_pixels=CHUNK_PIXELS, **kw)
-
-    def simple(scene_, ro, rd, hits, amb, active, occluder,
-               has_kd_textures=True, has_ks_textures=True, light_pos=None,
-               records=None):
-        return parity.shade_step_simple(scene_, ro, rd, hits, amb, active,
-                                        occluder, has_kd_textures,
-                                        has_ks_textures, light_pos)
-
-    new = frame()
-    shade_step = shade.shade_step
-    shade.shade_step = simple
-    try:
-        old = frame()
-    finally:
-        shade.shade_step = shade_step
-    same = np.array_equal(new.view(np.int32), old.view(np.int32))
-    log(f"frame {name}: the eager loop's f32 frame through K4 bit-equal to "
-        f"the one through its first form: {same}")
-    if not same:
-        raise AssertionError(f"frame {name}: K4 and its first form differ "
-                             f"on {int((new != old).any(-1).sum())} pixels")
 
 
 FRAME_KERNELS = ("hit", "hit_any", "camera_rays", "pixel_finish", "shade",
@@ -1194,7 +1054,7 @@ def phase_frame(path, resolution, samples, max_depth, device, dev_info,
     and those of them that belong to dead bounces, which its graph does
     not make (``kernels.skipped_launches``); a warm profile, which must
     hold the live bounces' launches and no dead one's
-    (``dead_bounce_time``), its dead bounces counted alike; the first
+    (``dead_bounce_launches``), its dead bounces counted alike; the first
     COMPARE_PIXELS pixels against the all-plain path."""
     from yocto_raytracing_tpu_torch import kernels
     from yocto_raytracing_tpu_torch.render import renderer
@@ -1233,12 +1093,10 @@ def phase_frame(path, resolution, samples, max_depth, device, dev_info,
         chunk_pixels=CHUNK_PIXELS, device=device, ldr=True),
         f"warm frame {name}",
         ("hit_nearest", "hit_any", "camera_rays", "pixel_finish", "shade"),
-        check=lambda ev: dead_bounce_time(ev, kernels.last_frame()))
+        check=lambda ev: dead_bounce_launches(ev, kernels.last_frame()))
     dead = prof["checked"]
     log(f"frame {name}: in the warm profile {dead['bounces']} dead bounces, "
-        f"{dead['total_us']:.1f} us of device time ("
-        + ", ".join(f"{k} {dead['launches'][k]} launches {dead['us'][k]:.1f}"
-                    for k in BOUNCE_KERNELS) + " us)")
+        f"none launched; live bounces by depth {dead['live_by_depth']}")
     if dead["bounces"] != skipped["bounces"]:
         raise AssertionError(f"frame {name}: {dead['bounces']} dead bounces "
                              f"in the profile, {skipped['bounces']} counted")
@@ -1246,7 +1104,6 @@ def phase_frame(path, resolution, samples, max_depth, device, dev_info,
     # all-plain path on the card, first COMPARE_PIXELS pixels
     check_plain_pixels(f"frame {name}", img, scene, meta, samples, max_depth,
                        0, min(COMPARE_PIXELS, width * height))
-    check_simple_k4_frame(name, scene, meta, width, height)
     for d in (skipped, made):
         d["hit_nearest"] = d["hit"] - d["hit_any"]
     return dict(counts=counts, skipped=skipped, made=made, wall=wall,
@@ -1405,11 +1262,9 @@ def phase_stochastic(host, device) -> dict:
                                meta.has_ks_textures, light_pos=lpos)
     gaps = {k: rep[k] for k in parity.SHADE_OUTPUTS}
     log(f"K4 shade with per-ray lights: {n} rays, {rep['hits']} hits; ULP "
-        f"gap kernel vs plain {gaps}, kernel vs its first form "
-        f"{rep['simple']}, masks equal {rep['mask_equal']} (tolerance: "
-        f"bit-equal)")
-    if (not rep["mask_equal"] or any(gaps.values())
-            or any(rep["simple"].values())):
+        f"gap kernel vs plain {gaps}, masks equal {rep['mask_equal']} "
+        f"(tolerance: bit-equal)")
+    if not rep["mask_equal"] or any(gaps.values()):
         raise AssertionError(f"K4 with per-ray lights: {rep}")
     occ = parity.occluder(scene)
 
@@ -1419,15 +1274,14 @@ def phase_stochastic(host, device) -> dict:
                meta.has_ks_textures, light_pos)
 
     rec["shade_lights"] = dict(
-        **k4_in_turns("shade with per-ray lights, area hair", scene, meta,
-                      inputs, amb, lpos),
+        **k4_times("shade with per-ray lights, area hair", scene, meta,
+                   inputs, amb, lpos),
         plain_ms=cuda_ms(lambda: run(shade.shade_step_plain, lpos), 3),
         fixed_ms=cuda_ms(lambda: run(shade.shade_step_cuda, None), 10),
         **bound("shade", n * (24 + 8 + 1 + 48) + nbytes(lpos)
                 + leaves_bytes(scene, SHADE_LEAVES), n))
     log(f"K4 shade with per-ray lights: kernel "
-        f"{rec['shade_lights']['ms']:.3f} ms (first form "
-        f"{rec['shade_lights']['simple_ms']:.3f} ms; the same rays with the fixed "
+        f"{rec['shade_lights']['ms']:.3f} ms (the same rays with the fixed "
         f"lights {rec['shade_lights']['fixed_ms']:.3f} ms), plain "
         f"{rec['shade_lights']['plain_ms']:.3f} ms per bounce (with the K1 "
         f"shadow query), bound {rec['shade_lights']['bound_ms'] * 1e3:.1f} "
@@ -1516,8 +1370,6 @@ def phase_area_frame(path, device, dev_info, name) -> dict:
         f"differ ({time.perf_counter() - t0:.1f} s)")
     if d.max() > 1:
         raise AssertionError(f"frame {name}: {d.max()} u8 steps off plain")
-    check_simple_k4_frame(name, scene, meta, width, height, stochastic=True,
-                          seed=SEED, light_sampler=sampler)
     return dict(counts=counts, wall=wall, rays=rays, prof=prof)
 
 
@@ -1732,23 +1584,23 @@ def phase_bounce_bwd_kernel(device) -> dict:
 
 
 RECORDS_ROUNDS = 20      # K13 launches per profile
-# the scenes on which K13 is timed in turns with its first form (all four
-# of phase_records_kernel are held bit-equal)
+# the scenes on which K13 is timed (all four of phase_records_kernel are
+# held bit-equal)
 RECORDS_TIMED = ("hair", "random 10004 instances")
 
 
 def phase_records_kernel(device) -> dict:
-    """K13 and its first form (``records_simple.cu``) against their plain
-    version (``hit_records.pack`` and ``shade_records.pack``) on the hair
-    scene (the main path's), the 10,004-instance scene (the benchmark's
-    instance10000 stand-in), a random 8-instance scene and the mirror
-    pair: every record table bit-equal from either form, and again after
+    """K13 against its plain version (``hit_records.pack`` and
+    ``shade_records.pack``) on the hair scene (the main path's), the
+    10,004-instance scene (the benchmark's instance10000 stand-in), a
+    random 8-instance scene and the mirror pair: every record table
+    bit-equal, through ``pack_into`` and through a prepared launch after
     leaves are edited in place (node starts whose packed sums wrap). On
-    hair and the 10,004-instance scene: the prepared launches (the device
-    loops' way, ``records.prepare``) of the first and the new form in
-    turns (``kernel_turns``: CUDA events, and device us per launch by
-    kernel name from profiles of RECORDS_ROUNDS launches), an empty launch
-    of the new form's grid and arguments profiled and timed the same way
+    hair and the 10,004-instance scene: the prepared launch (the device
+    loops' way, ``records.prepare``) timed (``kernel_time``: CUDA events,
+    and device us per launch from a profile of RECORDS_ROUNDS launches),
+    an empty launch of its grid and arguments profiled and timed the same
+    way
     (the floor of any such launch), the unprepared ``pack_into`` (its
     arguments checked on every call), the packers' time and the bound (the
     leaves read once, the tables written once). Returns the hair scene's
@@ -1767,7 +1619,6 @@ def phase_records_kernel(device) -> dict:
         scene, _ = scene_on(make(), device)
         hrec, srec = records.empty(scene)
         new = records.prepare(scene, hrec, srec)
-        first = records.prepare_first_form(scene, hrec, srec)
         for edit in (False, True):
             if edit:
                 scene.pos.mul_(1.5)
@@ -1775,33 +1626,28 @@ def phase_records_kernel(device) -> dict:
                 scene.node_skip.add_(3)
                 scene.node_start[::3] = 2 ** 29 + 7   # 8 * start wraps
             want = (*hit_records.pack(scene)[:3], *shade_records.pack(scene))
-            for form, fill in (("new", new if edit else lambda: records.
-                                pack_into(scene, hrec, srec)),
-                               ("first form", first)):
-                for t in records.tables(hrec, srec):
-                    t.fill_(float("nan"))
-                fill()
-                for i, (a, b) in enumerate(zip(records.tables(hrec, srec),
-                                               want)):
-                    if not torch.equal(a.view(torch.int32),
-                                       b.view(torch.int32)):
-                        raise AssertionError(
-                            f"K13 ({form}) {name} table {i} (edited "
-                            f"{edit}): differs from plain")
+            for t in records.tables(hrec, srec):
+                t.fill_(float("nan"))
+            if edit:
+                new()
+            else:
+                records.pack_into(scene, hrec, srec)
+            for i, (a, b) in enumerate(zip(records.tables(hrec, srec),
+                                           want)):
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    raise AssertionError(f"K13 {name} table {i} (edited "
+                                         f"{edit}): differs from plain")
         if name not in RECORDS_TIMED:
             continue
-        t = kernel_turns(f"K13 {name}", {"simple": (first, "records_simple"),
-                                         "new": (new, "records")},
-                         20, per_profile=RECORDS_ROUNDS)
+        t = kernel_time(f"K13 {name}", new, "records", 20,
+                        per_profile=RECORDS_ROUNDS)
         empty = records.prepare_cuda(scene, hrec, srec, empty=True)
         prof = profile_summary(lambda: [empty() for _ in range(
             RECORDS_ROUNDS)], f"K13 {name}: empty launch", ("records_empty",))
         ins = [getattr(scene, k) for k, _, _ in records.LEAVES]
         moved = nbytes(*ins, *records.tables(hrec, srec))
         out[name] = rec = dict(
-            max_abs_err=0.0, ms=t["ms"], simple_ms=t["simple_ms"],
-            turns_ms=t["turns_ms"], device_us=t["device_us"],
-            simple_device_us=t["simple_device_us"],
+            max_abs_err=0.0, ms=t["ms"], device_us=t["device_us"],
             empty_us=launch_us(prof, "records_empty")[0],
             empty_ms=cuda_ms(empty, 20), blocks=new.blocks,
             unprepared_ms=cuda_ms(
@@ -1812,26 +1658,22 @@ def phase_records_kernel(device) -> dict:
         log(f"K13 records, {name} ({scene.node_start.shape[0]} nodes, "
             f"{scene.prim_v.shape[0]} prims, {scene.inst_axes.shape[0]} "
             f"instances; {new.blocks} blocks of 256 threads, a thread a "
-            f"16-byte quad): device us per launch (profiler, in turns) "
-            f"first form / new {rec['simple_device_us']:.2f} / "
-            f"{rec['device_us']:.2f}, an empty launch of the new grid "
-            f"{rec['empty_us']:.2f}; prepared launch timed in turns (first, "
-            f"new, new, first) " + ", ".join(f"{m:.4f}" for m in
-                                             rec["turns_ms"])
-            + f" ms, the empty launch {rec['empty_ms']:.4f} ms; unprepared "
+            f"16-byte quad): device us per launch (profiler) "
+            f"{rec['device_us']:.2f}, an empty launch of its grid "
+            f"{rec['empty_us']:.2f}; prepared launch timed {rec['ms']:.4f} "
+            f"ms, the empty launch {rec['empty_ms']:.4f} ms; unprepared "
             f"pack_into {rec['unprepared_ms']:.4f} ms; plain "
             f"{rec['plain_ms']:.4f} ms; bound {rec['bound_ms'] * 1e3:.3f} us "
             f"({rec['bound_by']}, {moved} bytes)")
     log("K13 records: the hair, 10,004-instance, random and mirror-pair "
-        "scenes' six tables bit-equal to plain from the new form and the "
-        "first form, before and after leaves edited in place")
+        "scenes' six tables bit-equal to plain, before and after leaves "
+        "edited in place")
     return dict(out["hair"], big=out["random 10004 instances"])
 
 
-# the device loop's ways of running a frame, timed in turns (eager loop,
-# first form, frame_device's first call of a key, its repeated call)
-LOOP_TURNS = ("eager", "first", "miss", "hit", "hit", "miss", "first",
-              "eager")
+# the ways of running a frame, timed in turns (eager loop, frame_device's
+# first call of a key, its repeated call)
+LOOP_TURNS = ("eager", "miss", "hit", "hit", "miss", "eager")
 
 
 def tensor_mib(obj) -> float:
@@ -1868,7 +1710,7 @@ def loop_turns(label, ways, order, expect, dev_info) -> dict:
     loop's (computed first; AssertionError on a miss), then profile each
     way once, in the order of their first turns. Returns per
     way: its walls in turns, the records' ``host_ms`` and ``cache_hit``, the
-    profile (with ``dead_bounce_time`` for the device loops), and the
+    profile (with ``dead_bounce_launches`` for the device loop), and the
     growth of the reserved device memory over the turns."""
     from yocto_raytracing_tpu_torch import kernels
 
@@ -1892,8 +1734,7 @@ def loop_turns(label, ways, order, expect, dev_info) -> dict:
     grown = (torch.cuda.memory_reserved() - reserved) / 2 ** 20
     for k in dict.fromkeys(order):
         check = (None if k == "eager" else
-                 lambda ev, d=(k == "first"): dead_bounce_time(
-                     ev, kernels.last_frame(), d))
+                 lambda ev: dead_bounce_launches(ev, kernels.last_frame()))
         out[k]["prof"] = profile_summary(ways[k], f"{label} {k}", expect,
                                          check=check)
     for k, r in out.items():
@@ -1909,9 +1750,7 @@ def loop_turns(label, ways, order, expect, dev_info) -> dict:
                f"host {p['d2h']}")
             + ("" if dead is None else
                f"; live bounces by depth {dead['live_by_depth']}, dead "
-               f"bounces {dead['bounces']}: "
-               f"{sum(dead['launches'].values())} launches, "
-               f"{dead['total_us'] / 1e3:.3f} ms of device time")
+               f"bounces {dead['bounces']}, none launched")
             + ("" if not stages else "; host ms (enqueue) "
                + ", ".join(f"{s} " + "/".join(f"{v:.2f}" for v in vs)
                            for s, vs in stages.items())
@@ -1925,19 +1764,18 @@ def loop_turns(label, ways, order, expect, dev_info) -> dict:
 
 def phase_frame_device_loop(frames, deep, device, dev_info) -> None:
     """The device loop on the frames (RES rows, SAMPLES, CHUNK_PIXELS; the
-    area frames stochastic with seed SEED) at their depths, four ways in
+    area frames stochastic with seed SEED) at their depths, three ways in
     turns (LOOP_TURNS), each ending in the frame's f32 sums on the host:
-    the eager per-chunk loop (``frame_eager``), the loop's first form
-    (``renderer._frame_device_first``: everything made per call, an eager
-    chunk 0, a graph captured per call with every bounce launched),
-    ``frame_device``'s first call of a key (a miss: the kept entry cleared
+    the eager per-chunk loop (``frame_eager``), ``frame_device``'s first
+    call of a key (a miss: the kept entry cleared
     first; records packed eagerly, the chunk captured before chunk 0 with
     dead bounces in IF nodes, the staging graph captured after the
     replays) and its repeated call (a hit). For each: wall per call,
     ``host_ms`` by stage, one profile (device busy time, idle share, device
-    ops, copies to the host: 1 for the device loops, the live bounces by
-    depth and the dead bounces' launches and device time,
-    ``dead_bounce_time``: none in the graph), f32 sums bit-equal to the
+    ops, copies to the host: the frame's one into pinned memory, and on a
+    miss at most one read of the instances' frame words, the live bounces
+    by depth and the dead bounces, none launched in the graph:
+    ``dead_bounce_launches``), f32 sums bit-equal to the
     eager loop's (a miss raises); the reserved memory's growth over the
     turns and the kept entry's size. A frame named in ``deep`` must run
     bounces 2 and 3 in some chunk (their IF nodes set by K12 inside the
@@ -1979,11 +1817,8 @@ def phase_frame_device_loop(frames, deep, device, dev_info) -> None:
             renderer._frames.clear()
             return hit()
 
-        ways = dict(
-            eager=lambda: renderer.frame_eager(*args, **kw),
-            first=lambda: renderer.to_host(
-                renderer._frame_device_first(*args, **kw)[:npix]),
-            miss=miss, hit=hit)
+        ways = dict(eager=lambda: renderer.frame_eager(*args, **kw),
+                    miss=miss, hit=hit)
         expect = ("hit_nearest", "hit_any", "shade", "pixel_finish",
                   "camera_rays_stochastic" if area else "camera_rays")
         label = f"frame_device_loop {name} depth {depth}"
@@ -1992,16 +1827,20 @@ def phase_frame_device_loop(frames, deep, device, dev_info) -> None:
             f"load {split[0]:.2f}, device scene and BVH {split[1]:.2f}, "
             f"upload {split[2]:.2f}, render_image {split[3]:.2f}")
         res = loop_turns(label, ways, LOOP_TURNS, expect, dev_info)
-        for k in ("first", "miss", "hit"):
-            if res[k]["prof"]["d2h"] != 1:
-                raise AssertionError(f"{label} {k}: "
-                                     f"{res[k]['prof']['d2h']} copies to "
-                                     f"the host, not 1")
+        # the frame crosses to the host once, into the pinned buffer; a
+        # miss also reads the instances' frame words to pageable memory
+        # when it builds the entry (hit_records.identity_share, k1_ident)
+        hit_d2h, miss_d2h = (res[k]["prof"]["d2h"] for k in ("hit", "miss"))
+        miss_pinned = res["miss"]["prof"]["d2h_pinned"]
+        if hit_d2h != 1 or miss_pinned != 1 or miss_d2h - miss_pinned > 1:
+            raise AssertionError(
+                f"{label}: copies to the host: hit {hit_d2h}, not 1; miss "
+                f"{miss_pinned} to pinned memory, not 1, and "
+                f"{miss_d2h - miss_pinned} others, not at most 1")
         if (not all(res["hit"]["hits"]) or any(res["miss"]["hits"])
-                or any(h["capture"] or h["chunk0"]
-                       for h in res["hit"]["host_ms"])):
+                or any(h["capture"] for h in res["hit"]["host_ms"])):
             raise AssertionError(f"{label}: a repeated call missed the "
-                                 f"cache, captured or ran an eager chunk")
+                                 f"cache or captured")
         live = res["hit"]["prof"]["checked"]["live_by_depth"]
         if name in deep and not (live[2] and live[3]):
             raise AssertionError(f"{label}: bounces 2 and 3 ran in "
@@ -2024,9 +1863,9 @@ def phase_frame_device_loop(frames, deep, device, dev_info) -> None:
 
 def loop_edits(label, args, kw, npix, dev_info) -> None:
     """``frame_device`` after a call of its key, then after a scene leaf is
-    edited in place (the materials' kd halved: a cache hit) and, where the
-    frame reads a seed, under a new one (a miss), each call's f32 sums
-    bit-equal to ``frame_eager``'s on the same inputs."""
+    edited in place (the materials' kd halved) and, where the frame reads a
+    seed, under a new one (the entry's seed word): each a cache hit, its
+    f32 sums bit-equal to ``frame_eager``'s on the same inputs."""
     from yocto_raytracing_tpu_torch import kernels
     from yocto_raytracing_tpu_torch.render import renderer
 
@@ -2036,8 +1875,8 @@ def loop_edits(label, args, kw, npix, dev_info) -> None:
     if kw["stochastic"]:
         cases.append((f"seed {kw['seed'] + 1}",
                       dict(kw, seed=kw["seed"] + 1), False))
-    for what, kw2, hit in cases:
-        if hit:
+    for what, kw2, edit in cases:
+        if edit:
             scene.mat_kd.mul_(0.5)
         got = renderer.to_host(renderer.frame_device(*args, **kw2)[:npix])
         rec = kernels.last_frame()
@@ -2046,10 +1885,9 @@ def loop_edits(label, args, kw, npix, dev_info) -> None:
         log(f"{label} {what}: cache hit {rec['cache_hit']}, f32 sums "
             f"bit-equal to the eager loop's on the same inputs: {same}; on "
             f"{dev_info['smi']}")
-        if not same or rec["cache_hit"] != hit:
+        if not same or not rec["cache_hit"]:
             raise AssertionError(f"{label} {what}: the frame differs from "
-                                 f"the eager loop's, or the cache hit is "
-                                 f"not {hit}")
+                                 f"the eager loop's, or the cache missed")
 
 
 def phase_small_reference(path, device):
@@ -2081,15 +1919,13 @@ def middle_ids(width, height, samples, n, device, last=False):
     return torch.arange(first, first + n, dtype=torch.int32, device=device)
 
 
-def k4_in_turns(label, scene, meta, inputs, amb, light_pos=None) -> dict:
-    """K4 and its first form on one bounce, each with the K1 shadow query,
-    through the same host path (``shade.forward_launches`` with one
-    argument struct, records packed once; the first form ignores them):
-    timed calls in turns (simple, new, new, simple; CUDA events around the
-    call), and the device time of the prep and finish kernels apart, from
-    one profiled call of each in the same turns. Returns ms and us per
-    launch."""
-    from yocto_raytracing_tpu_torch.kernels import _build, parity
+def k4_times(label, scene, meta, inputs, amb, light_pos=None) -> dict:
+    """K4 on one bounce with the K1 shadow query, through the host path of
+    the device loop (``shade.forward_launches`` with one argument struct,
+    records packed once): timed calls (CUDA events around the call), and
+    the device time of the prep and finish kernels apart, from one
+    profiled call. Returns ms and us per launch."""
+    from yocto_raytracing_tpu_torch.kernels import parity
     from yocto_raytracing_tpu_torch.ops import shade_records
     from yocto_raytracing_tpu_torch.render import shade
 
@@ -2101,48 +1937,26 @@ def k4_in_turns(label, scene, meta, inputs, amb, light_pos=None) -> dict:
     args = shade._shade_args(scene, leaves, amb, meta.has_kd_textures,
                              meta.has_ks_textures, light_pos, ro.shape[0],
                              recs)
-    lib = _build.library()
 
-    def launches(prep, finish):
-        def run():
-            with torch.no_grad():
-                shade.forward_launches(prep, finish, args, ro, rd,
-                                       hits["inst"], hits["prim"], mask, occ)
-        return run
+    def run():
+        with torch.no_grad():
+            shade.forward_launches(args, ro, rd, hits["inst"], hits["prim"],
+                                   mask, occ)
 
-    variants = {"simple": (launches(lib.yrt_shade_prep_simple,
-                                    lib.yrt_shade_finish_simple),
-                           ("shade_prep_simple", "shade_finish_simple")),
-                "new": (launches(lib.yrt_shade_prep, lib.yrt_shade_finish),
-                        ("shade_prep", "shade_finish"))}
-    turns = [cuda_ms(variants[v][0], 10)
-             for v in ("simple", "new", "new", "simple")]
-    dev = {v: [0.0, 0.0] for v in variants}
-    for v in ("simple", "new", "new", "simple"):
-        fn, kinds = variants[v]
-        prof = profile_summary(fn, f"K4 {label}: {v}", kinds)
-        for j, k in enumerate(kinds):
-            dev[v][j] += device_us(prof["by_name"], k) / 2
-    out = dict(ms=(turns[1] + turns[2]) / 2,
-               simple_ms=(turns[0] + turns[3]) / 2,
-               prep_us=dev["new"][0], finish_us=dev["new"][1],
-               simple_prep_us=dev["simple"][0],
-               simple_finish_us=dev["simple"][1])
-    log(f"K4 {label}: {ro.shape[0]} rays, device us per launch (profiler, "
-        f"in turns) prep simple / new {out['simple_prep_us']:.1f} / "
-        f"{out['prep_us']:.1f}, finish {out['simple_finish_us']:.1f} / "
-        f"{out['finish_us']:.1f}; simple / new "
-        f"{(out['simple_prep_us'] + out['simple_finish_us']) / (out['prep_us'] + out['finish_us']):.2f}x; "
-        f"timed launches with the K1 shadow query in turns (simple, new, "
-        f"new, simple) " + ", ".join(f"{m:.3f}" for m in turns) + " ms")
+    ms = cuda_ms(run, 10)
+    prof = profile_summary(run, f"K4 {label}", ("shade_prep", "shade_finish"))
+    out = dict(ms=ms, prep_us=device_us(prof["by_name"], "shade_prep"),
+               finish_us=device_us(prof["by_name"], "shade_finish"))
+    log(f"K4 {label}: {ro.shape[0]} rays, device us per launch (profiler) "
+        f"prep {out['prep_us']:.1f}, finish {out['finish_us']:.1f}; timed "
+        f"launches with the K1 shadow query {ms:.3f} ms")
     return out
 
 
 def phase_shade_kernel(cases, device) -> dict:
-    """K4 against its first form and the plain shading on the same K1 hits
-    and the same K1 shadow query: bit-equal outputs (ULP gap 0) and equal
-    masks. The first case is timed (CUDA events, both with the K1 shadow
-    query), in turns with the first form (``k4_in_turns``)."""
+    """K4 against the plain shading on the same K1 hits and the same K1
+    shadow query: bit-equal outputs (ULP gap 0) and equal masks. The first
+    case is timed (CUDA events, with the K1 shadow query; ``k4_times``)."""
     from yocto_raytracing_tpu_torch.kernels import parity
     from yocto_raytracing_tpu_torch.render import shade
 
@@ -2156,11 +1970,9 @@ def phase_shade_kernel(cases, device) -> dict:
                                    meta.has_ks_textures)
         gaps = {k: rep[k] for k in parity.SHADE_OUTPUTS}
         log(f"K4 shade {name}: {ids.shape[0]} rays, bounce {bounce}, "
-            f"{rep['hits']} hits; ULP gap kernel vs plain {gaps}, kernel vs "
-            f"its first form {rep['simple']}, masks equal "
-            f"{rep['mask_equal']} (tolerance: bit-equal)")
-        if (not rep["mask_equal"] or any(gaps.values())
-                or any(rep["simple"].values())):
+            f"{rep['hits']} hits; ULP gap kernel vs plain {gaps}, masks "
+            f"equal {rep['mask_equal']} (tolerance: bit-equal)")
+        if not rep["mask_equal"] or any(gaps.values()):
             raise AssertionError(f"K4 {name}: {rep}")
         if rec is None:
             occ = parity.occluder(scene)
@@ -2178,41 +1990,45 @@ def phase_shade_kernel(cases, device) -> dict:
                        library_ms=None,
                        wrapper_ms=cuda_ms(lambda: run(shade.shade_step_cuda),
                                           10),
-                       **k4_in_turns(f"shade {name}", scene, meta, inputs,
-                                     amb),
+                       **k4_times(f"shade {name}", scene, meta, inputs,
+                                  amb),
                        # ro, rd, inst, prim, mask in; color, kr, p, refl out
                        **bound("shade", n * (24 + 8 + 1 + 48)
                                + leaves_bytes(scene, SHADE_LEAVES), n))
-            log(f"K4 shade {name}: kernel {rec['ms']:.3f} ms, first form "
-                f"{rec['simple_ms']:.3f} ms (launched alike), through "
+            log(f"K4 shade {name}: kernel {rec['ms']:.3f} ms, through "
                 f"shade_step_cuda {rec['wrapper_ms']:.3f} ms, plain "
                 f"{rec['plain_ms']:.3f} ms per bounce (each with the K1 "
                 f"shadow query); bound {rec['bound_ms'] * 1e3:.2f} us")
     return rec
 
 
-def k5_in_turns(label, scene, meta, inputs, amb, gen, light_pos=None) -> dict:
-    """K5 against its first form (``parity.shade_bwd_simple``) on one saved
-    bounce: every leaf, d_ro and d_rd within GRAD_RTOL relative L2 of each
-    other; the light leaves bit-identical over two runs of K5 (their sums
-    run in a fixed order); the two timed in turns (simple, new, new,
-    simple; CUDA events around the wrapper, its buffers included) and
-    profiled in the same turns (device us per launch: K5's two kernels,
-    the first form's one)."""
+def k5_check(label, scene, meta, inputs, amb, gen, light_pos=None) -> dict:
+    """K5 through its saved-bounce entry (``shade.shade_step_bwd``, the
+    device loop's) on one bounce: every leaf, d_ro and d_rd within
+    GRAD_RTOL relative L2 of its plain version on the saved bounce
+    (``parity.compare_shade_bwd``), or with per-ray light positions of
+    torch autograd of the plain shading (``parity.compare_shade_grads``);
+    the light leaves bit-identical over two runs of K5 (their sums run in a
+    fixed order); timed (CUDA events around the wrapper, its buffers
+    included) and profiled (``kernel_time``: device us per launch of K5's
+    two kernels)."""
     from yocto_raytracing_tpu_torch.kernels import parity
-    from yocto_raytracing_tpu_torch.render import shade
 
     saved = parity.shade_bwd_inputs(scene, inputs, amb, meta.has_kd_textures,
                                     meta.has_ks_textures, light_pos)
-    rep = parity.compare_shade_bwd_simple(scene, saved, gen)
-    worst = parity.check_grads(rep, GRAD_RTOL, f"K5 {label} vs first form")
+    if light_pos is None:
+        rep = parity.compare_shade_bwd(scene, saved, gen)
+        against = "its plain version on the saved bounce"
+    else:
+        rep = parity.compare_shade_grads(scene, inputs, amb, gen,
+                                         meta.has_kd_textures,
+                                         meta.has_ks_textures, light_pos)
+        against = "torch autograd of the plain shading"
+    worst = parity.check_grads(rep, GRAD_RTOL, f"K5 {label}")
     cots = parity.shade_bwd_cotangents(saved, gen)
 
     def new():
-        return parity.bwd_grads(shade.shade_step_bwd, scene, saved, cots)
-
-    def old():
-        return parity.bwd_grads(parity.shade_bwd_simple, scene, saved, cots)
+        return parity.bwd_grads(scene, saved, cots)
 
     a, b = new(), new()
     lights_same = all(torch.equal(a[k], b[k]) for k in
@@ -2221,21 +2037,16 @@ def k5_in_turns(label, scene, meta, inputs, amb, gen, light_pos=None) -> dict:
         raise AssertionError(f"K5 {label}: light gradients differ between "
                              f"two runs")
     kind = "shade_bwd" if light_pos is None else "shade_bwd_lights"
-    out = kernel_turns(f"K5 {label}", {"simple": (old, "shade_bwd_simple"),
-                                       "new": (new, kind)}, 10)
-    dev = {"simple": out["simple_device_us"], "new": out["device_us"]}
+    out = kernel_time(f"K5 {label}", new, kind, 10)
     live = saved["mask"][: saved["mask"].numel() // 32 * 32].view(-1, 32)
-    out.update(rel_vs_simple=worst,
+    out.update(rel_vs_plain=worst,
                dead_warp_share=float(1 - live.any(1).float().mean()))
     log(f"K5 {label}: {saved['ro'].shape[0]} rays, dead-warp share "
-        f"{out['dead_warp_share']:.4f}: against its first form, largest "
+        f"{out['dead_warp_share']:.4f}: against {against}, largest "
         f"relative L2 error {worst:.3e} over ro, rd and the leaves "
         f"(tolerance {GRAD_RTOL}); light leaves bit-identical over two "
-        f"runs; device us per launch (profiler, in turns) simple / new "
-        f"{dev['simple']:.1f} / {dev['new']:.1f} = "
-        f"{dev['simple'] / dev['new']:.2f}x; timed calls in turns (simple, "
-        f"new, new, simple) "
-        + ", ".join(f"{m:.3f}" for m in out["turns_ms"]) + " ms")
+        f"runs; device us per launch (profiler) {out['device_us']:.1f}; "
+        f"timed call {out['ms']:.3f} ms")
     return out
 
 
@@ -2284,125 +2095,84 @@ def launch_us(prof: dict, kind: str) -> tuple:
     return sum(parts.values()), parts, min(captured)
 
 
-def kernel_turns(label, variants: dict, reps: int, per_profile=1) -> dict:
-    """A kernel's wrapper and its first form's, ``variants`` {"simple" |
-    "new": (fn, DEVICE_FUNCTIONS key)}: timed calls in turns (simple, new,
-    new, simple; CUDA events around the call, ``reps`` calls each), and the
-    device us per launch from a profile of ``per_profile`` calls of each in
-    the same turns (``launch_us``), in all and by device function
-    ("parts": {variant: {function: us}}), with the fewest launches a
-    profile kept of each ("captured")."""
-    order = ("simple", "new", "new", "simple")
-    turns = [cuda_ms(variants[v][0], reps) for v in order]
-    dev = {v: 0.0 for v in variants}
-    parts = {v: {} for v in variants}
-    captured = {v: per_profile for v in variants}
-    for v in order:
-        fn, kind = variants[v]
-        prof = profile_summary(lambda: [fn() for _ in range(per_profile)],
-                               f"{label}: {v}", (kind,))
-        us, by_fn, kept = launch_us(prof, kind)
-        dev[v] += us / 2
-        for f, t in by_fn.items():
-            parts[v][f] = parts[v].get(f, 0.0) + t / 2
-        captured[v] = min(captured[v], kept)
-    return dict(ms=(turns[1] + turns[2]) / 2,
-                simple_ms=(turns[0] + turns[3]) / 2, device_us=dev["new"],
-                simple_device_us=dev["simple"], turns_ms=turns, parts=parts,
-                captured=captured)
+def kernel_time(label, fn, kind: str, reps: int, per_profile=1) -> dict:
+    """A kernel's wrapper ``fn`` (its DEVICE_FUNCTIONS key ``kind``): timed
+    calls (CUDA events around the call, ``reps`` calls), and the device us
+    per launch from a profile of ``per_profile`` calls (``launch_us``), in
+    all and by device function ("parts"), with the fewest launches the
+    profile kept ("captured")."""
+    ms = cuda_ms(fn, reps)
+    prof = profile_summary(lambda: [fn() for _ in range(per_profile)],
+                           label, (kind,))
+    us, parts, captured = launch_us(prof, kind)
+    return dict(ms=ms, device_us=us, parts=parts, captured=captured)
 
 
-def camera_bwd_in_turns(label, key, new, old, terms, build) -> dict:
-    """K6 or K9 (``key``) at the path's batch: ``new()`` and ``old()``
-    return its sums and its first form's on the same inputs, ``terms`` the
-    plain per-ray terms on the card. Held: two launches bit for bit, bit
-    for bit ``ordered_camera_sums(terms)``, and within GRAD_RTOL relative
-    L2 of the f64 sum of the terms (the first form's error beside it); then
-    timed in turns (``kernel_turns``, 20 launches a profile: device us in
-    all and of each first form's stage), beside the registers, SASS count
-    and issue floor of ``build`` (``phase_camera_build``)."""
+def camera_bwd_check(label, key, new, terms, build) -> dict:
+    """K6 or K9 (``key``) at the path's batch: ``new()`` returns its sums,
+    ``terms`` are the plain per-ray terms on the card. Held: two launches
+    bit for bit, bit for bit ``ordered_camera_sums(terms)``, and within
+    GRAD_RTOL relative L2 of the f64 sum of the terms; then timed
+    (``kernel_time``, 20 launches a profile), beside the registers, SASS
+    count and issue floor of ``build`` (``phase_camera_build``)."""
     from yocto_raytracing_tpu_torch.kernels import parity
 
     t0 = time.perf_counter()
     a, b = new(), new()
-    rep = parity.compare_camera_sums(a, old(), terms)
+    rep = parity.compare_camera_sums(a, terms)
     if not (torch.equal(a.view(torch.int32), b.view(torch.int32))
             and rep["equal"] and rep["rel"] <= GRAD_RTOL):
         raise AssertionError(f"{label}: two launches equal "
                              f"{torch.equal(a, b)}, {rep}")
-    out = dict(kernel_turns(label, {"simple": (old, f"{key}_simple"),
-                                    "new": (new, key)}, 20, 20),
+    out = dict(kernel_time(label, new, key, 20, 20),
                sums_vs_f64=rep, registers=build[key]["registers"],
                sass_per_ray=build[key]["sass_per_ray"],
-               issue_floor_us=build[key]["issue_floor_us"],
-               simple_registers={
-                   stage: build[f"{key}_simple_{stage}"]["registers"]
-                   for stage in ("partial", "sum")})
-    stages = out["parts"]["simple"]
+               issue_floor_us=build[key]["issue_floor_us"])
     log(f"{label}: {terms.shape[0]} rays: bit-equal to the ordered sums of "
         f"the plain terms and over two launches; against the f64 sum of "
         f"the terms {rep['rel']:.3e} relative L2, max {rep['max_abs']:.3e} "
-        f"(first form {rep['simple_rel']:.3e}, {rep['simple_max_abs']:.3e}; "
-        f"tolerance {GRAD_RTOL}); device us per launch (profiler, in turns) "
-        f"first form / new {out['simple_device_us']:.2f} / "
-        f"{out['device_us']:.2f} = "
-        f"{out['device_us'] / out['simple_device_us']:.3f}x (first form's "
-        "stages " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
-        + f"; launches a profile in the trace, of 20: {out['captured']}); "
-        "timed calls in turns (simple, new, new, simple) "
-        + ", ".join(f"{m:.4f}" for m in out["turns_ms"]) + " ms; "
-        f"registers {out['registers']} (first form "
-        f"{out['simple_registers']}); SASS {out['sass_per_ray']} "
-        f"instructions a ray, issue floor {out['issue_floor_us']:.2f} us; "
-        f"these checks and timings took {time.perf_counter() - t0:.1f} s")
+        f"(tolerance {GRAD_RTOL}); device us per launch (profiler) "
+        f"{out['device_us']:.2f} (launches in the trace, of 20: "
+        f"{out['captured']}); timed call {out['ms']:.4f} ms; registers "
+        f"{out['registers']}; SASS {out['sass_per_ray']} instructions a "
+        f"ray, issue floor {out['issue_floor_us']:.2f} us; these checks and "
+        f"timings took {time.perf_counter() - t0:.1f} s")
     return out
 
 
-def k8_in_turns(label, scene, sampler, ids) -> dict:
-    """K8 against its first form and the plain version on the same ids
-    (bit-equal to both), then the two timed in turns
-    (``kernel_turns``), beside K8's bound."""
+def k8_check(label, scene, sampler, ids) -> dict:
+    """K8 against the plain version on the same ids (bit-equal), then timed
+    (``kernel_time``), beside K8's bound."""
     from yocto_raytracing_tpu_torch.kernels import parity
     from yocto_raytracing_tpu_torch.render import lights
 
     rep = parity.compare_light_points(scene, sampler, ids, SEED)
-    if not (rep["equal"] and rep["simple_equal"]):
+    if not rep["equal"]:
         raise AssertionError(f"K8 {label}: {rep}")
 
     def new():
         with torch.no_grad():
             lights.sample_light_points_cuda(scene, sampler, ids, SEED)
 
-    def old():
-        parity.light_points_simple(scene, sampler, ids, SEED)
-
     nl, ne = sampler["cdf"].shape
     n = ids.shape[0]
-    out = dict(kernel_turns(f"K8 {label}", {
-        "simple": (old, "light_points_simple"),
-        "new": (new, "light_points")}, 10), **light_points_bound(sampler, n))
+    out = dict(kernel_time(f"K8 {label}", new, "light_points", 10),
+               **light_points_bound(sampler, n))
     log(f"K8 {label}: {nl} lights x {n} rays, elements "
-        f"{sampler['n'].tolist()} (E {ne}): bit-equal to the plain version "
-        f"and to its first form; device us per launch (profiler, in turns) "
-        f"first form / new {out['simple_device_us']:.2f} / "
-        f"{out['device_us']:.2f} = "
-        f"{out['simple_device_us'] / out['device_us']:.2f}x, bound "
-        f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}); timed calls "
-        f"in turns (simple, new, new, simple) "
-        + ", ".join(f"{m:.4f}" for m in out["turns_ms"]) + " ms")
+        f"{sampler['n'].tolist()} (E {ne}): bit-equal to the plain version; "
+        f"device us per launch (profiler) {out['device_us']:.2f}, bound "
+        f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}); timed call "
+        f"{out['ms']:.4f} ms")
     return out
 
 
-def k10_in_turns(label, scene, sampler, ids, gen, registers,
-                 g=None) -> dict:
+def k10_check(label, scene, sampler, ids, gen, registers, g=None) -> dict:
     """K10 on a seeded cotangent (or on ``g``, a path's own): within 1 ULP
     of the explicit f64 reverse (``light_points_bwd_plain``; entries below
     ``parity.LIGHT_BWD_FLOOR`` of the largest within that much of it),
-    within GRAD_RTOL relative L2 of its first form and of torch autograd
-    of the plain version, bit-identical over two runs where ``registers``
-    (every light spans at most 8 vertices); then the two timed in turns
-    (``kernel_turns``), beside
-    K10's bound."""
+    within GRAD_RTOL relative L2 of torch autograd of the plain version,
+    bit-identical over two runs where ``registers`` (every light spans at
+    most 8 vertices); then timed (``kernel_time``), beside K10's bound."""
     from yocto_raytracing_tpu_torch.kernels import parity
     from yocto_raytracing_tpu_torch.render import lights
 
@@ -2416,8 +2186,6 @@ def k10_in_turns(label, scene, sampler, ids, gen, registers,
         if r["ulp"] > 1 or r["small_abs"] > r["floor"]:
             raise AssertionError(f"K10 {label} vs the f64 reverse, {out}: "
                                  f"{r}")
-    worst = parity.check_grads(rep["simple"], GRAD_RTOL,
-                               f"K10 {label} vs first form")
     if registers and not rep["repeat"]:
         raise AssertionError(f"K10 {label}: two runs differ")
     auto = parity.compare_light_points_grads(scene, sampler, ids, SEED, gen)
@@ -2426,37 +2194,28 @@ def k10_in_turns(label, scene, sampler, ids, gen, registers,
     def new():
         lights.light_points_bwd(scene, sampler, ids, SEED, g, nv)
 
-    def old():
-        parity.light_points_bwd_simple(scene, sampler, ids, SEED, g, nv)
-
-    out = dict(kernel_turns(f"K10 {label}", {
-        "simple": (old, "light_points_bwd_simple"),
-        "new": (new, "light_points_bwd")}, 10),
-        **light_points_bwd_bound(sampler, n, nv, g),
-        ulp=max(rep["d_pos"]["ulp"], rep["d_light_pos"]["ulp"]),
-        rel_vs_simple=worst, rel_vs_autograd=aworst, repeat=rep["repeat"],
-        nonzero_share=float((g != 0).any(-1).float().mean()))
+    out = dict(kernel_time(f"K10 {label}", new, "light_points_bwd", 10),
+               **light_points_bwd_bound(sampler, n, nv, g),
+               ulp=max(rep["d_pos"]["ulp"], rep["d_light_pos"]["ulp"]),
+               rel_vs_autograd=aworst, repeat=rep["repeat"],
+               nonzero_share=float((g != 0).any(-1).float().mean()))
     log(f"K10 {label}: {nl} lights x {n} rays, cotangent rows non-zero "
         f"{out['nonzero_share']:.4f}: against the f64 reverse "
-        f"{out['ulp']} ULP (tolerance 1), against its first form "
-        f"{worst:.3e} and autograd {aworst:.3e} relative L2 (tolerance "
-        f"{GRAD_RTOL}); two runs bit-identical {rep['repeat']}"
+        f"{out['ulp']} ULP (tolerance 1), against autograd {aworst:.3e} "
+        f"relative L2 (tolerance {GRAD_RTOL}); two runs bit-identical "
+        f"{rep['repeat']}"
         f"{' (required)' if registers else ' (atomic path: not required)'}; "
-        f"device us per launch (profiler, in turns) first form / new "
-        f"{out['simple_device_us']:.2f} / {out['device_us']:.2f} = "
-        f"{out['simple_device_us'] / out['device_us']:.2f}x, bound "
-        f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}); timed calls "
-        f"in turns (simple, new, new, simple) "
-        + ", ".join(f"{m:.4f}" for m in out["turns_ms"]) + " ms")
+        f"device us per launch (profiler) {out['device_us']:.2f}, bound "
+        f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}); timed call "
+        f"{out['ms']:.4f} ms")
     return out
 
 
 def phase_light_kernels(cases, device) -> dict:
-    """K8 and K10 against their first forms (``lights_simple.cu``), in
-    turns, on ``cases`` [(name, host, registers)]: K8 on the middle
-    CHUNK_PIXELS * SAMPLES^2 ray ids of the frame, K10 on the middle
-    TRAIN_RAYS (``k8_in_turns``, ``k10_in_turns``). Returns {name: {"k8":
-    ..., "k10": ...}}."""
+    """K8 and K10 against their plain versions on ``cases`` [(name, host,
+    registers)]: K8 on the middle CHUNK_PIXELS * SAMPLES^2 ray ids of the
+    frame, K10 on the middle TRAIN_RAYS (``k8_check``, ``k10_check``).
+    Returns {name: {"k8": ..., "k10": ...}}."""
     from yocto_raytracing_tpu_torch import scene as scene_lib
     from yocto_raytracing_tpu_torch.render import lights, renderer
 
@@ -2469,11 +2228,11 @@ def phase_light_kernels(cases, device) -> dict:
         width = renderer.image_width(host.cameras[0].aspect, RES)
         ids = middle_ids(width, RES, SAMPLES,
                          CHUNK_PIXELS * SAMPLES * SAMPLES, device)
-        k8 = k8_in_turns(name, scene, sampler, ids)
+        k8 = k8_check(name, scene, sampler, ids)
         gen.manual_seed(500 + k)
-        k10 = k10_in_turns(name, scene, sampler,
-                           middle_ids(width, RES, SAMPLES, TRAIN_RAYS,
-                                      device), gen, registers)
+        k10 = k10_check(name, scene, sampler,
+                        middle_ids(width, RES, SAMPLES, TRAIN_RAYS, device),
+                        gen, registers)
         out[name] = dict(k8=k8, k10=k10)
     return out
 
@@ -2488,10 +2247,10 @@ def phase_grad_kernels(cases, device, camera_build) -> dict:
     """K5 and K6 against torch autograd of the plain versions for seeded
     cotangents: GRAD_RAYS rays per scene, then the training batch
     (TRAIN_RAYS) of the first case, which is also timed. At the training
-    batch of the first two cases (hair, mirror) K5 is also held against
-    its first form and timed in turns with it (``k5_in_turns``); at the
-    first case's, K6 against its order of sums and its first form, in
-    turns (``camera_bwd_in_turns``)."""
+    batch of the first two cases (hair, mirror) K5 is also held through
+    its saved-bounce entry against its plain version and timed
+    (``k5_check``); at the first case's, K6 against its order of sums
+    (``camera_bwd_check``)."""
     from yocto_raytracing_tpu_torch.kernels import parity
     from yocto_raytracing_tpu_torch.render import camera, shade
 
@@ -2505,11 +2264,11 @@ def phase_grad_kernels(cases, device, camera_build) -> dict:
                                          amb)
             if n == TRAIN_RAYS:
                 gen.manual_seed(400 + k)
-                turns = k5_in_turns(f"shade_bwd {name}", scene, meta,
-                                    inputs, amb, gen)
+                k5 = k5_check(f"shade_bwd {name}", scene, meta, inputs, amb,
+                              gen)
                 if k == 1:
                     rec["shade_bwd"].update(
-                        {f"mirror_{x}": v for x, v in turns.items()})
+                        {f"mirror_{x}": v for x, v in k5.items()})
                     continue
             gen.manual_seed(100 + k)
             rep = parity.compare_shade_grads(
@@ -2551,7 +2310,7 @@ def phase_grad_kernels(cases, device, camera_build) -> dict:
             leaves = list(shade.GRAD_LEAVES)
             rec["shade_bwd"] = dict(
                 max_abs_err=max(r["max_abs"] for r in rep.values()),
-                library_ms=None, **times, **turns,
+                library_ms=None, **times, **k5,
                 # ro, rd, inst, prim, mask, occlusion, 4 cotangents in;
                 # d_ro, d_rd and the leaf gradients out
                 **bound("shade_bwd", n * (24 + 8 + 1 + 48 + 24)
@@ -2559,9 +2318,8 @@ def phase_grad_kernels(cases, device, camera_build) -> dict:
                         + leaves_bytes(scene, SHADE_LEAVES)
                         + n * scene.light_ke.shape[0], n))
             log(f"K5 shade_bwd {name}: backward of one bounce at {n} rays: "
-                f"kernel {turns['ms']:.3f} ms (through autograd "
-                f"{times['autograd_ms']:.3f} ms), first form "
-                f"{turns['simple_ms']:.3f} ms, plain autograd "
+                f"kernel {k5['ms']:.3f} ms (through autograd "
+                f"{times['autograd_ms']:.3f} ms), plain autograd "
                 f"{times['plain_ms']:.3f} ms")
             cam_cots = [torch.randn((n, 3), device=device, generator=gen)
                         for _ in range(2)]
@@ -2578,14 +2336,13 @@ def phase_grad_kernels(cases, device, camera_build) -> dict:
             fh, fw = camera.camera_frame(scene)
             args = (uv, *cam_cots, scene.cam_axes, scene.cam_o, fh, fw,
                     scene.cam_focus)
-            turns = camera_bwd_in_turns(
+            sums = camera_bwd_check(
                 f"K6 camera_bwd {name}", "camera_bwd",
                 lambda: camera.camera_rays_bwd(*args),
-                lambda: parity.camera_bwd_simple(*args),
                 camera.camera_bwd_terms_plain(*args), camera_build)
             rec["camera_bwd"] = dict(
                 max_abs_err=max(r["max_abs"] for r in crep.values()),
-                library_ms=None, **times, turns=turns,
+                library_ms=None, **times, sums=sums,
                 # uv, g_ro, g_rd in, 15 sums out
                 **bound("camera_bwd", n * 32 + 15 * 4, n))
             log(f"K6 camera_bwd {name}: backward at {n} rays: kernel "
@@ -2689,21 +2446,21 @@ def phase_train(name, scene, w, h, last, device, dev_info, depth=DEPTH,
                 steps_lr=TRAIN_LR) -> dict:
     """``train_step`` on TRAIN_RAYS rays at ``depth``: the training step's
     device loop (``renderer.loss_grads_device``: one CUDA graph kept across
-    calls, dead bounces skipped forward and back by IF nodes) against its
-    first form (``mesh._train_step_autograd``: the eager loop under
-    autograd). Step 1 with every float leaf trainable: its loss bit-equal
-    to the first form's; the device loop's gradient (its own call, without
-    the update) and the first form's within TRAIN_GRAD_RTOL of the f64
-    reference (``parity.compare_loss_grads``, the plain path's own error
-    printed beside them); each step's update ``d - lr * g`` of its own
-    path's gradient. The three ways in turns (STEP_TURNS: the first form,
-    a miss, a hit), each loss bit-equal, with the hits' host ms and the
-    reserved memory's growth, and the kept entry's size. Then 5 steps on
-    TRAIN_SUBSET at ``steps_lr`` with a strictly falling loss, each loss
-    bit-equal to the first form's on the same leaves (the leaves staged
-    into the kept entry); a profiled hit (idle
+    calls, dead bounces skipped forward and back by IF nodes) against the
+    step through autograd (``mesh._train_step_autograd``: the eager loop
+    under autograd). Step 1 with every float leaf trainable: its loss
+    bit-equal to the autograd step's; the device loop's gradient (its own
+    call, without the update) and the autograd step's within
+    TRAIN_GRAD_RTOL of the f64 reference (``parity.compare_loss_grads``,
+    the plain path's own error printed beside them); each step's update
+    ``d - lr * g`` of its own path's gradient. The device loop's two ways
+    in turns (STEP_TURNS: a miss, a hit), each loss bit-equal, with the
+    hits' host ms and the reserved memory's growth, and the kept entry's
+    size. Then 5 steps on TRAIN_SUBSET at ``steps_lr`` with a strictly
+    falling loss, each loss bit-equal to the autograd step's on the same
+    leaves (the leaves staged into the kept entry); a profiled hit (idle
     share, device ops, the bounces' launches: none in a dead bounce,
-    ``step_bounce_launches``) and a profiled first form."""
+    ``step_bounce_launches``)."""
     from yocto_raytracing_tpu_torch import kernels
     from yocto_raytracing_tpu_torch import scene as scene_lib
     from yocto_raytracing_tpu_torch.kernels import parity
@@ -2722,7 +2479,7 @@ def phase_train(name, scene, w, h, last, device, dev_info, depth=DEPTH,
     def device_step(sc=scene, lr=TRAIN_LR, **extra):
         return mesh.train_step(sc, ids, target, amb, lr, **kw, **extra)
 
-    def first_step(sc=scene, lr=TRAIN_LR, **extra):
+    def autograd_step(sc=scene, lr=TRAIN_LR, **extra):
         return mesh._train_step_autograd(sc, ids, target, amb, lr, **kw,
                                          **extra)
 
@@ -2751,22 +2508,23 @@ def phase_train(name, scene, w, h, last, device, dev_info, depth=DEPTH,
                                         SAMPLES, depth)
     grads = {k: g for k, g in zip(scene_lib.LEAF_NAMES, out)
              if g is not None}
-    new_f, loss_f = first_step()
+    new_f, loss_f = autograd_step()
     t0 = time.perf_counter()
     rep = parity.compare_loss_grads(scene, ids, target, amb,
                                     also=dict(device=grads), **kw)
     torch.cuda.synchronize()
     compare_s = time.perf_counter() - t0
     if not float(loss_k) == float(loss_f) == rep["loss"]:
-        raise AssertionError(f"{label}: loss {float(loss_k)!r} vs the first "
-                             f"form's {float(loss_f)!r}: not the same bits")
+        raise AssertionError(f"{label}: loss {float(loss_k)!r} vs the "
+                             f"autograd step's {float(loss_f)!r}: not the "
+                             f"same bits")
     summary = check_loss_gradient(label, rep, float(loss_k))
     parity.check_update(scene, new_k, grads, TRAIN_LR, label)
     parity.check_update(scene, new_f, rep["grads"], TRAIN_LR,
-                        f"{label} first form")
+                        f"{label} autograd step")
     log(f"{label}: step 1, all float leaves trainable, {TRAIN_RAYS} "
-        f"rays, depth {depth}: {summary}; loss bit-equal to the first "
-        f"form's; update = d - lr * g on every float leaf, both ways; "
+        f"rays, depth {depth}: {summary}; loss bit-equal to the autograd "
+        f"step's; update = d - lr * g on every float leaf, both ways; "
         f"device loop step (a miss) {wall1:.3f} s, the four gradients "
         f"{compare_s:.1f} s; bounces run {ran[:-1]}; launches made {made} "
         f"(counted {counts}; skipped in dead bounces {skipped})")
@@ -2780,7 +2538,7 @@ def phase_train(name, scene, w, h, last, device, dev_info, depth=DEPTH,
         renderer._steps.clear()
         return device_step()
 
-    ways = dict(first=first_step, miss=miss, hit=device_step)
+    ways = dict(miss=miss, hit=device_step)
     turns = {k: dict(walls=[], host_ms=[], hits=[]) for k in ways}
     torch.cuda.synchronize()
     reserved = torch.cuda.memory_reserved()
@@ -2792,11 +2550,10 @@ def phase_train(name, scene, w, h, last, device, dev_info, depth=DEPTH,
         turns[k]["walls"].append((time.perf_counter() - t0) * 1e3)
         if float(loss) != float(loss_f):
             raise AssertionError(f"{label} {k}: loss {float(loss)!r}, not "
-                                 f"the first form's bits")
-        if k != "first":
-            rec = kernels.last_step()
-            turns[k]["host_ms"].append(rec["host_ms"])
-            turns[k]["hits"].append(rec["cache_hit"])
+                                 f"the autograd step's bits")
+        rec = kernels.last_step()
+        turns[k]["host_ms"].append(rec["host_ms"])
+        turns[k]["hits"].append(rec["cache_hit"])
     grown = (torch.cuda.memory_reserved() - reserved) / 2 ** 20
     if (not all(turns["hit"]["hits"]) or any(turns["miss"]["hits"])
             or any(h["capture"] for h in turns["hit"]["host_ms"])):
@@ -2811,35 +2568,29 @@ def phase_train(name, scene, w, h, last, device, dev_info, depth=DEPTH,
     entry_mib = tensor_mib(state)
     pool_mib = (torch.cuda.memory_allocated() - before) / 2 ** 20
     for k, r in turns.items():
-        stages = {st: [x[st] for x in r["host_ms"]]
-                  for st in (r["host_ms"][0] if r["host_ms"] else ())}
+        stages = {st: [x[st] for x in r["host_ms"]] for st in r["host_ms"][0]}
         log(f"{label} {k}: wall ms in turns "
-            + ", ".join(f"{x:.2f}" for x in r["walls"])
-            + ("" if not stages else "; host ms " + ", ".join(
-                f"{st} " + "/".join(f"{v:.2f}" for v in vs)
-                for st, vs in stages.items())
-               + f"; cache hits {r['hits']}")
-            + f"; loss bit-equal to the first form's; on {dev_info['smi']}")
+            + ", ".join(f"{x:.2f}" for x in r["walls"]) + "; host ms "
+            + ", ".join(f"{st} " + "/".join(f"{v:.2f}" for v in vs)
+                        for st, vs in stages.items())
+            + f"; cache hits {r['hits']}; loss bit-equal to the autograd "
+            f"step's; on {dev_info['smi']}")
     log(f"{label}: reserved device memory grew {grown:.1f} MiB over the "
         f"{len(STEP_TURNS)} calls in turns; the kept entry holds "
         f"{entry_mib:.1f} MiB of tensors, allocated {pool_mib:.1f} MiB "
         f"more than with no entry, the graph's pool included")
 
-    profs = {}
     device_step()   # the entry of the profiled configuration: a hit
-    profs["hit"] = profile_summary(
+    prof = profile_summary(
         device_step, f"warm {label} step (a hit), every float leaf "
         f"trainable", ("shade_bwd", "camera_bwd", "bounce_bwd", "records"),
         check=lambda ev: step_bounce_launches(ev, kernels.last_step()))
     if not kernels.last_step()["cache_hit"]:
         raise AssertionError(f"{label}: the profiled step missed the cache")
-    launched = profs["hit"]["checked"]
+    launched = prof["checked"]
     log(f"{label} hit profile: {launched['live']} live bounces, "
         f"{launched['dead']} dead: launches in the trace "
         f"{launched['launches']}, none in a dead bounce")
-    profs["first"] = profile_summary(
-        first_step, f"warm {label} first form, every float leaf trainable",
-        ("shade_bwd", "camera_bwd"))
 
     cur = scene
     losses, walls = [], []
@@ -2851,16 +2602,16 @@ def phase_train(name, scene, w, h, last, device, dev_info, depth=DEPTH,
         losses.append(float(loss))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        _, want = first_step(cur, steps_lr, trainable=TRAIN_SUBSET)
+        _, want = autograd_step(cur, steps_lr, trainable=TRAIN_SUBSET)
         if float(want) != losses[-1]:
             raise AssertionError(f"{label}: step {len(losses)} loss "
-                                 f"{losses[-1]!r}, the first form's "
+                                 f"{losses[-1]!r}, the autograd step's "
                                  f"{float(want)!r}")
         cur = nxt
     peak = torch.cuda.max_memory_allocated()
     log(f"{label}: 5 steps on {', '.join(TRAIN_SUBSET)}, lr "
         f"{steps_lr}: losses {[repr(x) for x in losses]}, each bit-equal "
-        f"to the first form's on the same leaves; step wall "
+        f"to the autograd step's on the same leaves; step wall "
         f"{', '.join(f'{x:.4f}' for x in walls)} s = "
         f"{', '.join(f'{TRAIN_RAYS / x / 1e6:.2f}' for x in walls)} Mrays/s "
         f"(the first a miss) on {dev_info['smi']}; peak memory "
@@ -2871,8 +2622,8 @@ def phase_train(name, scene, w, h, last, device, dev_info, depth=DEPTH,
                              f"{losses}")
     log(f"{label}: phase {time.perf_counter() - t_phase:.1f} s")
     return dict(counts=counts, made=made, skipped=skipped, walls=walls,
-                peak=peak, prof=profs["hit"], turns=turns, profs=profs,
-                grown_mib=grown, entry_mib=entry_mib)
+                peak=peak, prof=prof, turns=turns, grown_mib=grown,
+                entry_mib=entry_mib)
 
 
 def light_vertex_rows(host, meta) -> list:
@@ -2895,8 +2646,7 @@ def phase_reverse_kernels(host, device, camera_build) -> dict:
     where its 15 shared sums must equal K6's on the same uv bit for bit,
     and K10 on the quad and polyline lights; each then timed at
     TRAIN_RAYS, kernel backward against plain autograd (CUDA events), and
-    K9 against its order of sums and its first form, in turns
-    (``camera_bwd_in_turns``)."""
+    K9 against its order of sums (``camera_bwd_check``)."""
     import dataclasses
     import functools
 
@@ -2934,8 +2684,8 @@ def phase_reverse_kernels(host, device, camera_build) -> dict:
             k5_err = max(r["max_abs"] for r in rep.values())
             continue
         gen.manual_seed(402)
-        turns = k5_in_turns("shade_bwd with per-ray lights, area hair",
-                            scene, meta, inputs, amb, gen, lpos)
+        k5 = k5_check("shade_bwd with per-ray lights, area hair", scene,
+                      meta, inputs, amb, gen, lpos)
         ro, _, hits, active = inputs
         cots = [torch.randn(ro.shape, device=device, generator=gen)
                 * (active & hits["hit"])[:, None] for _ in range(4)]
@@ -2948,7 +2698,7 @@ def phase_reverse_kernels(host, device, camera_build) -> dict:
             times[which] = _backward_ms(outs, list(wrt.values()), cots, reps)
             del outs
         rec["shade_bwd_lights"] = dict(
-            max_abs_err=k5_err, library_ms=None, **times, **turns,
+            max_abs_err=k5_err, library_ms=None, **times, **k5,
             # as K5, plus the per-ray light positions in and their
             # gradient out
             **bound("shade_bwd_lights", n * (24 + 8 + 1 + 48 + 24)
@@ -2956,9 +2706,8 @@ def phase_reverse_kernels(host, device, camera_build) -> dict:
                     + nbytes(*(getattr(scene, k) for k in shade.GRAD_LEAVES))
                     + leaves_bytes(scene, SHADE_LEAVES) + n * nl, n))
         log(f"K5 shade_bwd with per-ray lights: backward of one bounce at "
-            f"{n} rays: kernel {turns['ms']:.3f} ms (through autograd "
-            f"{times['autograd_ms']:.3f} ms), first form "
-            f"{turns['simple_ms']:.3f} ms, plain autograd "
+            f"{n} rays: kernel {k5['ms']:.3f} ms (through autograd "
+            f"{times['autograd_ms']:.3f} ms), plain autograd "
             f"{times['plain_ms']:.3f} ms")
 
     n = TRAIN_RAYS
@@ -3004,14 +2753,13 @@ def phase_reverse_kernels(host, device, camera_build) -> dict:
     h, w = camera.camera_frame(scene)
     args = (ids, scene.cam_axes, scene.cam_o, h, w, scene.cam_focus,
             scene.cam_aperture, width, RES, SAMPLES, SEED, *cam_cots)
-    turns = camera_bwd_in_turns(
+    sums = camera_bwd_check(
         "K9 camera_bwd_stochastic area hair", "camera_bwd_stochastic",
         lambda: camera.camera_rays_stochastic_bwd(*args),
-        lambda: parity.camera_stochastic_bwd_simple(*args),
         camera.camera_stochastic_bwd_terms_plain(*args), camera_build)
     rec["camera_bwd_stochastic"] = dict(
         max_abs_err=max(r["max_abs"] for r in rep.values()),
-        library_ms=None, **times, turns=turns,
+        library_ms=None, **times, sums=sums,
         # ids, g_ro, g_rd in, 16 sums out
         **bound("camera_bwd_stochastic", n * 28 + 16 * 4, n))
     log(f"K9 camera_bwd_stochastic: backward at {n} rays: kernel "
@@ -3056,8 +2804,8 @@ def phase_train_stochastic(name, host, last, device, dev_info) -> dict:
     path's gradient within TRAIN_GRAD_RTOL of the f64 reference (or
     TRAIN_PLAIN_FACTOR x the plain f32 path's error), cam_aperture and each
     light's vertices moved; warm fwd+bwd walls and one profiled call, which
-    must hold K5, K9 and K10; then K10 and its first form in turns on the
-    cotangent that the step hands K10 (``k10_in_turns``)."""
+    must hold K5, K9 and K10; then K10 on the cotangent that the step
+    hands K10 (``k10_check``)."""
     from yocto_raytracing_tpu_torch import kernels
     from yocto_raytracing_tpu_torch import scene as scene_lib
     from yocto_raytracing_tpu_torch.kernels import parity
@@ -3125,10 +2873,10 @@ def phase_train_stochastic(name, host, last, device, dev_info) -> dict:
               "light_points_bwd"):
         device_ms(prof, k, counts[k])   # raises if K5, K9 or K10 is missing
 
-    # K10 and its first form in turns on the cotangent this step gives K10
-    k10 = k10_in_turns(f"{name}, the step's cotangent", scene, sampler, ids,
-                       torch.Generator(device=device).manual_seed(600), True,
-                       g=step_light_cotangent(step))
+    # K10 on the cotangent this step gives K10
+    k10 = k10_check(f"{name}, the step's cotangent", scene, sampler, ids,
+                    torch.Generator(device=device).manual_seed(600), True,
+                    g=step_light_cotangent(step))
     return dict(counts=counts, walls=walls, peak=peak, prof=prof, k10=k10)
 
 
@@ -3197,11 +2945,11 @@ def phase_overlap(device, dev_info):
     after the build (uniform random points in a box), and the hair scene
     again on points along its strands in strand order (``strand_queries``,
     coherent traffic: jittered by N(0, 0.1), and exactly on the strands):
-    the refit and K11 on all of them, bit-equal to K11's
-    first form (``overlap_simple.cu``) on every query and to the
-    brute-force plain query on the first OVERLAP_COMPARE, whose walk work
-    the plain walk counts (``stats``). On all but the moved scene,
-    ``overlap_in_turns``. The hair run is the path: its launch counts, a
+    the refit and K11 on all of them, bit-equal to the brute-force plain
+    query on every query and to the plain walk on the first
+    OVERLAP_COMPARE, whose walk work the plain walk counts (``stats``). On
+    all but the moved scene, ``overlap_times``. The hair run is the path:
+    its launch counts, a
     profiled call (wall, idle share), and kernel, refit and plain timed on
     all queries. Returns (record, path)."""
     from yocto_raytracing_tpu_torch import kernels, scene as scene_lib
@@ -3245,13 +2993,11 @@ def phase_overlap(device, dev_info):
                                  + str({key: counts[key]
                                         for key in OVERLAP_KERNELS}))
         share = float(out["found"].float().mean())
-        if not parity.overlap_identical(
-                out, parity.overlap_simple(scene, meta, q, dist_max)):
-            raise AssertionError(f"K11 {name}: differs from its first form")
+        plain, plain_ms = timed(lambda: overlap.overlap_scene_plain(
+            scene, meta, q, dist_max))
+        gaps = parity.overlap_gaps(out, plain)
         sub = slice(0, OVERLAP_COMPARE)
-        plain = overlap.overlap_scene_plain(scene, meta, q[sub], dist_max)
         kern = {key: v[sub] for key, v in out.items()}
-        gaps = parity.overlap_gaps(kern, plain)
         stats = {}
         walk = overlap.overlap_scene_walk_plain(scene, meta, q[sub],
                                                 dist_max, stats=stats)
@@ -3260,18 +3006,18 @@ def phase_overlap(device, dev_info):
         thin = (int(flags.sum()), int((scene.node_kind == 1).sum()))
         log(f"K11 overlap {name}: {OVERLAP_QUERIES} queries, {meta.num_prims} "
             f"prims in {meta.num_instances} instances, dist_max {dist_max}: "
-            f"found share {share:.4f}; bit-equal to its first form on every "
-            f"query; on the first {OVERLAP_COMPARE}: found/inst/prim equal "
-            f"{gaps['equal']}, ULP gap dist {gaps['dist']}, euv "
-            f"{gaps['euv']} over {gaps['found']} found (tolerance: "
-            f"bit-equal), the plain walk bit-equal "
+            f"found share {share:.4f}; against the brute-force plain query "
+            f"on every query: found/inst/prim equal {gaps['equal']}, ULP "
+            f"gap dist {gaps['dist']}, euv {gaps['euv']} over "
+            f"{gaps['found']} found (tolerance: bit-equal); on the first "
+            f"{OVERLAP_COMPARE} the plain walk bit-equal "
             f"{parity.overlap_identical(kern, walk)}; walk work per query "
             + ", ".join(f"{key} {v / OVERLAP_COMPARE:.2f}"
                         for key, v in stats.items())
             + f"; thin: {thin[0]} of {thin[1]} shape nodes never skipped; "
             f"call {wall:.4f} s")
         if (not gaps["equal"] or gaps["dist"] or gaps["euv"]
-                or not parity.overlap_identical(kern, plain)
+                or not parity.overlap_identical(out, plain)
                 or not parity.overlap_identical(kern, walk)):
             raise AssertionError(f"K11 {name}: {gaps}")
         # points along strands lie mostly within reach
@@ -3279,7 +3025,7 @@ def phase_overlap(device, dev_info):
             raise AssertionError(f"overlap {name}: found share {share}")
         if moved:
             continue
-        r = rec[name] = overlap_in_turns(scene, meta, q, dist_max, name)
+        r = rec[name] = overlap_times(scene, meta, q, dist_max, name)
         walk_ops = OVERLAP_OPS_PER_INSTANCE * meta.num_instances + sum(
             WALK_OPS[key] * v for key, v in stats.items()) / OVERLAP_COMPARE
         r["walk"] = {key: v / OVERLAP_COMPARE for key, v in stats.items()}
@@ -3317,9 +3063,8 @@ def phase_overlap(device, dev_info):
             max_abs_err=gaps["max_abs_err"],
             ms=cuda_ms(lambda: overlap.overlap_scene(scene, meta, q,
                                                      dist_max), 5),
-            # one call, warm from the subset's (2.4 s a call)
-            plain_ms=event_ms(lambda: overlap.overlap_scene_plain(
-                scene, meta, q, dist_max)),
+            # the one call on every query above (2.4 s a call)
+            plain_ms=plain_ms,
             library_ms=None, wall_ms=sorted(walls)[2], idle=prof["idle"],
             **{key: v for key, v in r.items()},
             # the walk's counted work; the brute force's (JAX's work) beside
@@ -3390,31 +3135,20 @@ def strand_queries(scene, meta, n: int, rng, jitter: float) -> torch.Tensor:
     return (torch.cat(pts)[:n] + noise).contiguous()
 
 
-def overlap_in_turns(scene, meta, q, dist_max, name) -> dict:
-    """K11 (the whole call: refit and walk) and its first form, device us
-    per launch in one profile, in turns (first, new, new, first), and the
-    call's timed ms."""
-    from yocto_raytracing_tpu_torch.kernels import parity
+def overlap_times(scene, meta, q, dist_max, name) -> dict:
+    """K11 (the whole call: refit and walk), device us per launch of the
+    walk from a profile of two calls, and the call's timed ms."""
     from yocto_raytracing_tpu_torch.ops import overlap
 
-    call = lambda: overlap.overlap_scene_cuda(  # noqa: E731
-        scene, meta, q, dist_max)
-    first = lambda: parity.overlap_simple(  # noqa: E731
-        scene, meta, q, dist_max)
+    def call():
+        overlap.overlap_scene_cuda(scene, meta, q, dist_max)
 
-    def turns():
-        for f in (first, call, call, first):
-            f()
-
-    prof = profile_summary(turns, f"K11 in turns {name}",
-                           ("overlap", "overlap_simple"))
-    out = {key + "_device_us": device_us(prof["by_name"], key) / 2
-           for key in ("overlap", "overlap_simple")}
-    out["call_ms"] = cuda_ms(call, 5)
-    log(f"K11 {name}, device us per launch in turns: first form "
-        f"{out['overlap_simple_device_us']:.1f}, new "
-        f"{out['overlap_device_us']:.1f}; timed call {out['call_ms']:.4f} "
-        f"ms")
+    prof = profile_summary(lambda: [call() for _ in range(2)],
+                           f"K11 {name}", ("overlap",))
+    out = dict(overlap_device_us=device_us(prof["by_name"], "overlap") / 2,
+               call_ms=cuda_ms(call, 5))
+    log(f"K11 {name}, device us per launch {out['overlap_device_us']:.1f}; "
+        f"timed call {out['call_ms']:.4f} ms")
     return out
 
 
@@ -4017,7 +3751,7 @@ def run_phases(dev_info, device, shade_regs, camera_build, plain_walk,
                              scene_lib.load_scene(area_hair_obj), device))
         area_host = scene_lib.load_scene(area_hair_obj)
         ascene, ameta = scene_on(area_host, device)
-        hit_area = run_phase(
+        run_phase(
             phase_hit_frame, "area hair", ascene, ameta,
             renderer.image_width(area_host.cameras[0].aspect, RES),
             stochastic=True, seed=SEED,
@@ -4045,7 +3779,7 @@ def run_phases(dev_info, device, shade_regs, camera_build, plain_walk,
                              camera_build))
         panel_obj = os.path.join(tmp, "area_hair_panel.obj")
         scene_lib.save_scene(area_hair_scene(PANEL_CELLS), panel_obj)
-        light_turns = run_phase(
+        light_cases = run_phase(
             phase_light_kernels,
             [("area hair", scene_lib.load_scene(area_hair_obj), True),
              ("area mirror", scene_lib.load_scene(area_mirror_obj), True),
@@ -4067,7 +3801,7 @@ def run_phases(dev_info, device, shade_regs, camera_build, plain_walk,
         # last: the NCCL group and the CLI's subprocesses
         run_phase(phase_sharded, hair_obj, area_hair_obj, device, dev_info)
         run_phase(phase_cli, hair_obj, tmp, device, dev_info)
-    check_plain_walk(plain_walk, hit_10004["big_nearest"])
+    check_plain_walk(plain_walk, hit_10004)
 
     src = "yocto_raytracing_tpu_torch/kernels/csrc/"
     counts = main_frame["counts"]
@@ -4147,118 +3881,24 @@ def run_phases(dev_info, device, shade_regs, camera_build, plain_walk,
     by_name["shade"]["lights"] = rec["shade_lights"]
     for k in ("shade_bwd", "shade_bwd_lights"):
         by_name[k]["ptxas"] = k5_regs
-    r, a = by_name["shade"], rec["shade_lights"]
-    log(f"K4 shade, device us per launch, first form / new: hair chunk prep "
-        f"{r['simple_prep_us']:.1f} / {r['prep_us']:.1f}, finish "
-        f"{r['simple_finish_us']:.1f} / {r['finish_us']:.1f}; per-ray "
-        f"lights, area hair chunk prep {a['simple_prep_us']:.1f} / "
-        f"{a['prep_us']:.1f}, finish {a['simple_finish_us']:.1f} / "
-        f"{a['finish_us']:.1f}; bound {r['bound_ms'] * 1e3:.2f} us (per-ray "
-        f"lights {a['bound_ms'] * 1e3:.2f}); on {dev_info['smi']}")
-    b, bl = by_name["shade_bwd"], by_name["shade_bwd_lights"]
-    log(f"K5 shade_bwd, device us per launch at {TRAIN_RAYS} rays, first "
-        f"form / new: hair {b['simple_device_us']:.1f} / "
-        f"{b['device_us']:.1f}, mirror {b['mirror_simple_device_us']:.1f} / "
-        f"{b['mirror_device_us']:.1f}, per-ray lights (area hair) "
-        f"{bl['simple_device_us']:.1f} / {bl['device_us']:.1f}; bounds "
-        f"{b['bound_ms'] * 1e3:.2f} and {bl['bound_ms'] * 1e3:.2f} us; "
-        f"ptxas " + "; ".join(f"{k} {v['registers']} registers, "
-                              f"{v['spill_stores']} B spilled"
-                              for k, v in sorted(k5_regs.items()))
-        + f"; on {dev_info['smi']}")
-    for kind, what in (("camera_bwd", "K6, hair"),
-                       ("camera_bwd_stochastic", "K9, area hair")):
-        r = by_name[kind]
-        t = r["turns"]
-        log(f"{kind} ({what}), device us per launch at {TRAIN_RAYS} rays, "
-            f"first form / new, in turns: {t['simple_device_us']:.2f} / "
-            f"{t['device_us']:.2f} = "
-            f"{t['device_us'] / t['simple_device_us']:.3f}x (first form: "
-            + ", ".join(f"{k} {v:.2f}" for k, v in t["parts"]["simple"].items())
-            + f"); in its step's profile {r['device_ms'] * 1e3:.2f}; bound "
-            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); registers "
-            f"{t['registers']} (first form {t['simple_registers']}); SASS "
-            f"{t['sass_per_ray']} instructions a ray, issue floor "
-            f"{t['issue_floor_us']:.2f} us; on {dev_info['smi']}")
-    for kind in ("hit_nearest", "hit_any"):
-        r, a = by_name[kind], hit_area[kind]
-        log(f"K1 {kind}, device us, simple / new: hair frame per launch "
-            f"{r['simple_frame_device_ms'] * 1e3:.1f} / "
-            f"{r['frame_device_ms'] * 1e3:.1f} (in the frame's own profile "
-            f"{r['device_ms'] * 1e3:.1f}), its middle launch "
-            f"{r['simple_mid_device_ms'] * 1e3:.1f} / "
-            f"{r['mid_device_ms'] * 1e3:.1f} against a bound of "
-            f"{r['bound_ms'] * 1e3:.2f}; area hair frame per launch "
-            f"{a['simple_frame_device_ms'] * 1e3:.1f} / "
-            f"{a['frame_device_ms'] * 1e3:.1f}, its middle launch "
-            f"{a['simple_mid_device_ms'] * 1e3:.1f} / "
-            f"{a['mid_device_ms'] * 1e3:.1f} against a bound of "
-            f"{a['bound_ms'] * 1e3:.2f}; 10,004-instance scene, timed ms: "
-            f"{hit_10004[kind]['simple_ms']:.4f} / "
-            f"{hit_10004[kind]['ms']:.4f}")
-    for kind, key, rays in (("light_points", "k8", "the middle chunk"),
-                            ("light_points_bwd", "k10",
-                             f"{TRAIN_RAYS} rays a light")):
-        by_name[kind]["turns"] = {k: v[key] for k, v in light_turns.items()}
-        log(f"{kind}, device us per launch on {rays}, first form / new: "
-            + "; ".join(f"{k} {v[key]['simple_device_us']:.2f} / "
-                        f"{v[key]['device_us']:.2f} (bound "
-                        f"{v[key]['bound_ms'] * 1e3:.2f})"
-                        for k, v in light_turns.items())
-            + f"; on {dev_info['smi']}")
-    r = by_name["light_points_bwd"]["step_turns"] = stochastic_train["k10"]
-    log(f"light_points_bwd on the area hair step's own cotangent (rows "
-        f"non-zero {r['nonzero_share']:.4f}), device us per launch, first "
-        f"form / new: {r['simple_device_us']:.2f} / {r['device_us']:.2f} "
-        f"(bound {r['bound_ms'] * 1e3:.2f}); on {dev_info['smi']}")
-    r, p = by_name["overlap"], by_name["pixel_finish"]
-    log(f"K11 overlap, device us per launch for 2^20 queries, first form / "
-        f"new: hair {r['overlap_simple_device_us']:.1f} / "
-        f"{r['overlap_device_us']:.1f}, random seed 0 "
-        f"{r['random_seed_0']['overlap_simple_device_us']:.1f} / "
-        f"{r['random_seed_0']['overlap_device_us']:.1f}, strand points "
-        f"{r['strand_points']['overlap_simple_device_us']:.1f} / "
-        f"{r['strand_points']['overlap_device_us']:.1f}, points on the "
-        f"strands {r['on_strands']['overlap_simple_device_us']:.1f} / "
-        f"{r['on_strands']['overlap_device_us']:.1f}; bound "
-        f"{r['bound_ms'] * 1e3:.1f} us (walk), "
-        f"{r['brute_force_bound_ms'] * 1e3:.1f} us (brute force); timed "
-        f"call: hair {r['call_ms']:.4f}, random seed 0 "
-        f"{r['random_seed_0']['call_ms']:.4f}, strand points "
-        f"{r['strand_points']['call_ms']:.4f}, points on the strands "
-        f"{r['on_strands']['call_ms']:.4f} ms; K3 pixel "
-        f"finish, device us per chunk: LDR {p['ldr_device_us']:.2f}, HDR "
-        f"{p['hdr_device_us']:.2f}, torch sum(1) "
-        f"{p['library_device_us']:.2f}, bound {p['bound_ms'] * 1e3:.2f}; on "
-        f"{dev_info['smi']}")
+    for kind, key in (("light_points", "k8"), ("light_points_bwd", "k10")):
+        by_name[kind]["cases"] = {k: v[key] for k, v in light_cases.items()}
+    by_name["light_points_bwd"]["step_cotangent"] = stochastic_train["k10"]
     for label, r in (("hair", main_train), ("mirror", mirror_train),
                      ("mirror pair", pair_train), ("hair depth 8",
                                                    deep_train)):
-        t, p = r["turns"], r["profs"]
+        t, p = r["turns"], r["prof"]
         log(f"train step {label}, {TRAIN_RAYS} rays, every float leaf, "
             f"wall ms in turns: hit "
             + "/".join(f"{x:.2f}" for x in t["hit"]["walls"]) + ", miss "
             + "/".join(f"{x:.2f}" for x in t["miss"]["walls"])
-            + ", first form "
-            + "/".join(f"{x:.2f}" for x in t["first"]["walls"])
-            + f"; profiled hit: busy {p['hit']['busy_ms']:.3f} ms, idle "
-            f"share {p['hit']['idle']:.3f}, {p['hit']['ops']} device ops; "
-            f"first form: busy {p['first']['busy_ms']:.3f} ms, idle share "
-            f"{p['first']['idle']:.3f}, {p['first']['ops']} device ops; the "
-            f"entry {r['entry_mib']:.1f} MiB, reserved +{r['grown_mib']:.1f}"
-            f" MiB over {len(STEP_TURNS)} calls; on {dev_info['smi']}")
-    r, big = by_name["records"], rec["records"]["big"]
-    step_us = (device_us(main_train["prof"]["by_name"], "records")
-               / main_train["made"]["records"])
-    log(f"K13 records, device us per launch, first form / new, in turns: "
-        f"hair {r['simple_device_us']:.2f} / {r['device_us']:.2f} (an empty "
-        f"launch of its grid {r['empty_us']:.2f}; bound "
-        f"{r['bound_ms'] * 1e3:.3f}), 10,004 instances "
-        f"{big['simple_device_us']:.2f} / {big['device_us']:.2f} (empty "
-        f"{big['empty_us']:.2f}; bound {big['bound_ms'] * 1e3:.3f}); in the "
-        f"hair frame's profile {r['device_ms'] * 1e3:.2f}, in the hair "
-        f"step's {step_us:.2f}; on {dev_info['smi']}")
-    r["step_device_us"] = step_us
+            + f"; profiled hit: busy {p['busy_ms']:.3f} ms, idle share "
+            f"{p['idle']:.3f}, {p['ops']} device ops; the entry "
+            f"{r['entry_mib']:.1f} MiB, reserved +{r['grown_mib']:.1f} MiB "
+            f"over {len(STEP_TURNS)} calls; on {dev_info['smi']}")
+    r = by_name["records"]
+    r["step_device_us"] = (device_us(main_train["prof"]["by_name"], "records")
+                           / main_train["made"]["records"])
     for r in kernels_rec:
         log(f"{r['name']}: {r['launches']} launches made on its path "
             f"({r['counted']} counted, {r['skipped']} of them in dead "

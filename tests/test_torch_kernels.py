@@ -1,60 +1,56 @@
 """The port's CUDA kernels against their plain torch versions, on a card.
 
-K1-K3 bit-equal (K3's u8 within 1 step, also on partial blocks, views at
-a 12-byte offset and 4,900 spp; its RGBA equal to plain's at 16 spp, alone
-and at a frame buffer's chunk rows; K1 also on dead, NaN-tmax and
-partial batches, the 10,004-instance scene, equal-t ties, axis-parallel and
-NaN directions, identity instance frames beside frames a bit away from
-them, and after a training step); K4 (shading)
-bit-equal to the plain shading and to its first form (``shade_simple.cu``)
-on the same K1 hits and shadow query; K5 (shading backward) and K6 (camera
+K1-K3 bit-equal (K3's u8 within 1 step, also on partial blocks, views at a
+12-byte offset and 4,900 spp; its RGBA equal to plain's at 16 spp, alone and
+at a frame buffer's chunk rows; K1 also on dead, NaN-tmax and partial
+batches, the 10,004-instance scene, equal-t ties, axis-parallel and NaN
+directions, identity instance frames beside frames a bit away from them, and
+after a training step); K4 (shading) bit-equal to the plain shading on the
+same K1 hits and shadow query; K5 (shading backward) and K6 (camera
 backward) within relative L2 error 1e-4 per leaf of torch autograd of the
 plain versions (the leaf gradients are atomic or reordered sums), K5 also
-of its first form (``shade_bwd_simple.cu``), with every lane of a warp on
-one prim, 4 prims in runs and 3 interleaved, with dead warps, dead blocks
-and a ragged tail, and with light gradients bit-identical over two runs; a training step through the kernels: loss equal
-to the plain path's (rtol 1e-5), gradient within 1e-4 of the f64 reference
-(the plain path in f64 on the same hits; 1.25x the plain f32 path's own
-error where that is larger), update ``d - lr * g``; K7 (stochastic camera
-rays), K8 (area-light points) and K4 with per-ray light positions
-bit-equal to their plain versions, and a stochastic area-light frame
-through them within 1 u8 step of the all-plain path; the reverses of the
-stochastic modes, K5 with per-ray light positions, K9 (thin-lens rays)
-and K10 (light points), within 1e-4 of torch autograd of their plain
-versions; K6 and K9 bit-equal to ``camera.ordered_camera_sums`` of their
-plain per-ray terms computed on the card (1 to 2^20 + 3 rays), within 1e-4
-of their first forms (``camera_bwd_simple.cu``), the same bits from launch
-to launch (also after a launch of no ray or of another batch), and K9's 15
-shared sums at aperture 0 bit-equal to K6's on the same uv; K8 also bit-equal to its first
-form (``lights_simple.cu``) and K10 within 1 ULP of the explicit f64
-reverse and 1e-4 of its first form, bit-identical over two runs where
-every light spans at most 8 vertices, with 1, 2 and 8 lights, shared
-shapes, a deg light and lamp panels of 81 and 1,089 vertices, and on the
-adversarial CDF rows of ``light_pick_rows`` (NaN, inf and zero weights,
-ties, x on an entry), staged and not; and the
-stochastic training
-gradient against its f64 reference; K11 (refit and culled walk) bit for
-bit equal to the brute-force plain query, the plain walk and its first
-form ``overlap_simple.cu``, on moved ``pos`` and duplicated prims too, its
-wrapper synchronising no host, and its refit kernel word for word equal to
-the plain refit;
-``train_step_sharded`` in a one-rank NCCL group equal to ``train_step``,
-and the CLI on the card writing the host tonemap of ``render_image`` (also
-checkpointed and resumed, and ``--sharded``); the device loop: K12
-bit-equal to ``bounce_update_plain`` with and without a zero alive word,
-K1 and K4 under a zero alive word leaving their outputs as they were, the
-frame of ``frame_device`` (a CUDA graph of a chunk, replayed) bit-equal
-to the eager loop's in f32 sums and u8 on the hair, mirror, area hair and
-area mirror frames with its launch counts the eager loop's plus its dead
-bounces' launches, and two ``render_image`` calls the same bits; the
+through its saved-bounce entry against its plain version
+(``shade.shade_step_bwd_plain``), with every lane of a warp on one prim, 4
+prims in runs and 3 interleaved, with dead warps, dead blocks and a ragged
+tail, and with light gradients bit-identical over two runs; a training step
+through the kernels: loss equal to the plain path's (rtol 1e-5), gradient
+within 1e-4 of the f64 reference (the plain path in f64 on the same hits;
+1.25x the plain f32 path's own error where that is larger), update
+``d - lr * g``; K7 (stochastic camera rays), K8 (area-light points) and K4 with
+per-ray light positions bit-equal to their plain versions, and a stochastic
+area-light frame through them within 1 u8 step of the all-plain path; the
+reverses of the stochastic modes, K5 with per-ray light positions, K9
+(thin-lens rays) and K10 (light points), within 1e-4 of torch autograd of
+their plain versions; K6 and K9 bit-equal to ``camera.ordered_camera_sums``
+of their plain per-ray terms computed on the card (1 to 2^20 + 3 rays), the
+same bits from launch to launch (also after a launch of no ray or of another
+batch), and K9's 15 shared sums at aperture 0 bit-equal to K6's on the same
+uv; K8 also bit-equal to the plain version and K10 within 1 ULP of the
+explicit f64 reverse, bit-identical over two runs where every light spans at
+most 8 vertices, with 1, 2 and 8 lights, shared shapes, a deg light and lamp
+panels of 81 and 1,089 vertices, and on the adversarial CDF rows of
+``light_pick_rows`` (NaN, inf and zero weights, ties, x on an entry), staged
+and not; and the stochastic training gradient against its f64 reference; K11
+(refit and culled walk) bit for bit equal to the brute-force plain query and
+the plain walk, on moved ``pos`` and duplicated prims too, its wrapper
+synchronising no host, and its refit kernel word for word equal to the plain
+refit; ``train_step_sharded`` in a one-rank NCCL group equal to
+``train_step``, and the CLI on the card writing the host tonemap of
+``render_image`` (also checkpointed and resumed, and ``--sharded``); the
+device loop: K12 bit-equal to ``bounce_update_plain`` with and without a
+zero alive word, K1 and K4 under a zero alive word leaving their outputs as
+they were, the frame of ``frame_device`` (a CUDA graph of a chunk, replayed)
+bit-equal to the eager loop's in f32 sums and u8 on the hair, mirror, area
+hair and area mirror frames with its launch counts the eager loop's plus its
+dead bounces' launches, and two ``render_image`` calls the same bits; the
 training step's device loop: K12's out-of-place form bit-equal to its
 in-place one, K14 bit-equal to ``bounce_update_bwd_plain``,
 ``loss_grads_device`` (a miss and a hit) on the mirror and mirror-pair
-scenes with the first form's loss bits and gradients within 1e-5 of its
-first form's, launching nothing in a dead bounce, ``train_step``'s update
-``d - lr * g`` of that gradient and its gradient within the f64 contract,
-and a hit of ``train_step`` under ``set_sync_debug_mode("error")``
-keeping its graph and the reserved memory.
+scenes with the loss bits and gradients within 1e-5 of the step through
+autograd (``mesh._loss_and_grads_autograd``), launching nothing in a dead
+bounce, ``train_step``'s update ``d - lr * g`` of that gradient and its
+gradient within the f64 contract, and a hit of ``train_step`` under
+``set_sync_debug_mode("error")`` keeping its graph and the reserved memory.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed:
@@ -368,28 +364,16 @@ def test_shade_bwd_matches_autograd(cuda_device, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(SHADE_CASES))
-def test_shade_kernel_matches_simple(cuda_device, name):
-    """K4 on the shade records bit-equal to its first form on the scene's
-    arrays (``shade_simple.cu``) and to the plain shading."""
-    ts, meta, amb, inputs = _shade_case(name, cuda_device)
-    rep = parity.compare_shade(ts, inputs, amb, meta.has_kd_textures,
-                               meta.has_ks_textures)
-    assert rep["mask_equal"] and rep["hits"] > 100
-    for out in parity.SHADE_OUTPUTS:
-        assert rep["simple"][out] == 0 and rep[out] == 0, (out, rep)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", list(SHADE_CASES))
-def test_shade_bwd_matches_simple(cuda_device, name):
-    """K5 within 1e-4 relative L2 of its first form
-    (``shade_bwd_simple.cu``) on every leaf, d_ro and d_rd."""
+def test_shade_bwd_saved_bounce_matches_plain(cuda_device, name):
+    """K5 through its saved-bounce entry (``shade.shade_step_bwd``, the
+    device loop's) within 1e-4 relative L2 of its plain version
+    (``shade.shade_step_bwd_plain``) on every leaf, d_ro and d_rd."""
     ts, meta, amb, inputs = _shade_case(name, cuda_device)
     saved = parity.shade_bwd_inputs(ts, inputs, amb, meta.has_kd_textures,
                                     meta.has_ks_textures)
     gen = torch.Generator(device=cuda_device).manual_seed(13)
-    rep = parity.compare_shade_bwd_simple(ts, saved, gen)
-    parity.check_grads(rep, GRAD_RTOL, f"K5 {name} vs first form")
+    rep = parity.compare_shade_bwd(ts, saved, gen)
+    parity.check_grads(rep, GRAD_RTOL, f"K5 {name} saved bounce")
     for leaf in ("ro", "rd", "pos", "inst_axes", "mat_kd", "light_ke"):
         assert rep[leaf]["norm"] > 0, leaf
 
@@ -414,8 +398,7 @@ def _retopologized(inputs, pairs):
 def test_shade_bwd_contention(cuda_device, pattern):
     """Every lane of every warp on one prim, then 4 prims a warp in runs of
     8 lanes, then 3 prims interleaved lane by lane (runs of one): K5
-    within 1e-4 of torch autograd of the plain version and of its first
-    form."""
+    within 1e-4 of torch autograd of the plain version."""
     ts, meta, amb, inputs = _shade_case("hair64", cuda_device)
     _, _, hits, active = inputs
     live = (active & hits["hit"]).nonzero().flatten()
@@ -433,10 +416,6 @@ def test_shade_bwd_contention(cuda_device, pattern):
                                      meta.has_ks_textures)
     parity.check_grads(rep, GRAD_RTOL, f"K5 {pattern}")
     assert rep["pos"]["norm"] > 0 and rep["inst_axes"]["norm"] > 0
-    saved = parity.shade_bwd_inputs(ts, inputs, amb, meta.has_kd_textures,
-                                    meta.has_ks_textures)
-    parity.check_grads(parity.compare_shade_bwd_simple(ts, saved, gen),
-                       GRAD_RTOL, f"K5 {pattern} vs first form")
 
 
 @pytest.mark.cuda
@@ -462,14 +441,12 @@ def test_shade_bwd_dead_warps(cuda_device):
     dead = (cut[3] & cut[2]["hit"]).logical_not()
     saved = parity.shade_bwd_inputs(ts, cut, amb, meta.has_kd_textures,
                                     meta.has_ks_textures)
-    got = parity.bwd_grads(shade.shade_step_bwd, ts, saved,
-                           parity.shade_bwd_cotangents(saved, gen))
+    got = parity.bwd_grads(ts, saved, parity.shade_bwd_cotangents(saved, gen))
     assert bool(dead.any())
     for k in ("ro", "rd"):
         assert bool((got[k][dead] == 0).all()), k
     none = dict(saved, mask=torch.zeros_like(saved["mask"]))
-    got = parity.bwd_grads(shade.shade_step_bwd, ts, none,
-                           parity.shade_bwd_cotangents(none, gen))
+    got = parity.bwd_grads(ts, none, parity.shade_bwd_cotangents(none, gen))
     for k, v in got.items():
         assert not bool(v.any()), k
 
@@ -478,8 +455,7 @@ def test_shade_bwd_dead_warps(cuda_device):
 def test_shade_bwd_many_instances(cuda_device):
     """300 instances (3,600 instance values, past the rows that K5 sums
     per block into its scratch: it adds them with atomics) and no light:
-    K5 within 1e-4 of torch autograd of the plain version and of its first
-    form."""
+    K5 within 1e-4 of torch autograd of the plain version."""
     ts, meta = _scene(testscenes.make_random_scene(
         seed=21, n_shapes=2, n_tris=10, n_lines=0, n_points=2,
         n_instances=300), cuda_device)
@@ -493,26 +469,23 @@ def test_shade_bwd_many_instances(cuda_device):
                                      meta.has_ks_textures)
     parity.check_grads(rep, GRAD_RTOL, "K5 300 instances")
     assert rep["inst_axes"]["norm"] > 0 and rep["pos"]["norm"] > 0
-    saved = parity.shade_bwd_inputs(ts, inputs, amb, meta.has_kd_textures,
-                                    meta.has_ks_textures)
-    parity.check_grads(parity.compare_shade_bwd_simple(ts, saved, gen),
-                       GRAD_RTOL, "K5 300 instances vs first form")
 
 
 @pytest.mark.cuda
-def test_shade_bwd_per_ray_lights_matches_simple(cuda_device):
-    """K5 with per-ray light positions within 1e-4 of its first form,
-    the (L, N, 3) light positions' gradient included."""
+def test_shade_bwd_per_ray_lights_matches_plain(cuda_device):
+    """K5 with per-ray light positions within 1e-4 of torch autograd of
+    the plain shading, the (L, N, 3) light positions' gradient included,
+    for a second seed of cotangents."""
     ts, meta, sampler = _area_case(cuda_device)
     ids = torch.arange(64 * 64 * 4, dtype=torch.int32, device=cuda_device)
     amb = torch.full((3,), 0.1, device=cuda_device)
     inputs = parity.shade_inputs(ts, ids, 64, 64, 2, 1, amb)
     lpos = lights.sample_light_points(ts, sampler, ids, 3)
-    saved = parity.shade_bwd_inputs(ts, inputs, amb, meta.has_kd_textures,
-                                    meta.has_ks_textures, lpos)
     gen = torch.Generator(device=cuda_device).manual_seed(23)
-    rep = parity.compare_shade_bwd_simple(ts, saved, gen)
-    parity.check_grads(rep, GRAD_RTOL, "K5 per-ray lights vs first form")
+    rep = parity.compare_shade_grads(ts, inputs, amb, gen,
+                                     meta.has_kd_textures,
+                                     meta.has_ks_textures, light_pos=lpos)
+    parity.check_grads(rep, GRAD_RTOL, "K5 per-ray lights")
     assert rep["light_pos_ray"]["norm"] > 0
 
 
@@ -531,8 +504,7 @@ def test_shade_bwd_light_grads_deterministic(cuda_device, per_ray):
                                     meta.has_ks_textures, lpos)
     gen = torch.Generator(device=cuda_device).manual_seed(24)
     cots = parity.shade_bwd_cotangents(saved, gen)
-    a, b = (parity.bwd_grads(shade.shade_step_bwd, ts, saved, cots)
-            for _ in range(2))
+    a, b = (parity.bwd_grads(ts, saved, cots) for _ in range(2))
     for k in ("light_pos", "light_axes", "light_o", "light_ke"):
         assert torch.equal(a[k], b[k]), k
     assert a["light_ke"].abs().sum() > 0
@@ -773,7 +745,7 @@ def _camera_bwd_case(device, n, seed):
 @pytest.mark.parametrize("n", CAMERA_BWD_RAYS)
 def test_camera_bwd_kernels_equal_ordered_sums(cuda_device, n):
     """K6 and K9 bit-equal to ``ordered_camera_sums`` of the plain per-ray
-    terms computed on the card, and within 1e-4 of their first forms."""
+    terms computed on the card."""
     k6_args, k9_args = _camera_bwd_case(cuda_device, n, n % 1000)
     before = dict(kernels.launches)
     k6 = camera.camera_rays_bwd(*k6_args)
@@ -785,11 +757,6 @@ def test_camera_bwd_kernels_equal_ordered_sums(cuda_device, n):
     terms9 = camera.camera_stochastic_bwd_terms_plain(*k9_args)
     assert torch.equal(k6, camera.ordered_camera_sums(terms6)[:15])
     assert torch.equal(k9, camera.ordered_camera_sums(terms9))
-    for kern, simple in ((k6, parity.camera_bwd_simple(*k6_args)),
-                         (k9, parity.camera_stochastic_bwd_simple(*k9_args))):
-        rel = float(torch.linalg.vector_norm(kern - simple)
-                    / torch.linalg.vector_norm(simple))
-        assert rel <= GRAD_RTOL, rel
     assert kernels.launches == {**before, "camera_bwd":
                                 before["camera_bwd"] + 1,
                                 "camera_bwd_stochastic":
@@ -912,25 +879,23 @@ def _light_ids(n, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", LIGHT_RAYS)
 @pytest.mark.parametrize("case", LIGHT_CASES)
-def test_light_points_kernel_matches_plain_and_simple(cuda_device, case, n):
-    """K8 bit for bit equal to the plain version and to its first form
-    (``lights_simple.cu``)."""
+def test_light_points_kernel_matches_plain_bits(cuda_device, case, n):
+    """K8 bit for bit equal to the plain version."""
     ts, sampler, _ = _light_case(case, cuda_device)
     nl = {"one": 1, "two": 2, "eight": 8, "deg": 2}.get(case, 1)
     assert sampler["cdf"].shape[0] == nl
     rep = parity.compare_light_points(ts, sampler, _light_ids(n, cuda_device),
                                       11)
-    assert rep["equal"] and rep["simple_equal"], rep
+    assert rep["equal"], rep
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", LIGHT_RAYS)
 @pytest.mark.parametrize("case", LIGHT_CASES)
-def test_light_points_bwd_matches_f64_and_simple(cuda_device, case, n):
+def test_light_points_bwd_matches_f64(cuda_device, case, n):
     """K10 within 1 ULP of the explicit f64 reverse (entries below 1e-9 of
-    the largest within that much of it), within 1e-4 relative L2 of its
-    first form, and bit for bit the same over two runs where every span is
-    at most 8 vertices."""
+    the largest within that much of it), and bit for bit the same over two
+    runs where every span is at most 8 vertices."""
     ts, sampler, registers = _light_case(case, cuda_device)
     ids = _light_ids(n, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(n)
@@ -942,8 +907,8 @@ def test_light_points_bwd_matches_f64_and_simple(cuda_device, case, n):
     for out in ("d_pos", "d_light_pos"):
         assert rep[out]["ulp"] <= 1, (out, rep[out])
         assert rep[out]["small_abs"] <= rep[out]["floor"], (out, rep[out])
-    parity.check_grads(rep["simple"], GRAD_RTOL, "K10 vs first form")
-    assert rep["simple"]["light_pos" if case == "deg" else "pos"]["norm"] > 0
+    # a gradient that is not all zero
+    assert rep["d_light_pos" if case == "deg" else "d_pos"]["floor"] > 0
     if registers:
         assert rep["repeat"]
 
@@ -955,12 +920,11 @@ def test_light_kernels_on_adversarial_rows(cuda_device, name, padded):
     """K8 and K10 on samplers made by hand from the adversarial CDF rows of
     ``light_pick_rows`` (ties, zero weights, a zero total, NaN and inf
     weights, edge padding, tiny and huge weights, 2,048 elements) over the
-    lamp panel's 2,048 triangles: K8 bit for bit equal to the plain version
-    and to its first form, K10 within 1 ULP of the explicit f64 reverse and
-    1e-4 of its first form. The ray ids put r0 at 0, 2^-24, k / 8 and just
-    below 1, then 6,221 seeded ones. As built the rows fit K8's staging
-    (but the 2,048-element set); ``padded`` pads each with its last value
-    by 300 more entries, which do not."""
+    lamp panel's 2,048 triangles: K8 bit for bit equal to the plain version,
+    K10 within 1 ULP of the explicit f64 reverse. The ray ids put r0 at 0,
+    2^-24, k / 8 and just below 1, then 6,221 seeded ones. As built the
+    rows fit K8's staging (but the 2,048-element set); ``padded`` pads each
+    with its last value by 300 more entries, which do not."""
     ts, panel, _ = _light_case("panel", cuda_device)
     cdf = light_pick_rows.cdf_rows(light_pick_rows.PICK_ROWS[name],
                                    300 if padded else 0)
@@ -977,15 +941,15 @@ def test_light_kernels_on_adversarial_rows(cuda_device, name, padded):
         prim_lo=panel["prim_lo"][:1].repeat(nl),
         deg=torch.zeros(nl, dtype=torch.bool, device=cuda_device))
     rep = parity.compare_light_points(ts, sampler, ids, 11)
-    assert rep["equal"] and rep["simple_equal"], rep
+    assert rep["equal"], rep
     gen = torch.Generator(device=cuda_device).manual_seed(ne)
     g = torch.randn((nl, ids.shape[0], 3), device=cuda_device, generator=gen)
     rep = parity.compare_light_points_bwd(ts, sampler, ids, 11, g)
     for out in ("d_pos", "d_light_pos"):
         assert rep[out]["ulp"] <= 1, (out, rep[out])
         assert rep[out]["small_abs"] <= rep[out]["floor"], (out, rep[out])
-    parity.check_grads(rep["simple"], GRAD_RTOL, "K10 vs first form")
-    assert rep["simple"]["pos"]["norm"] > 0
+    assert rep["d_pos"]["floor"] > 0
+
 
 def _duplicates_scene():
     """The random scene with every triangle of shape 0 listed twice and
@@ -1029,7 +993,7 @@ def _overlap_case(name, device):
 @pytest.mark.parametrize("dist_max", [10.0, 1.0, 0.05])
 def test_overlap_kernel_matches_plain(cuda_device, make, dist_max):
     """K11 (refit kernel and culled walk) against the brute-force plain
-    query, the plain walk and its first form, every output bit for bit; its
+    query and the plain walk, every output bit for bit; its
     wrapper synchronises no host (``set_sync_debug_mode("error")``)."""
     from yocto_raytracing_tpu_torch.ops import overlap
 
@@ -1054,8 +1018,6 @@ def test_overlap_kernel_matches_plain(cuda_device, make, dist_max):
     assert parity.overlap_identical(got, plain)
     assert parity.overlap_identical(
         got, overlap.overlap_scene_walk_plain(ts, meta, q, dist_max))
-    assert parity.overlap_identical(
-        got, parity.overlap_simple(ts, meta, q, dist_max))
 
 
 @pytest.mark.cuda
@@ -1315,9 +1277,10 @@ def _step_case(name, device, w=32, h=32):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["make_grad_scene",
                                   "make_mirror_pair_scene"])
-def test_train_step_device_loop_matches_first_form(cuda_device, name):
+def test_train_step_device_loop_matches_autograd(cuda_device, name):
     """The training step's device loop (``loss_grads_device``, a miss and
-    a hit) against its first form (``mesh._loss_and_grads_autograd``):
+    a hit) against the step through autograd
+    (``mesh._loss_and_grads_autograd``):
     the loss bit-equal, every leaf's gradient within 1e-5 relative L2 (the
     leaf sums are atomic, and the loop sums the bounces in f64 before it
     rounds; ``cam_focus``, zero up to rounding, left out); its dead

@@ -1,5 +1,5 @@
 """K13, the device loop's records packed in place (``ops/records.py``,
-``kernels/csrc/records.cu``, its first form ``records_simple.cu``).
+``kernels/csrc/records.cu``).
 
 On the CPU: a transcription in numpy of K13's thread map (``block_plan``'s
 blocks, one table a block, a thread a 16-byte quad of a row, every word
@@ -8,16 +8,16 @@ read through int32 views, the int32 sums wrapping) bit-equal to
 hair, mirror, mirror-pair and random scenes, after leaves edited to
 extreme values (counts past the saturation, sums that wrap), and on the
 10,004-instance scene with a wrapped sum; the block plan covering every
-quad of every table once, no block for an empty table; the first form's
-rows (a thread a row) transcribed the same way and bit-equal;
+quad of every table once, no block for an empty table; the tables
+transcribed a row at a time from the leaves, independently of the
+packers, and bit-equal to them;
 ``records.pack_into`` and ``records.prepare`` on the CPU (the plain
 version) equal to the packers; its tables' shapes, and the node counts
 left as the leaf.
 
-On the card (marker ``cuda``): K13 and its first form bit-equal to the
-packers on the same scenes and edits and on the 10,004-instance scene,
-through ``pack_into``, a prepared launch and ``prepare_first_form``, one
-launch counted a call of K13 and none of the first form; a wrong leaf,
+On the card (marker ``cuda``): K13 bit-equal to the packers on the same
+scenes and edits and on the 10,004-instance scene, through ``pack_into``
+and a prepared launch, one launch counted a call; a wrong leaf,
 a strided table and a table off 16-byte alignment refused. The file
 imports no JAX.
 """
@@ -71,8 +71,9 @@ def _edit(ts):
 
 
 def _kernel_rows(ts) -> tuple:
-    """The six tables as K13's first form (records_simple.cu) writes
-    them, a row at a time."""
+    """The six tables transcribed a row at a time from the leaves' words,
+    as the record layouts of ops/hit_records.py and ops/shade_records.py
+    describe them: an oracle independent of the packers' torch ops."""
     a = {k: getattr(ts, k).numpy() for k, _, _ in records.LEAVES}
     w = {k: (v.view(np.int32) if v.dtype == np.float32 else v)
          for k, v in a.items()}
@@ -326,7 +327,6 @@ def test_card_records_equal_the_packers(cuda_device, name):
     ts = _scene(name, cuda_device)
     hrec, srec = records.empty(ts)
     fill = records.prepare(ts, hrec, srec)
-    first = records.prepare_first_form(ts, hrec, srec)
     for edit in (False, True):
         kernels.reset_launches()
         if edit:   # the prepared launch sees the leaves' new values
@@ -338,12 +338,6 @@ def test_card_records_equal_the_packers(cuda_device, name):
         want = _packers(ts)
         for i, (got, w) in enumerate(zip(records.tables(hrec, srec), want)):
             assert np.array_equal(_bits(got), _bits(w)), i
-        for t in records.tables(hrec, srec):   # the first form, from scratch
-            t.fill_(-3.0)
-        first()
-        assert kernels.launches["records"] == 1
-        for i, (got, w) in enumerate(zip(records.tables(hrec, srec), want)):
-            assert np.array_equal(_bits(got), _bits(w)), ("first form", i)
 
 
 @pytest.mark.cuda
@@ -360,8 +354,7 @@ def test_card_records_refuse_a_wrong_leaf(cuda_device):
 def test_card_records_refuse_a_strided_or_misaligned_table(cuda_device,
                                                            fault):
     """K13 stores 16-byte quads: a table that is not contiguous, or not
-    16-byte aligned, is refused by ``prepare`` (either form), with no
-    fallback."""
+    16-byte aligned, is refused by ``prepare``, with no fallback."""
     ts = _scene("hair", cuda_device)
     hrec, srec = records.empty(ts)
     rows, width = srec.mats.shape
@@ -372,6 +365,5 @@ def test_card_records_refuse_a_strided_or_misaligned_table(cuda_device,
             rows, width)
     srec = srec._replace(mats=bad)
     match = "not contiguous" if fault == "strided" else "16-byte aligned"
-    for prepare in (records.prepare, records.prepare_first_form):
-        with pytest.raises(ValueError, match=match):
-            prepare(ts, hrec, srec)
+    with pytest.raises(ValueError, match=match):
+        records.prepare(ts, hrec, srec)

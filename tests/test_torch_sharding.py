@@ -458,7 +458,7 @@ def test_loss_and_grads_sharded_returns(world, inputs):
 
 
 def test_leaf_unreached_on_one_rank(world, inputs):
-    """Rank 1 takes the step's first form, whose autograd returns None for
+    """Rank 1 takes the step through autograd, which returns None for
     mat_kd (zeros), rank 0 the device loop's tensor: both reduce it (no
     hang), and the mean is rank 0's gradient / 2."""
     amb = torch.full((3,), worker.AMB)

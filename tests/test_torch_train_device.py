@@ -1,13 +1,13 @@
 """The training step's device loop (``renderer.loss_grads_device``) on the
 CPU: the structure of its CUDA graph run bounce by bounce through the plain
-versions, against the JAX package, its first form and itself.
+versions, against the JAX package, the step through autograd and itself.
 
 * Against JAX (``jax_nofma.train_step``): the grad scene (16x16, 1 spp)
   at depth 6 with every float leaf trainable, where bounces 2-5 are dead
   (the step skips them forward and back); the updated leaves and the loss
   within rtol 1e-5 / atol 1e-7. ``tests/test_torch_train.py`` holds the
   same step at depth 3, every leaf and a subset, through
-  ``mesh.train_step``, which runs this loop. The first form
+  ``mesh.train_step``, which runs this loop. The step through autograd
   (``mesh._train_step_autograd``) against the same JAX result, and the
   loss bit-equal to it.
 * The kept entry: a second call with the same key hits and gives the same
@@ -116,7 +116,7 @@ def test_device_step_matches_jax(jax_step):
         assert np.array_equal(getattr(ts, name).numpy(), leaves[name]), name
 
 
-def test_first_form_matches_jax(jax_step):
+def test_autograd_step_matches_jax(jax_step):
     """``_train_step_autograd`` (the eager loop under autograd) against the
     same JAX result, and the device loop's loss bit-equal to it."""
     depth, trainable = DEPTH, TRAINABLE
@@ -138,7 +138,7 @@ def _step(ts, ids, target, depth=3, trainable=None, lr=None):
                   if x is not None}
 
 
-def _first_form_grads(ts, ids, target, depth=3, trainable=None):
+def _autograd_grads(ts, ids, target, depth=3, trainable=None):
     diff, static = tmesh.partition_scene(ts, trainable)
     loss, grads = tmesh._loss_and_grads_autograd(
         diff, static, ids, target, torch.from_numpy(AMB), _kw(depth))
@@ -163,7 +163,7 @@ def test_second_call_hits_with_the_same_bits():
     assert torch.equal(loss1, loss2)
     for name in g1:
         assert torch.equal(g1[name], g2[name]), name
-    want_loss, want = _first_form_grads(ts, ids, target)
+    want_loss, want = _autograd_grads(ts, ids, target)
     assert float(loss1) == float(want_loss)
     _assert_close_grads(g1, want)
 
@@ -184,7 +184,7 @@ def test_leaf_edited_in_place_gives_its_own_step(edit):
     assert kernels.last_step()["cache_hit"] is True
     if edit == "mirror_off":
         assert kernels.last_step()["ran"].tolist() == [1, 0, 0, 0]
-    want_loss, want = _first_form_grads(ts, ids, target)
+    want_loss, want = _autograd_grads(ts, ids, target)
     assert float(loss2) == float(want_loss) != float(loss1)
     _assert_close_grads(g2, want)
 

@@ -12,8 +12,8 @@ Joins a gloo group on the CPU through ``parallel.init_distributed``, reads
   3), every float leaf trainable, on the batch ``ids``/``target`` and on
   the batch ``dark_ids``/``dark_target``, whose second half reaches no
   geometry;
-* ``loss_and_grads_sharded`` on ``ids`` with rank 1 taking the step's
-  first form (``mesh._loss_and_grads_autograd``) with ``mat_kd`` out of
+* ``loss_and_grads_sharded`` on ``ids`` with rank 1 taking the step
+  through autograd (``mesh._loss_and_grads_autograd``) with ``mat_kd`` out of
   its graph, so that its autograd returns None there (zeros), and rank 0
   the device loop's tensor.
 
@@ -160,7 +160,7 @@ def main(init_method, world_size, rank, tmp):
             if g is not None:
                 out[f"{job}_grad_{name}"] = g.numpy()
 
-    # rank 1's rays never reach mat_kd: it takes the first form, whose
+    # rank 1's rays never reach mat_kd: it takes the autograd step, whose
     # autograd gives None there; rank 0 the device loop
     ids = mesh_mod.shard_rays(inp["ids"], mesh)
     target = mesh_mod.shard_rays(inp["target"], mesh)
@@ -174,7 +174,7 @@ def main(init_method, world_size, rank, tmp):
             [None] * len(scene_lib.LEAF_NAMES))
         return render_loss(sc, *args, **kwargs)
 
-    def first_form_on_rank_1(sc, ids, target, amb, kw, trainable):
+    def autograd_on_rank_1(sc, ids, target, amb, kw, trainable):
         if rank != 1:
             return loss_and_grads(sc, ids, target, amb, kw, trainable)
         diff, static = mesh_mod.partition_scene(sc, trainable)
@@ -182,7 +182,7 @@ def main(init_method, world_size, rank, tmp):
                                                  amb, kw)
 
     mesh_mod.render_loss = cut_loss
-    mesh_mod._loss_and_grads = first_form_on_rank_1
+    mesh_mod._loss_and_grads = autograd_on_rank_1
     try:
         with CountCollectives() as c:
             _, grads, _ = mesh_mod.loss_and_grads_sharded(

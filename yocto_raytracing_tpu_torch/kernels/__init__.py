@@ -23,12 +23,6 @@
 * K14 ``bounce.cu`` the reverse of K12, in the training step's device loop
                                                    (render/renderer.py)
 
-``hit_simple.cu``, ``shade_simple.cu`` and ``shade_bwd_simple.cu`` are the
-first, simple forms of K1, K4 and K5, on the scene's own arrays, and
-``records_simple.cu`` K13's (a thread a row): only ``chip_smoke.py`` and
-the card tests launch them (K4's and K5's through ``parity.py``, K13's
-through ``ops/records.py::prepare_first_form``), to hold and time old and
-new in turns on one card.
 ``host/yrt_native.cpp`` is the host-side OBJ parser and BVH builder (g++,
 ``native.py``). Nothing is compiled at import: ``build()`` runs nvcc on
 first use.

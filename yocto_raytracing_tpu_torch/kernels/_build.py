@@ -11,12 +11,7 @@ Numerics: ``--fmad=false`` (no a*b+c contraction, like eager torch) and no
 fast-math, so division and sqrt are IEEE-rounded. The kernels are held
 bit-equal (K1, K2, K4, K6, K7, K8, K9, K11, K12, K13, K14: K6 and K9 to
 their order of sums, ``render/camera.py::ordered_camera_sums``) or within a
-stated tolerance (K3, K5, K10) to their plain torch versions. ``hit_simple.cu``,
-``camera_bwd_simple.cu``, ``shade_simple.cu``, ``shade_bwd_simple.cu``,
-``lights_simple.cu``, ``overlap_simple.cu`` and ``records_simple.cu`` are
-the first forms of K1, K6 with K9, K4, K5, K8 with K10, K11 and K13, built
-for the same-card comparisons of ``chip_smoke.py`` and the card tests
-only.
+stated tolerance (K3, K5, K10) to their plain torch versions.
 
 Each wrapper counts its launches in ``launches``; a run resets the counts
 with ``reset_launches`` and reads them afterwards to show which kernels it
@@ -44,11 +39,9 @@ from ..utils import tracer
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("hit.cu", "hit_simple.cu", "camera.cu", "camera_bwd_simple.cu",
-           "pixel.cu", "shade.cu", "shade_simple.cu", "shade_bwd.cu",
-           "shade_bwd_simple.cu", "stochastic.cu", "lights.cu",
-           "lights_simple.cu", "overlap.cu", "overlap_simple.cu", "bounce.cu",
-           "records.cu", "records_simple.cu")
+SOURCES = ("hit.cu", "camera.cu", "pixel.cu", "shade.cu", "shade_bwd.cu",
+           "stochastic.cu", "lights.cu", "overlap.cu", "bounce.cu",
+           "records.cu")
 HEADERS = ("common.cuh", "shade.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
@@ -91,19 +84,17 @@ def reset_launches() -> None:
 
 
 def note_frame(ran: torch.Tensor, lights: bool, host_ms: dict,
-               cache_hit: bool = False, dead_launched: bool = False) -> None:
+               cache_hit: bool = False) -> None:
     """Record a device-loop frame: ``ran`` is its (chunks, max_depth + 1)
     i32 alive words, a chunk a row (1 where the bounce ran), ``lights``
     whether its scene has lights, ``host_ms`` the host's milliseconds in
     its stages, ``cache_hit`` whether it replayed a graph kept from an
-    earlier call. On CUDA its dead bounces join the tally (``_note_dead``),
-    unless ``dead_launched`` (the loop's first form, which makes their
-    launches)."""
+    earlier call. On CUDA its dead bounces join the tally
+    (``_note_dead``)."""
     _last_frame.clear()
     _last_frame.update(ran=ran, lights=lights, host_ms=host_ms,
                        cache_hit=cache_hit)
-    if not dead_launched:
-        _note_dead(ran, int(lights))
+    _note_dead(ran, int(lights))
 
 
 def note_step(ran: torch.Tensor, lights: bool, host_ms: dict,
@@ -291,37 +282,23 @@ def library() -> ctypes.CDLL:
     lib.yrt_hit.restype = i32
     lib.yrt_hit.argtypes = ([vp] * 4 + [i32] + [vp] * 4 + [i32] * 2
                             + [vp] * 6)
-    lib.yrt_hit_simple.restype = i32
-    lib.yrt_hit_simple.argtypes = ([vp] * 15 + [vp] * 4 + [i32, i32]
-                                   + [vp] * 4 + [vp])
     lib.yrt_camera_rays.restype = i32
     lib.yrt_camera_rays.argtypes = [vp, i32, i32, i32, i32] + [vp] * 9
     lib.yrt_camera_bwd_scratch.restype = i32
     lib.yrt_camera_bwd_scratch.argtypes = [i32]
     lib.yrt_camera_bwd.restype = i32
     lib.yrt_camera_bwd.argtypes = [vp, vp, vp, i32] + [vp] * 9
-    lib.yrt_camera_bwd_simple_scratch.restype = i32
-    lib.yrt_camera_bwd_simple_scratch.argtypes = [i32]
-    lib.yrt_camera_bwd_simple.restype = i32
-    lib.yrt_camera_bwd_simple.argtypes = [vp, vp, vp, i32] + [vp] * 8
     shade_p = ctypes.POINTER(ShadeScene)
     lib.yrt_shade_prep.restype = i32
     lib.yrt_shade_prep.argtypes = [shade_p] + [vp] * 5 + [i32] + [vp] * 5
     lib.yrt_shade_finish.restype = i32
     lib.yrt_shade_finish.argtypes = [shade_p] + [vp] * 6 + [i32] + [vp] * 5
-    lib.yrt_shade_prep_simple.restype = i32
-    lib.yrt_shade_prep_simple.argtypes = lib.yrt_shade_prep.argtypes
-    lib.yrt_shade_finish_simple.restype = i32
-    lib.yrt_shade_finish_simple.argtypes = lib.yrt_shade_finish.argtypes
     grads_p = ctypes.POINTER(ShadeGrads)
     lib.yrt_shade_bwd.restype = i32
     lib.yrt_shade_bwd.argtypes = ([shade_p, grads_p] + [vp] * 6 + [i32]
                                   + [vp] * 8)
     lib.yrt_shade_bwd_scratch.restype = ctypes.c_longlong
     lib.yrt_shade_bwd_scratch.argtypes = [i32, i32]
-    lib.yrt_shade_bwd_simple.restype = i32
-    lib.yrt_shade_bwd_simple.argtypes = ([shade_p, grads_p] + [vp] * 6
-                                         + [i32] + [vp] * 7)
     lib.yrt_pixel_finish.restype = i32
     lib.yrt_pixel_finish.argtypes = [vp, i32, i32, i32, vp, vp, vp, vp]
     u64 = ctypes.c_ulonglong
@@ -336,8 +313,6 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.restype = i32
         fn.argtypes = [vp] * 5
-    lib.yrt_records_simple.restype = i32
-    lib.yrt_records_simple.argtypes = [vp, vp] + [i32] * 5 + [vp]
     lib.yrt_if_handle.restype = i32
     lib.yrt_if_handle.argtypes = [vp, ctypes.POINTER(u64)]
     lib.yrt_if_begin.restype = i32
@@ -352,14 +327,7 @@ def library() -> ctypes.CDLL:
     lib.yrt_camera_stochastic_bwd.restype = i32
     lib.yrt_camera_stochastic_bwd.argtypes = ([vp, i32, i32, i32, i32, u32p,
                                                u32] + [vp] * 12)
-    lib.yrt_camera_stochastic_bwd_simple.restype = i32
-    lib.yrt_camera_stochastic_bwd_simple.argtypes = ([vp, i32, i32, i32, i32,
-                                                      u32] + [vp] * 11)
     light_args = [vp, i32, u32, vp, i32, i32] + [vp] * 5 + [i32]
-    for name in ("yrt_light_points_simple", "yrt_light_points_bwd_simple"):
-        fn = getattr(lib, name)
-        fn.restype = i32
-        fn.argtypes = light_args + [vp] * 4
     lib.yrt_light_points.restype = i32
     lib.yrt_light_points.argtypes = light_args + [vp] * 5   # + seed word
     lib.yrt_light_points_bwd.restype = i32
@@ -371,9 +339,6 @@ def library() -> ctypes.CDLL:
     lib.yrt_overlap.restype = i32
     lib.yrt_overlap.argtypes = ([vp, vp, i32] + [vp] * 3 + [i32] + [vp] * 3
                                 + [i32] + [vp] * 6)
-    lib.yrt_overlap_simple.restype = i32
-    lib.yrt_overlap_simple.argtypes = ([vp, vp, i32] + [vp] * 4 + [i32]
-                                       + [vp] * 4 + [vp] * 6)
     _lib = lib
     return lib
 

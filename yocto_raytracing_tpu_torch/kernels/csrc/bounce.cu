@@ -34,8 +34,7 @@
 // 0: a bounce with no active ray writes nothing, which is
 // jax.lax.cond(any(active), body, identity) by construction, so a fixed
 // max_depth of bounces gives the bits of the eager loop's early break,
-// with no host sync. The loop's first form (an eager chunk 0, then a
-// graph with every bounce launched) relies on those reads alone.
+// with no host sync.
 //
 // The chunk's CUDA graph skips a dead bounce whole. Bounce k >= 1 is
 // captured into the body of a conditional IF node of its own (the nodes

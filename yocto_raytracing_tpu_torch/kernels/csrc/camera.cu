@@ -23,12 +23,12 @@
 // over the batch into d_cam_axes (3, 3), d_cam_o (3), d_h, d_w and d_focus.
 // What bounds it on an H100: reading 32 bytes per ray (uv, g_ro, g_rd),
 // about 10 us for 2^20 rays at 3.35 TB/s; its ~110 operations a ray take
-// less (1.7 us at 67 TFLOP/s). Its first form (camera_bwd_simple.cu) took a shuffle tree per sum,
+// less (1.7 us at 67 TFLOP/s). An earlier design took a shuffle tree per sum,
 // 75 shuffles a thread, and a second launch of one block for the column
 // sums. Here each thread takes kCamRays rays and one launch sums the batch
 // (common.cuh, camera_block_sums): 16 shuffles a warp, and the last block
 // adds the column-major partials, in an order that depends on n alone. The
-// per-ray terms are the first form's, op for op; the 16th slot is 0, so K9
+// per-ray terms are the plain version's, op for op; the 16th slot is 0, so K9
 // sums its 15 shared slots in the same order.
 #include "common.cuh"
 

@@ -192,7 +192,7 @@ __host__ __device__ inline unsigned int blocks_for(long long n, int threads) {
 // n = 0 writes zeros. render/camera.py::ordered_camera_sums repeats this
 // order with torch adds. 8 rays a thread and at most 64 registers (4
 // blocks an SM) make 2^20 rays one wave of 512 blocks on an H100's 4 x 132
-// places; camera_bwd_ablation.py times 1 to 16 rays and 1 to 6 blocks.
+// places (PERF.md: 1 to 16 rays and 1 to 6 blocks were timed).
 constexpr int kCamSlots = 16;
 constexpr int kCamThreads = 256;
 constexpr int kCamRays = 8;

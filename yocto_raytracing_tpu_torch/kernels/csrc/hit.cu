@@ -18,9 +18,8 @@
 // built with --fmad=false. So hit, inst, prim and t are
 // bit-equal to the plain walk on every ray, equal-t ties (the last
 // accepted hit wins: acceptance is t <= best), NaN directions and dead rays
-// included. Nothing here reorders a walk; what changed from the simple
-// kernel (hit_simple.cu, kept for comparison) is where a walk reads from
-// and which lanes run one.
+// included. Nothing here reorders a walk; what the design below chooses
+// is where a walk reads from and which lanes run one.
 //
 // What bounds K1 on an H100. Each step of a walk depends on the step
 // before: the next node is known only once the node's data has arrived
@@ -35,13 +34,13 @@
 //
 // What the design does about it:
 // * Packed records (ops/hit_records.py). A node visit reads one 32-byte
-//   record with two 16-byte loads (the simple kernel: 11 scalar loads
+//   record with two 16-byte loads (in place of 11 scalar loads
 //   from 7 arrays). A prim test reads one 48-byte record that holds the
-//   prim's own vertices, radii, type and id (the simple kernel: a chain of
-//   four dependent loads through leaf_items, prim_v, pos and radius), and
+//   prim's own vertices, radii, type and id (in place of a chain of four
+//   dependent loads through leaf_items, prim_v, pos and radius), and
 //   a leaf's prims are adjacent. A frame change reads one 64-byte record
 //   per scene-leaf slot: the instance's axes, origin, shape root and id
-//   (the simple kernel: leaf_items, then 13 scalar loads).
+//   (in place of leaf_items, then 13 scalar loads).
 // * The world-frame ray is computed once and kept for the returns from
 //   instances (the same bits as recomputing it), and the slab test drops
 //   NaN guards that fmaxf/fminf make redundant for a live ray

@@ -6,7 +6,6 @@
 // ray id under `seed ^ 0x85EBCA6B`, three columns) and
 // ops/sampling.py::sample_triangle (92-104). The tables (cdf, n, prim_lo,
 // deg) come from render/lights.py::build_light_sampler, on the host.
-// lights_simple.cu keeps both kernels' first forms, for comparison only.
 //
 // K8, a thread per kPointsRays (2) rays i (32-bit indices), each over
 // every light l:
@@ -56,7 +55,7 @@
 // (light, ray), 14.7 MB for 524,288 rays and two lights, about 4.4 us at
 // 3.35 TB/s; with the tables staged a ray's work is a few dozen integer
 // and float operations per light. The block size and rays per thread of
-// K8 and K10 were chosen on an H100 with lights_ablation.py (PERF.md).
+// K8 and K10 were chosen by timing the choices on an H100 (PERF.md).
 //
 // K10 is K8's reverse (the adjoint of sample_light_points): the (L, N, 3)
 // cotangent g of the points goes back to the vertices the points were made

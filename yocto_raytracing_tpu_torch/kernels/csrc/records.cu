@@ -29,8 +29,8 @@
 // What bounds it on an H100: bytes, a few hundred KB to a few MB (the
 // 10,004-instance scene's 2.5 MB is 0.75 us at the memory rate), so a
 // launch's own floor and the latency of its dependent loads are its time.
-// The first form (records_simple.cu: a thread a row, words copied one by
-// one through pointers that may alias, so each load waited for the store
+// An earlier design (a thread a row, words copied one by one through
+// pointers that may alias, so each load waited for the store
 // before it, 4-28 round trips a row; a warp could straddle two tables)
 // took 7.63 us on the hair scene. The design:
 //   * a thread per 16-byte quad of an output row, quad q of a table at

@@ -28,8 +28,8 @@
 // Recomputing the hit in the second launch costs a few hundred flops per ray
 // and saves writing and re-reading ~20 floats per ray of intermediates.
 //
-// Reads and writes (the redesign for the H100; shade_simple.cu keeps the
-// first form for comparison). A ray's instance, prim and material come from
+// Reads and writes (the redesign for the H100). A ray's instance, prim and
+// material come from
 // the packed shade records of ops/shade_records.py: one 64-byte instance
 // record, one 112-byte prim record that holds the three vertices' pos, norm
 // and texcoord, and one 48-byte material record, fourteen 16-byte loads in
@@ -38,8 +38,8 @@
 // shadow rays' origins and directions, light by light, and color, kr, p and
 // refl_dir) go out through the warp's shared buffer as 16-byte stores
 // (store3_warp), with the same layout as before: K1 reads sh_o, sh_d,
-// sh_tmin and sh_tmax as it did. The bits are the first form's: the records
-// are bit copies of the leaves and the math (shade.cuh) is the same.
+// sh_tmin and sh_tmax as it did. The bits are those of the scene's arrays:
+// the records are bit copies of the leaves.
 //
 // Numerics: the same op order as the plain torch version (shade.cuh), built
 // with --fmad=false and no fast-math; sqrtf, IEEE divides, powf with run-time

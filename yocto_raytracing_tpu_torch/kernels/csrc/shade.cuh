@@ -11,14 +11,11 @@
 // texel scale arrive at run time (ShadeScene), as they do in torch's kernels,
 // so no powf or division is specialised for a literal.
 //
-// Two readers feed the same math. K4 (shade.cu) and K5 (shade_bwd.cu) read
-// the packed shade records of ops/shade_records.py (ShadeScene::prim_rec,
-// inst_rec, mat_rec) with 16-byte loads: load_hit_record and
-// load_material_record. K4's and K5's first forms (shade_simple.cu,
-// shade_bwd_simple.cu, kept for comparison) read the scene's own arrays with
-// scalar loads: eval_hit and eval_material. The records are bit copies of
-// the arrays, so both readers give hit_geometry and material_eval the same
-// bits.
+// K4 (shade.cu) and K5 (shade_bwd.cu) read the packed shade records of
+// ops/shade_records.py (ShadeScene::prim_rec, inst_rec, mat_rec) with
+// 16-byte loads: load_hit_record and load_material_record. The records are
+// bit copies of the scene's arrays, so hit_geometry and material_eval see
+// the arrays' bits.
 #pragma once
 
 #include <cstdint>
@@ -56,14 +53,12 @@ struct ShadeScene {
   // (L, N, 3) per-ray light positions (row l * N + i), replacing light_pos
   // (area-light samples, render/lights.py); null on the point-light path
   const float* light_pos_ray;
-  // ops/shade_records.py: (P, 7), (I, 4) and (Mt, 3) float4 records; null
-  // for the first forms, which read the arrays above
+  // ops/shade_records.py: (P, 7), (I, 4) and (Mt, 3) float4 records
   const float4* prim_rec;
   const float4* inst_rec;
   const float4* mat_rec;
   // the device loop's alive word of this bounce (bounce.cu), or null: K4's
-  // launches return at once when it reads 0; K5 and the first forms never
-  // read it
+  // launches return at once when it reads 0; K5 never reads it
   const int* alive;
   int tex_th, tex_tw, num_lights, has_kd_tex, has_ks_tex;
   float gamma;        // 2.2: texel sRGB decode exponent
@@ -103,8 +98,8 @@ __device__ __forceinline__ V3 vmul(V3 a, V3 b) {
   return make(a.x * b.x, a.y * b.y, a.z * b.z);
 }
 
-// eval_hit: instance frame, local ray, prim row, barycentrics or line s,
-// world p / n and uv (render/shade.py::eval_hit).
+// A hit's geometry: instance frame, local ray, prim row, barycentrics or
+// line s, world p / n and uv (render/shade.py::eval_hit).
 struct HitGeom {
   V3 a0, a1, a2, io;  // instance frame rows and origin
   V3 lo, dm, ld;      // local origin, local direction before/after normalize
@@ -129,34 +124,7 @@ __device__ __forceinline__ const T* opaque(const T* p) {
   return reinterpret_cast<const T*>(a);
 }
 
-// The scalar reads of a hit from the scene's arrays (the first forms).
-__device__ __forceinline__ void load_hit_arrays(const ShadeScene& s, int inst,
-                                                int prim, HitGeom& g) {
-  g.a0 = load3(s.inst_axes, 3 * inst);
-  g.a1 = load3(s.inst_axes, 3 * inst + 1);
-  g.a2 = load3(s.inst_axes, 3 * inst + 2);
-  g.io = load3(s.inst_o, inst);
-  g.vi0 = __ldg(s.prim_v + 3 * prim);
-  g.vi1 = __ldg(s.prim_v + 3 * prim + 1);
-  g.vi2 = __ldg(s.prim_v + 3 * prim + 2);
-  g.ptype = __ldg(s.prim_type + prim);
-  g.v0 = load3(s.pos, g.vi0);
-  g.v1 = load3(s.pos, g.vi1);
-  g.v2 = load3(s.pos, g.vi2);
-  g.n0 = load3(s.norm, g.vi0);
-  g.n1 = load3(s.norm, g.vi1);
-  g.n2 = load3(s.norm, g.vi2);
-  g.t0u = __ldg(s.texcoord + 2 * g.vi0);
-  g.t0v = __ldg(s.texcoord + 2 * g.vi0 + 1);
-  g.t1u = __ldg(s.texcoord + 2 * g.vi1);
-  g.t1v = __ldg(s.texcoord + 2 * g.vi1 + 1);
-  g.t2u = __ldg(s.texcoord + 2 * g.vi2);
-  g.t2v = __ldg(s.texcoord + 2 * g.vi2 + 1);
-  g.mat = __ldg(s.inst_mat + inst);
-  g.is_lines = __ldg(s.inst_is_lines + inst) == 1;
-}
-
-// The same fields from one 64-byte instance record and one 112-byte prim
+// A hit's fields from one 64-byte instance record and one 112-byte prim
 // record (ops/shade_records.py), eleven 16-byte loads with no dependent
 // chain: [a0 a1.x] [a1.yz a2.xy] [a2.z io] [mat lines - -]; [vi0 vi1 vi2
 // type], then per vertex [pos n.x] [n.yz uv].
@@ -195,7 +163,7 @@ __device__ __forceinline__ void load_hit_record(const float4* __restrict__ ir,
   g.t2v = b.w;
 }
 
-// The arithmetic of eval_hit on the loaded fields of g.
+// The arithmetic of shade.py's eval_hit on the loaded fields of g.
 __device__ __forceinline__ void hit_geometry(V3 ro, V3 rd, HitGeom& g) {
   const V3 q = sub(ro, g.io);
   g.lo = make(dot(g.a0, q), dot(g.a1, q), dot(g.a2, q));
@@ -240,14 +208,8 @@ __device__ __forceinline__ void hit_geometry(V3 ro, V3 rd, HitGeom& g) {
   g.n = safe_normalize(g.nv);
 }
 
-__device__ __forceinline__ void eval_hit(const ShadeScene& s, V3 ro, V3 rd,
-                                         int inst, int prim, HitGeom& g) {
-  load_hit_arrays(s, inst, prim, g);
-  hit_geometry(ro, rd, g);
-}
-
-// eval_hit on the records: ShadeScene::inst_rec and prim_rec (through
-// opaque() where a kernel reloads them).
+// A hit's geometry from the records: ShadeScene::inst_rec and prim_rec
+// (through opaque() where a kernel reloads them).
 __device__ __forceinline__ void eval_hit_record(const float4* inst_rec,
                                                 const float4* prim_rec,
                                                 V3 ro, V3 rd, int inst,
@@ -326,18 +288,7 @@ struct MatEval {
   TexSample tkd, tks;
 };
 
-// The material row from the scene's arrays (the first forms).
-__device__ __forceinline__ void load_material_arrays(const ShadeScene& s,
-                                                     int mat, MatEval& m) {
-  m.kd = load3(s.mat_kd, mat);
-  m.ks = load3(s.mat_ks, mat);
-  m.kr = load3(s.mat_kr, mat);
-  m.rs = __ldg(s.mat_rs + mat);
-  m.kd_txt = __ldg(s.mat_kd_txt + mat);
-  m.ks_txt = __ldg(s.mat_ks_txt + mat);
-}
-
-// The same row from one 48-byte material record, three 16-byte loads:
+// The material row from one 48-byte material record, three 16-byte loads:
 // [kd ks.x] [ks.yz kr.xy] [kr.z rs kd_txt ks_txt].
 __device__ __forceinline__ void load_material_record(
     const float4* __restrict__ mr, MatEval& m) {
@@ -367,12 +318,6 @@ __device__ __forceinline__ void material_eval(const ShadeScene& s, float u,
   }
   const float two = 2.0f;
   m.ns = m.rs != 0.0f ? two / powf(m.rs, s.rs_exp) - 2.0f : kNsNoRoughness;
-}
-
-__device__ __forceinline__ void eval_material(const ShadeScene& s,
-                                              const HitGeom& g, MatEval& m) {
-  load_material_arrays(s, g.mat, m);
-  material_eval(s, g.u, g.v, m);
 }
 
 // Shape-space position of light l for ray i of n: the per-ray sample

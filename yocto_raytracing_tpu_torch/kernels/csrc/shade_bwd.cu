@@ -32,15 +32,15 @@
 // The sums accumulate in f64 (the caller rounds each leaf to f32 once): a
 // scene gradient is a sum of up to millions of signed per-ray terms, which
 // f32 accumulation would round at every step. On an NVIDIA H100 80GB HBM3
-// (700 W) at 2^20 rays, per-lane atomics alone made the first form ~10x
+// (700 W) at 2^20 rays, per-lane atomics alone made an earlier design ~10x
 // slower on the hair scene (10.3 ms against 1.0 ms), where every ray adds to
 // the same lights and materials; f32 accumulation was 5-40% faster, but ~80x
 // further from an f64 reference on mat_kd and not reproducible run to run.
 //
 // What bounds it on an H100: the recompute (the forward's gathers and
 // flops), ~3x the forward's arithmetic for the adjoint, the registers that
-// hold both (the first form, shade_bwd_simple.cu, kept for comparison, uses
-// 245 a thread: 8 warps an SM), and the f64 sums: per live ray 10 material,
+// hold both (an earlier design, on the scene's arrays, used 245 a thread:
+// 8 warps an SM), and the f64 sums: per live ray 10 material,
 // 12 instance and 24 vertex values, and 18 values per light. The redesign:
 //
 // * Records. The hit, the material and the texel quads are read from the

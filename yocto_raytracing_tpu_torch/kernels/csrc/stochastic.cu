@@ -45,7 +45,7 @@
 // What bounds K9 on an H100: reading 4 + 24 bytes per ray (the id and two
 // cotangents), 8.8 us for 2^20 rays, and issuing the recompute: four PCG
 // hashes, sqrtf, sincosf, and nine IEEE divides by run-time values a
-// ray. Its first form (camera_bwd_simple.cu) also paid six integer
+// ray. An earlier design also paid six integer
 // divisions or remainders by run-time divisors, about 20 instructions each;
 // here stochastic_sample divides by the launch's spp, samples and width
 // with multipliers the host computes (Divisor: exact for every id in
@@ -106,8 +106,8 @@ __device__ __forceinline__ StochasticSample stochastic_sample(
                   static_cast<float>(height);
 
   // sample_disk: r = sqrt(r1), phi = 2 pi r0; sincosf's values are cosf's
-  // and sinf's (camera_bwd_ablation.py: every ray id of the smoke run's
-  // area frames)
+  // and sinf's (checked on an H100 for every ray id of the area frames;
+  // PERF.md)
   const float r = sqrtf(l1);
   const float phi = kTwoPi * l0;
   float sin_phi, cos_phi;

@@ -5,46 +5,31 @@ The comparisons that ``chip_smoke.py`` and the card tests
 
 * ``shade_inputs``: the rays, hits and active mask of a given bounce of a
   batch of camera rays, from the kernel path (K2, K1, K4);
-* ``compare_shade``: K4, its first form (``shade_step_simple``) and the
-  plain ``shade_step`` on the same inputs and the same K1 shadow query,
-  optionally with per-ray light positions; per output the largest ULP gap;
+* ``compare_shade``: K4 and the plain ``shade_step`` on the same inputs and
+  the same K1 shadow query, optionally with per-ray light positions; per
+  output the largest ULP gap;
 * ``compare_camera_stochastic``: K7 and the plain stochastic ray chain;
-  ``compare_light_points``: K8, its first form (``light_points_simple``)
-  and the plain light sampling; per output the largest ULP gap;
+  ``compare_light_points``: K8 and the plain light sampling; per output
+  the largest ULP gap;
 * ``compare_shade_grads``: K5 and torch autograd of the plain version, for
   the same seeded cotangents (zero on masked lanes, whose gradient K5
   defines as zero), optionally with per-ray light positions; per leaf the
-  relative L2 error; ``compare_shade_bwd_simple``: K5 and its first form
-  (``shade_bwd_simple``) on the same saved bounce (``shade_bwd_inputs``);
-* ``shade_step_simple`` / ``shade_bwd_simple``: K4's and K5's first forms
-  (``csrc/shade_simple.cu``, ``csrc/shade_bwd_simple.cu``), which read the
-  scene's arrays without records: the other side of the same-card
-  comparisons. They count no launch, and no path of the package calls
-  them;
+  relative L2 error; ``compare_shade_bwd``: K5 and its plain version
+  (``shade.shade_step_bwd_plain``) on the same saved bounce
+  (``shade_bwd_inputs``);
 * ``compare_camera_grads``: K6 and torch autograd of ``camera_rays_plain``;
   ``compare_camera_stochastic_grads``: K9 and torch autograd of the plain
   stochastic chain; ``compare_light_points_grads``: K10 and torch autograd
   of the plain light sampling; ``compare_light_points_bwd``: K10 on one
-  cotangent against the explicit f64 reverse (per output the ULP gap),
-  its first form (``light_points_bwd_simple``) and a second run of
-  itself;
-* ``light_points_simple`` / ``light_points_bwd_simple``: K8's and K10's
-  first forms (``csrc/lights_simple.cu``), the other side of their
-  same-card comparisons; they count no launch, and no path of the package
-  calls them;
+  cotangent against the explicit f64 reverse (per output the ULP gap) and
+  a second run of itself;
 * ``shade_graph`` / ``camera_graph`` / ``light_points_graph``: the
   autograd graphs those compare (and ``chip_smoke.py`` times);
 * ``overlap_gaps``: K11 and the plain overlap query on the same queries,
   per output; ``overlap_identical``: two overlap results bit for bit;
-* ``overlap_simple``: K11's first form (``csrc/overlap_simple.cu``), the
-  other side of its same-card comparisons; it counts no launch, and no
-  path of the package calls it;
-* ``camera_bwd_simple`` / ``camera_stochastic_bwd_simple``: K6's and K9's
-  first forms (``csrc/camera_bwd_simple.cu``), the other side of their
-  same-card comparisons; they count no launch, and no path of the package
-  calls them; ``compare_camera_sums``: K6 or K9 against
-  ``camera.ordered_camera_sums`` of the plain per-ray terms (bit for bit)
-  and, beside the first form, against the f64 sum of those terms;
+* ``compare_camera_sums``: K6 or K9 against ``camera.ordered_camera_sums``
+  of the plain per-ray terms (bit for bit) and against the f64 sum of
+  those terms;
 * ``compare_loss_grads`` (from ``loss_grads``, ``recorder``,
   ``replayer`` and ``as_dtype``): the gradient of the MSE render loss of
   ``mesh.render_loss`` (with the stochastic modes, if asked) on the kernel
@@ -57,15 +42,12 @@ that reads the counts of a main path resets them after these comparisons.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 
 import numpy as np
 import torch
 
-from . import _build
-from ..ops import overlap as overlap_mod
 from ..ops import shade_records
 from ..ops import traverse
 from ..render import camera as camera_mod
@@ -134,29 +116,10 @@ def _gaps(names, kern, plain) -> dict:
     return out
 
 
-def shade_step_simple(scene, ro, rd, hits, amb, active, occluder,
-                      has_kd_textures=True, has_ks_textures=True,
-                      light_pos=None):
-    """K4's first form on the scene's arrays, forward only: the outputs
-    of ``shade_step`` (color, kr, p, refl_dir, mask)."""
-    mask = active & hits["hit"]
-    inst, prim = hits["inst"], hits["prim"]
-    shade_mod.check_rays(ro, rd, inst, prim, mask)
-    leaves = {k: getattr(scene, k) for k in shade_mod.GRAD_LEAVES}
-    args = shade_mod._shade_args(scene, leaves, amb, has_kd_textures,
-                                 has_ks_textures, light_pos, ro.shape[0])
-    lib = _build.library()
-    _, outs = shade_mod.forward_launches(
-        lib.yrt_shade_prep_simple, lib.yrt_shade_finish_simple, args, ro, rd,
-        inst, prim, mask, occluder)
-    return (*outs, mask)
-
-
 def compare_shade(scene, inputs, amb, has_kd_textures=True,
                   has_ks_textures=True, light_pos=None) -> dict:
-    """K4, its first form and plain shading on the same inputs (and the
-    same per-ray light positions, if given): {output: ULP gap} of K4 against
-    plain, plus 'simple' ({output: ULP gap} of K4 against the first form),
+    """K4 and plain shading on the same inputs (and the same per-ray light
+    positions, if given): {output: ULP gap} of K4 against plain, plus
     'mask_equal', 'max_abs_err' (over the four float outputs) and
     'hits'."""
     ro, rd, hits, active = inputs
@@ -166,12 +129,8 @@ def compare_shade(scene, inputs, amb, has_kd_textures=True,
     with torch.no_grad():
         kern = shade_mod.shade_step_cuda(*args)
         plain = shade_mod.shade_step_plain(*args)
-        simple = shade_step_simple(*args)
     out = _gaps(SHADE_OUTPUTS, kern[:4], plain[:4])
-    out["simple"] = {k: ulp_gap(a, b)
-                     for k, a, b in zip(SHADE_OUTPUTS, kern, simple)}
-    out["mask_equal"] = bool(torch.equal(kern[4], plain[4])
-                             and torch.equal(kern[4], simple[4]))
+    out["mask_equal"] = bool(torch.equal(kern[4], plain[4]))
     out["hits"] = int(kern[4].sum())
     return out
 
@@ -188,39 +147,15 @@ def compare_camera_stochastic(scene, ids, width, height, samples,
     return _gaps(("uv", "ro", "rd"), kern, plain)
 
 
-def light_points_simple(scene, sampler, ids, seed):
-    """K8's first form: the (L, N, 3) light points."""
-    out = torch.empty((sampler["cdf"].shape[0], ids.shape[0], 3),
-                      dtype=torch.float32, device=ids.device)
-    lights_mod._launch("yrt_light_points_simple", scene, sampler, ids, seed,
-                       scene.pos, scene.light_pos, out)
-    return out
-
-
-def light_points_bwd_simple(scene, sampler, ids, seed, g, num_verts):
-    """K10's first form: (d_pos, d_light_pos) from the (L, N, 3) cotangent
-    ``g``, its f64 atomic sums rounded to f32 once."""
-    d_pos = torch.zeros((num_verts, 3), dtype=torch.float64,
-                        device=ids.device)
-    d_light_pos = torch.zeros((sampler["cdf"].shape[0], 3),
-                              dtype=torch.float64, device=ids.device)
-    lights_mod._launch("yrt_light_points_bwd_simple", scene, sampler, ids,
-                       seed, g, d_pos, d_light_pos)
-    return d_pos.to(torch.float32), d_light_pos.to(torch.float32)
-
-
 def compare_light_points(scene, sampler, ids, seed) -> dict:
-    """K8, its first form and the plain light sampling on the same ids:
-    {'points': ULP gap to plain}, 'max_abs_err', 'equal' (bit for bit to
-    plain) and 'simple_equal' (bit for bit to the first form)."""
+    """K8 and the plain light sampling on the same ids: {'points': ULP gap
+    to plain}, 'max_abs_err' and 'equal' (bit for bit to plain)."""
     with torch.no_grad():
         kern = lights_mod.sample_light_points_cuda(scene, sampler, ids, seed)
         plain = lights_mod.sample_light_points_plain(scene, sampler, ids,
                                                      seed)
-        simple = light_points_simple(scene, sampler, ids, seed)
     out = _gaps(("points",), (kern,), (plain,))
     out["equal"] = bool(torch.equal(kern, plain))
-    out["simple_equal"] = bool(torch.equal(kern, simple))
     return out
 
 
@@ -235,16 +170,14 @@ def compare_light_points_bwd(scene, sampler, ids, seed, g) -> dict:
     d_light_pos): against ``light_points_bwd_plain`` (both f64 sums
     rounded once), 'ulp' the largest ULP gap over the entries above
     LIGHT_BWD_FLOOR times the largest and 'small_abs' the largest
-    difference on the others; against its first form, 'simple' (relative
-    errors, as ``relative_errors``); 'repeat' (a second run of K10 bit for
-    bit equal)."""
+    difference on the others; 'repeat' (a second run of K10 bit for bit
+    equal)."""
     nv = scene.pos.shape[0]
     args = (scene, sampler, ids, seed, g, nv)
     with torch.no_grad():
         kern = lights_mod.light_points_bwd(*args)
         again = lights_mod.light_points_bwd(*args)
         plain = lights_mod.light_points_bwd_plain(*args)
-        simple = light_points_bwd_simple(*args)
     out = {}
     for k, (a, p) in enumerate(zip(kern, plain)):
         floor = LIGHT_BWD_FLOOR * float(p.abs().max()) if p.numel() else 0.0
@@ -254,9 +187,6 @@ def compare_light_points_bwd(scene, sampler, ids, seed, g) -> dict:
             ulp=ulp_gap(a[big], p[big]),
             small_abs=float(diff[~big].max()) if (~big).any() else 0.0,
             floor=floor, max_abs=float(diff.max()) if diff.numel() else 0.0)
-    names = ("pos", "light_pos")
-    out["simple"] = relative_errors(dict(zip(names, kern)),
-                                    dict(zip(names, simple)))
     out["repeat"] = all(bool(torch.equal(a, b)) for a, b in zip(kern, again))
     return out
 
@@ -398,8 +328,7 @@ def shade_bwd_inputs(scene, inputs, amb, has_kd_textures=True,
     """What K4's forward saves for K5 on ``inputs``: the keyword arguments
     of ``shade_step_bwd`` but the cotangents (the rays, hit topology, mask,
     the (L, N) occlusion of its K1 shadow query, the per-ray light
-    positions, the shade records); ``shade_bwd_simple`` takes them without
-    the records."""
+    positions, the shade records)."""
     ro, rd, hits, active = inputs
     saved = {}
     occ_fn = occluder(scene)
@@ -421,26 +350,6 @@ def shade_bwd_inputs(scene, inputs, amb, has_kd_textures=True,
                 records=shade_records.pack(scene))
 
 
-def shade_bwd_simple(scene, amb, ro, rd, inst, prim, mask, occ, cotangents,
-                     has_kd_textures=True, has_ks_textures=True,
-                     light_pos_ray=None):
-    """K5's first form on the scene's arrays: ``shade_step_bwd``'s result
-    for the scene's own leaves."""
-    n, dev = ro.shape[0], ro.device
-    leaves = {k: getattr(scene, k) for k in shade_mod.GRAD_LEAVES}
-    args = shade_mod._shade_args(scene, leaves, amb, has_kd_textures,
-                                 has_ks_textures, light_pos_ray, n)
-    cots, sums, d_lpr, gstruct, d_ro, d_rd = shade_mod.bwd_buffers(
-        args, leaves, cotangents, n, dev, light_pos_ray is not None)
-    ptr = _build.ptr
-    err = _build.library().yrt_shade_bwd_simple(
-        ctypes.byref(args), ctypes.byref(gstruct), ptr(ro), ptr(rd),
-        ptr(inst), ptr(prim), ptr(mask), ptr(occ), n, *(ptr(g) for g in cots),
-        ptr(d_ro), ptr(d_rd), _build.current_stream())
-    _build.check_launch(err, "yrt_shade_bwd_simple")
-    return d_ro, d_rd, shade_mod.bwd_results(sums, leaves, d_lpr)
-
-
 def shade_bwd_cotangents(saved: dict, generator) -> list:
     """Seeded cotangents of (color, kr, p, refl_dir), zero on masked
     lanes."""
@@ -449,31 +358,37 @@ def shade_bwd_cotangents(saved: dict, generator) -> list:
             * mask[:, None] for _ in SHADE_OUTPUTS]
 
 
-def bwd_grads(fn, scene, saved: dict, cots) -> dict:
-    """{name: gradient} of one K5 launch (``shade_mod.shade_step_bwd`` or
-    ``shade_bwd_simple``): ro, rd, the leaves and, with per-ray light
-    positions, ``light_pos_ray``."""
-    if fn is shade_mod.shade_step_bwd:
-        leaves = {k: getattr(scene, k) for k in shade_mod.GRAD_LEAVES}
-        d_ro, d_rd, grads = fn(
-            scene, leaves, saved["amb"], saved["ro"], saved["rd"],
-            saved["inst"], saved["prim"], saved["mask"], saved["occ"], cots,
-            saved["has_kd_textures"], saved["has_ks_textures"],
-            light_pos_ray=saved["light_pos_ray"], records=saved["records"])
-    else:
-        d_ro, d_rd, grads = fn(scene, cotangents=cots, **{
-            k: v for k, v in saved.items() if k != "records"})
+def bwd_grads(scene, saved: dict, cots) -> dict:
+    """{name: gradient} of one K5 launch (``shade_mod.shade_step_bwd``) on
+    a saved bounce: ro, rd, the leaves and, with per-ray light positions,
+    ``light_pos_ray``."""
+    leaves = {k: getattr(scene, k) for k in shade_mod.GRAD_LEAVES}
+    d_ro, d_rd, grads = shade_mod.shade_step_bwd(
+        scene, leaves, saved["amb"], saved["ro"], saved["rd"],
+        saved["inst"], saved["prim"], saved["mask"], saved["occ"], cots,
+        saved["has_kd_textures"], saved["has_ks_textures"],
+        light_pos_ray=saved["light_pos_ray"], records=saved["records"])
     return dict(ro=d_ro, rd=d_rd, **grads)
 
 
-def compare_shade_bwd_simple(scene, saved: dict, generator) -> dict:
-    """K5 against its first form on the same saved bounce and seeded
-    cotangents: a ``relative_errors`` report per leaf, ro, rd (and
-    ``light_pos_ray``)."""
+def compare_shade_bwd(scene, saved: dict, generator) -> dict:
+    """K5 against its plain version (``shade.shade_step_bwd_plain``, which
+    recomputes the saved bounce's shading and runs torch autograd) on the
+    same saved bounce, with fixed lights, and seeded cotangents: a
+    ``relative_errors`` report per leaf, ro and rd."""
+    if saved["light_pos_ray"] is not None:
+        raise ValueError("the plain reverse of a saved bounce takes fixed "
+                         "lights: compare_shade_grads takes per-ray ones")
     cots = shade_bwd_cotangents(saved, generator)
-    return relative_errors(bwd_grads(shade_mod.shade_step_bwd, scene, saved,
-                                     cots),
-                           bwd_grads(shade_bwd_simple, scene, saved, cots))
+    mask = saved["mask"]
+    d_ro, d_rd, grads = shade_mod.shade_step_bwd_plain(
+        scene, saved["amb"], saved["ro"], saved["rd"], saved["inst"],
+        saved["prim"], mask, saved["occ"], cots, saved["has_kd_textures"],
+        saved["has_ks_textures"])
+    # masked lanes: K5 returns exact zeros, as in compare_shade_grads
+    plain = dict(ro=torch.where(mask[:, None], d_ro, 0.0),
+                 rd=torch.where(mask[:, None], d_rd, 0.0), **grads)
+    return relative_errors(bwd_grads(scene, saved, cots), plain)
 
 
 def compare_camera_grads(scene, ids, width, height, samples,
@@ -540,81 +455,19 @@ def overlap_identical(a: dict, b: dict) -> bool:
                     for k in ("dist", "euv")))
 
 
-def overlap_simple(scene, meta, queries, dist_max) -> dict:
-    """K11's first form (``csrc/overlap_simple.cu``: every prim of every
-    instance), the same contract as ``overlap_scene``; CUDA only. It counts
-    no launch, and no path of the package calls it."""
-    dev = queries.device
-    n = queries.shape[0]
-    f32 = torch.float32
-    dist_max = torch.broadcast_to(
-        torch.as_tensor(dist_max, dtype=f32, device=dev), (n,)).contiguous()
-    lo, hi = overlap_mod.instance_prim_ranges(scene, meta)
-    _build.check_tensor("pos (queries)", queries, f32, (n, 3), dev)
-    out = overlap_mod.empty_result(n, dev)
-    ptr = _build.ptr
-    err = _build.library().yrt_overlap_simple(
-        ptr(queries), ptr(dist_max), n, ptr(scene.inst_axes),
-        ptr(scene.inst_o), ptr(lo), ptr(hi), lo.shape[0], ptr(scene.prim_v),
-        ptr(scene.prim_type), ptr(scene.pos), ptr(scene.radius),
-        *(ptr(out[k]) for k in ("found", "dist", "inst", "prim", "euv")),
-        _build.current_stream())
-    _build.check_launch(err, "yrt_overlap_simple")
-    return out
-
-
-def _simple_scratch(n, dev):
-    return torch.empty(_build.library().yrt_camera_bwd_simple_scratch(n),
-                       dtype=torch.float32, device=dev)
-
-
-def camera_bwd_simple(uv, g_ro, g_rd, cam_axes, cam_o, h, w, focus):
-    """K6's first form: (15,) sums, the contract of
-    ``camera.camera_rays_bwd``; CUDA only."""
-    n, dev = uv.shape[0], uv.device
-    out = torch.empty(15, dtype=torch.float32, device=dev)
-    ptr = _build.ptr
-    err = _build.library().yrt_camera_bwd_simple(
-        ptr(uv), ptr(g_ro), ptr(g_rd), n, ptr(cam_axes), ptr(cam_o), ptr(h),
-        ptr(w), ptr(focus), ptr(_simple_scratch(n, dev)), ptr(out),
-        _build.current_stream())
-    _build.check_launch(err, "yrt_camera_bwd_simple")
-    return out
-
-
-def camera_stochastic_bwd_simple(ids, cam_axes, cam_o, h, w, focus,
-                                 aperture, width, height, samples, seed,
-                                 g_ro, g_rd):
-    """K9's first form: (16,) sums, the contract of
-    ``camera.camera_rays_stochastic_bwd``; CUDA only."""
-    n, dev = ids.shape[0], ids.device
-    out = torch.empty(16, dtype=torch.float32, device=dev)
-    ptr = _build.ptr
-    err = _build.library().yrt_camera_stochastic_bwd_simple(
-        ptr(ids), n, width, height, samples, seed & camera_mod.U32,
-        ptr(g_ro), ptr(g_rd), ptr(cam_axes), ptr(cam_o), ptr(h), ptr(w),
-        ptr(focus), ptr(aperture), ptr(_simple_scratch(n, dev)), ptr(out),
-        _build.current_stream())
-    _build.check_launch(err, "yrt_camera_stochastic_bwd_simple")
-    return out
-
-
-def compare_camera_sums(kern, simple, terms) -> dict:
-    """K6's or K9's sums ``kern`` and its first form's ``simple`` for the
-    per-ray terms ``terms`` (N, 16) of the plain version on the same
-    inputs: 'equal' (``kern`` bit for bit ``ordered_camera_sums(terms)``),
-    and each one's relative L2 error against the f64 sum of the terms
-    ('rel', 'simple_rel') and largest gap ('max_abs', 'simple_max_abs')."""
+def compare_camera_sums(kern, terms) -> dict:
+    """K6's or K9's sums ``kern`` for the per-ray terms ``terms`` (N, 16)
+    of the plain version on the same inputs: 'equal' (``kern`` bit for bit
+    ``ordered_camera_sums(terms)``), and its relative L2 error against the
+    f64 sum of the terms ('rel') and largest gap ('max_abs')."""
     k = kern.shape[0]
     ordered = camera_mod.ordered_camera_sums(terms)[:k]
     ref = terms.double().sum(0)[:k]
-    norm = float(torch.linalg.vector_norm(ref))
-    out = dict(equal=bool(torch.equal(kern, ordered)))
-    for name, x in (("", kern), ("simple_", simple)):
-        gap = x.double() - ref
-        out[name + "rel"] = float(torch.linalg.vector_norm(gap)) / norm
-        out[name + "max_abs"] = float(gap.abs().max())
-    return out
+    gap = kern.double() - ref
+    return dict(equal=bool(torch.equal(kern, ordered)),
+                rel=float(torch.linalg.vector_norm(gap))
+                / float(torch.linalg.vector_norm(ref)),
+                max_abs=float(gap.abs().max()))
 
 
 def recorder(isect_fn, log: list):

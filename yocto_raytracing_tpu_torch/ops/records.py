@@ -10,9 +10,7 @@ one table a block, as ``block_plan`` lays out), on the CPU through the two
 packers (the plain version); ``prepare`` checks the arguments and lays out
 the blocks once for tensors that stay put, so that each later fill is the
 launch alone. Either way the records are bit copies of the leaves, equal
-to the packers' records. ``prepare_first_form`` launches K13's first form
-(``kernels/csrc/records_simple.cu``), for the same-card comparisons of
-``chip_smoke.py`` and the card tests only.
+to the packers' records.
 """
 
 from __future__ import annotations
@@ -145,7 +143,7 @@ def prepare(scene: TorchScene, hrec: HitRecords, srec: ShadeRecords):
 
 
 def _arguments(scene: TorchScene, hrec: HitRecords, srec: ShadeRecords):
-    """K13's checked arguments (either form): the sizes, the leaves and
+    """K13's checked arguments: the sizes, the leaves and
     the tables, and their pointer arrays. Raises on a leaf or table of the
     wrong device, dtype or shape, and on a table that is not contiguous or
     not 16-byte aligned (K13 stores a quad at a time)."""
@@ -200,23 +198,3 @@ def prepare_cuda(scene: TorchScene, hrec: HitRecords, srec: ShadeRecords,
     launch.blocks = start[-1]
     return launch
 
-
-def prepare_first_form(scene: TorchScene, hrec: HitRecords,
-                       srec: ShadeRecords):
-    """``prepare`` through K13's first form (``records_simple.cu``: a
-    thread a row, the tables' rows one after another), CUDA only, for the
-    same-card comparisons of ``chip_smoke.py`` and the card tests; no
-    path of the package calls it, and its launches add to no count."""
-    if _build.device_kind(scene.pos) != "cuda":
-        raise ValueError("K13's first form runs on CUDA tensors only")
-    n, leaves, outs, leaf_ptrs, out_ptrs = _arguments(scene, hrec, srec)
-    lib = _build.library()
-
-    def launch():
-        err = lib.yrt_records_simple(leaf_ptrs, out_ptrs, n["M"], n["K"],
-                                     n["I"], n["P"], n["T"],
-                                     _build.current_stream())
-        _build.check_launch(err, "yrt_records_simple")
-
-    launch.tensors = (leaves, outs)
-    return launch

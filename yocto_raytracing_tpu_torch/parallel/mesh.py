@@ -22,8 +22,8 @@ run the depth loop and its reverse as a device loop
 (``renderer.loss_grads_device``: on CUDA one CUDA graph kept across calls,
 the all_reduce outside it); ``render_loss`` keeps the eager loop under
 autograd (``trace_rays(..., differentiable=True)``), and
-``_train_step_autograd`` is the step's first form on it. The port always
-saves the hits and recomputes shading in the backward, which is the JAX
+``_train_step_autograd`` is the step on it, with torch autograd. The port
+always saves the hits and recomputes shading in the backward, which is the JAX
 package's ``remat=True``; the TPU-only keywords (``stream``, ``max_stack``,
 ``block_unroll``, ``remat``, ``axis_name``) have no counterpart.
 
@@ -272,7 +272,7 @@ def _loss_and_grads(scene, ray_ids, target_rgb, ambient, kw, trainable,
 
 def _loss_and_grads_autograd(diff, static, ray_ids, target_rgb, ambient,
                              kw):
-    """The first form of ``_loss_and_grads``: ``render_loss`` (the eager
+    """``_loss_and_grads`` through autograd: ``render_loss`` (the eager
     loop, a host sync a bounce) and torch autograd; the same contract."""
     leaves = [None if d is None else d.detach().requires_grad_(True)
               for d in diff]
@@ -307,8 +307,8 @@ def train_step(scene: TorchScene, ray_ids, target_rgb, ambient, lr, *,
     on CUDA one CUDA graph kept across calls of a configuration, the depth
     loop and its reverse on the card with dead bounces skipped both ways;
     on the CPU the same structure through the plain versions. ``plain``
-    runs the first form (``_train_step_autograd``) through the plain
-    versions of every kernel.
+    runs ``_train_step_autograd`` through the plain versions of every
+    kernel.
 
     Spans (``utils/tracer.py``): ``train_step`` around
     ``partition_scene``, ``loss_grads_device`` (its stages as the frame's)
@@ -339,11 +339,12 @@ def _train_step_autograd(scene: TorchScene, ray_ids, target_rgb, ambient, lr,
                          *, width: int, height: int, samples: int,
                          max_depth: int, trainable=None,
                          plain: bool = False):
-    """``train_step``'s first form, kept to hold the device loop against
-    (only ``chip_smoke.py``, the tests and ablations call it): the eager
-    loop (``render_loss``: ``trace_rays(differentiable=True)``, a host sync
-    a bounce), torch autograd through K5 and K6 (their plain versions on
-    the CPU, or with ``plain``), and the update on the host."""
+    """``train_step`` through autograd, ``train_step(plain=True)`` and
+    the oracle that ``chip_smoke.py`` and the tests hold the device loop
+    against: the eager loop (``render_loss``:
+    ``trace_rays(differentiable=True)``, a host sync a bounce), torch
+    autograd through K5 and K6 (their plain versions on the CPU, or with
+    ``plain``), and the update on the host."""
     diff, static = partition_scene(scene, trainable)
     loss, grads = _loss_and_grads_autograd(
         diff, static, ray_ids, target_rgb, ambient,

@@ -55,7 +55,6 @@ import ctypes
 import functools
 import math
 import os
-import time
 
 import numpy as np
 import torch
@@ -681,8 +680,8 @@ def frame_device(scene, meta, width: int, height: int, samples: int,
     Each chunk copies its alive words into a row of a (chunks, max_depth +
     1) record, which the frame leaves with ``kernels._build.note_frame``
     (``kernels.last_frame``), with the host's milliseconds in the set-up
-    (the key, the entry on a miss, the staging), chunk 0 (0: no chunk runs
-    eagerly), the chunk graph's capture (0 on a hit) and the replays
+    (the key, the entry on a miss, the staging), the chunk graph's capture
+    (0 on a hit) and the replays
     (enqueue time: nothing here waits for the card), and whether the call
     hit the cache; on CUDA, inside ``tracer.recording()``, the frame's
     dead bounces join the device tally that ``kernels.skipped_launches``
@@ -722,7 +721,7 @@ def frame_device(scene, meta, width: int, height: int, samples: int,
                 state.stage(scene, light_sampler, ambient, seed)
                 if state.cuda and not hit:
                     st.next("capture")
-                    state.capture(if_nodes=True)
+                    state.capture()
                 st.next("replay")
                 if state.cuda:
                     state.replay(state.n_chunks)
@@ -735,8 +734,8 @@ def frame_device(scene, meta, width: int, height: int, samples: int,
             raise
         _frames[key] = state
         _build.note_frame(state.ran, state.nl > 0, dict(
-            setup=st.ms("key", "entry", "stage"), chunk0=0.0,
-            capture=st.ms("capture"), replay=st.ms("replay")), hit)
+            setup=st.ms("key", "entry", "stage"), capture=st.ms("capture"),
+            replay=st.ms("replay")), hit)
         return state.out
     finally:
         tracer.end(sp)
@@ -766,66 +765,25 @@ def frame_key(scene, meta, width: int, height: int, samples: int,
             bool(meta.has_ks_textures), leaves, tables)
 
 
-def _frame_device_first(scene, meta, width: int, height: int, samples: int,
-                        ambient: float = 0.1, max_depth: int = 8,
-                        chunk_pixels: int = 1 << 15, ldr: bool = False,
-                        stochastic: bool = False, seed: int = 0,
-                        light_sampler=None) -> torch.Tensor:
-    """The device loop's first form, kept to time ``frame_device`` against
-    in turns (only ``chip_smoke.py`` and the tests call it): everything is
-    made for this call and thrown away after it; the frame reads the
-    caller's leaves and tables, and K1's and K4's records packed from them
-    eagerly; chunk 0 runs eagerly (it loads every kernel); on CUDA the next
-    chunk is captured into a CUDA graph with every bounce launched, the
-    launches of a dead bounce reading its alive word and returning at once,
-    and the graph is replayed for every chunk after the first. The same
-    bits and record as ``frame_device`` (never a cache hit)."""
-    t0 = time.perf_counter()
-    state = _FrameState(scene, meta, width, height, samples, max_depth,
-                        chunk_pixels, ldr, stochastic, light_sampler,
-                        own_inputs=False)
-    with torch.no_grad():
-        state.stage(scene, light_sampler, ambient, seed)
-        marks = [t0, time.perf_counter()]
-        state.run_chunk()
-        marks.append(time.perf_counter())
-        if state.cuda and state.n_chunks > 1:
-            state.capture(if_nodes=False)
-            marks.append(time.perf_counter())
-            state.replay(state.n_chunks - 1)
-        else:
-            marks.append(marks[-1])   # no capture
-            for _ in range(state.n_chunks - 1):
-                state.run_chunk()
-    marks.append(time.perf_counter())
-    _build.note_frame(state.ran, state.nl > 0, dict(zip(
-        ("setup", "chunk0", "capture", "replay"), np.diff(marks) * 1e3)),
-        dead_launched=True)
-    return state.out
-
-
 class _FrameState:
     """One device-loop configuration's inputs, buffers and graph.
 
-    With ``own_inputs`` (``frame_device``) the frame reads copies of the
-    caller's scene leaves and sampler tables, and on CUDA the records and
-    camera frame packed from them, all of which ``stage`` brings up to date
-    in place on every call; without (the first form) it reads the caller's
-    own leaves and tables and records that ``stage`` packs anew. Every
-    buffer of ``frame_device`` is made here, once: the graph bakes its
-    pointers in. One of them is the seed word, a (1,) i32 tensor holding
-    the seed's 32 bits, which ``stage`` writes in a sampled mode and K7
-    and K8 read when they run (the CPU's plain versions read it on the
-    host), so the graph serves every seed; ``last_seed`` is the seed of
-    the last call staged, on the host. ``k1_ident`` is the share of the
+    The frame reads copies of the caller's scene leaves and sampler tables,
+    and on CUDA the records and camera frame packed from them, all of which
+    ``stage`` brings up to date in place on every call. Every buffer of
+    ``frame_device`` is made here, once: the graph bakes its pointers in.
+    One of them is the seed word, a (1,) i32 tensor holding the seed's 32
+    bits, which ``stage`` writes in a sampled mode and K7 and K8 read when
+    they run (the CPU's plain versions read it on the host), so the graph
+    serves every seed; ``last_seed`` is the seed of the last call staged,
+    on the host. ``k1_ident`` is the share of the
     scene's instances that K1 enters on the world ray
     (``hit_records.identity_share``), read from the leaves the state was
     built from.
     """
 
     def __init__(self, scene, meta, width, height, samples, max_depth,
-                 chunk_pixels, ldr, stochastic, light_sampler,
-                 own_inputs=True):
+                 chunk_pixels, ldr, stochastic, light_sampler):
         self.dev = dev = scene.device
         self.cuda = dev.type == "cuda"
         i32, f32 = torch.int32, torch.float32
@@ -841,16 +799,12 @@ class _FrameState:
         self.kd_tex, self.ks_tex = meta.has_kd_textures, meta.has_ks_textures
         self.nl = nl = scene.light_ke.shape[0]
         self.k1_ident = hit_records.identity_share(scene)
-        self.own_inputs = own_inputs
-        if own_inputs:
-            self.scene = scene_lib.TorchScene(*(
-                torch.empty_like(getattr(scene, k))
-                for k in scene_lib.LEAF_NAMES))
-            self.sampler = (None if light_sampler is None else
-                            {k: torch.empty_like(v)
-                             for k, v in light_sampler.items()})
-        else:
-            self.scene, self.sampler = scene_lib.detached(scene), light_sampler
+        self.scene = scene_lib.TorchScene(*(
+            torch.empty_like(getattr(scene, k))
+            for k in scene_lib.LEAF_NAMES))
+        self.sampler = (None if light_sampler is None else
+                        {k: torch.empty_like(v)
+                         for k, v in light_sampler.items()})
         self.fixed = scene_lib.detached(self.scene)
         self.amb = torch.empty((3,), dtype=f32, device=dev)
         self.seed_word = torch.zeros((1,), dtype=i32, device=dev)
@@ -890,12 +844,11 @@ class _FrameState:
                         t=torch.empty(m, dtype=f32, device=dev))
 
         self.hits_near, self.hits_any = hit_buffers(n), hit_buffers(nl * n)
-        if own_inputs:
-            self.hrec, self.srec = records_mod.empty(self.fixed)
-            self.pack_records = records_mod.prepare(self.fixed, self.hrec,
-                                                    self.srec)
-            self.cam = (torch.empty((), dtype=f32, device=dev),
-                        torch.empty((), dtype=f32, device=dev))
+        self.hrec, self.srec = records_mod.empty(self.fixed)
+        self.pack_records = records_mod.prepare(self.fixed, self.hrec,
+                                                self.srec)
+        self.cam = (torch.empty((), dtype=f32, device=dev),
+                    torch.empty((), dtype=f32, device=dev))
 
     def stage(self, scene, light_sampler, ambient, seed) -> None:
         """Bring the frame's inputs up to date before its chunks: the
@@ -905,21 +858,18 @@ class _FrameState:
         chunk index and the record's row set to 0, and on CUDA the records
         and camera frame packed from the copies: in place, K1's and K4's
         records by one launch of K13 and the frame by
-        ``camera.camera_frame``'s ops with ``out=``; the first form packs
-        new ones with the packers' torch ops. Nothing here waits for the
-        card or allocates (but in the first form)."""
-        if self.own_inputs:
-            pairs = [(getattr(self.scene, k), getattr(scene, k))
-                     for k in scene_lib.LEAF_NAMES]
-            if light_sampler is not None:
-                pairs += [(t, light_sampler[k])
-                          for k, t in self.sampler.items()]
-            by_dtype = {}
-            for dst, src in pairs:
-                by_dtype.setdefault(dst.dtype, []).append((dst, src.detach()))
-            for group in by_dtype.values():
-                torch._foreach_copy_([d for d, _ in group],
-                                     [s for _, s in group])
+        ``camera.camera_frame``'s ops with ``out=``. Nothing here waits for
+        the card or allocates."""
+        pairs = [(getattr(self.scene, k), getattr(scene, k))
+                 for k in scene_lib.LEAF_NAMES]
+        if light_sampler is not None:
+            pairs += [(t, light_sampler[k]) for k, t in self.sampler.items()]
+        by_dtype = {}
+        for dst, src in pairs:
+            by_dtype.setdefault(dst.dtype, []).append((dst, src.detach()))
+        for group in by_dtype.values():
+            torch._foreach_copy_([d for d, _ in group],
+                                 [s for _, s in group])
         self.amb.fill_(ambient)
         if self.stochastic or self.sampler is not None:
             self.seed_word.fill_(camera_mod.seed_word_value(seed))
@@ -927,11 +877,6 @@ class _FrameState:
         self.chunk.zero_()
         self.row.zero_()
         if not self.cuda:
-            return
-        if not self.own_inputs:
-            self.hrec = hit_records.pack(self.fixed)
-            self.srec = shade_records_lib.pack(self.scene)
-            self.cam = camera_mod.camera_frame(self.scene)
             return
         self.pack_records()
         # camera_frame's h = 2 * focus * tan(fovy / 2), w = h * aspect, op
@@ -941,17 +886,18 @@ class _FrameState:
         torch.mul(sc.cam_focus, 2.0, out=h).mul_(w)
         torch.mul(h, sc.cam_aspect, out=w)
 
-    def capture(self, if_nodes: bool) -> None:
+    def capture(self) -> None:
         """Capture one chunk into the chunk graph, its bounces after the
-        first in IF nodes that K12 sets (``if_nodes``; else every bounce
-        launched). The capture runs on a stream of its own and only
-        records. The launch counts it made are kept in ``captured`` and
+        first in IF nodes that K12 sets. The capture runs on a stream of
+        its own and only records. The launch counts it made are kept in
+        ``captured`` and
         taken back out of ``_build.launches``: every replay adds them, those
         inside an IF node too, whether or not the node runs its body
         (``_build.skipped_launches`` tallies those of the bounces it did
         not run)."""
         before = dict(_build.launches)
-        self.graph = _capture(self.dev, lambda: self.run_chunk(if_nodes))
+        self.graph = _capture(self.dev,
+                              lambda: self.run_chunk(if_nodes=True))
         self.captured = {k: v - before[k] for k, v in _build.launches.items()}
         _build.launches.update(before)
 

@@ -247,17 +247,16 @@ _INT_LEAVES = ("prim_v", "prim_type", "inst_mat", "inst_is_lines",
 
 
 def _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
-                light_pos_ray=None, n=0, records=None, alive=None):
+                light_pos_ray, n, records, alive=None):
     """The ``ShadeScene`` struct of a launch, after checking every array.
 
     ``leaves`` maps the GRAD_LEAVES names to the tensors to shade with (the
     autograd inputs); the integer leaves come from ``scene``.
     ``light_pos_ray`` is the optional per-ray (L, n, 3) light position.
     ``records`` (``shade_records.pack`` of those leaves) is what K4 and K5
-    read; without it the struct serves the first forms only. ``alive``, a
-    (1,) i32 device word, is the device loop's alive word of the bounce:
-    K4's launches write nothing where it reads 0 (the first forms ignore
-    it).
+    read: every launch needs them. ``alive``, a (1,) i32 device word, is
+    the device loop's alive word of the bounce: K4's launches write nothing
+    where it reads 0.
     """
     dev = amb.device
     f32, i32 = torch.float32, torch.int32
@@ -281,25 +280,22 @@ def _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
     if light_pos_ray is not None:
         check("light_pos (per ray)", light_pos_ray, f32,
               (leaves["light_ke"].shape[0], n, 3), dev)
-    rec_ptrs = {}
-    if records is not None:
-        for name, t, rows, words in (
-                ("prim records", records.prims, arrays["prim_v"].shape[0],
-                 shade_records.PRIM_WORDS),
-                ("instance records", records.insts,
-                 arrays["inst_axes"].shape[0], shade_records.INST_WORDS),
-                ("material records", records.mats,
-                 arrays["mat_kd"].shape[0], shade_records.MAT_WORDS)):
-            check(name, t, f32, (rows, words), dev)
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name}: not 16-byte aligned")
-        rec_ptrs = dict(prim_rec=records.prims.data_ptr(),
-                        inst_rec=records.insts.data_ptr(),
-                        mat_rec=records.mats.data_ptr())
+    for name, t, rows, words in (
+            ("prim records", records.prims, arrays["prim_v"].shape[0],
+             shade_records.PRIM_WORDS),
+            ("instance records", records.insts,
+             arrays["inst_axes"].shape[0], shade_records.INST_WORDS),
+            ("material records", records.mats,
+             arrays["mat_kd"].shape[0], shade_records.MAT_WORDS)):
+        check(name, t, f32, (rows, words), dev)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
     args = _build.ShadeScene(
         **{k: t.data_ptr() for k, t in arrays.items()}, amb=amb.data_ptr(),
         light_pos_ray=(None if light_pos_ray is None
-                       else light_pos_ray.data_ptr()), **rec_ptrs,
+                       else light_pos_ray.data_ptr()),
+        prim_rec=records.prims.data_ptr(), inst_rec=records.insts.data_ptr(),
+        mat_rec=records.mats.data_ptr(),
         alive=None if alive is None else alive.data_ptr(),
         tex_th=scene.tex_quad.shape[1], tex_tw=scene.tex_quad.shape[2],
         num_lights=leaves["light_ke"].shape[0],
@@ -324,14 +320,13 @@ def forward_buffers(nl: int, n: int, dev) -> dict:
         outs=[torch.empty((n, 3), dtype=f32, device=dev) for _ in range(4)])
 
 
-def forward_launches(prep, finish, args, ro, rd, inst, prim, mask,
-                     occluder, bufs=None):
-    """One bounce's forward on the card: ``prep`` (the shadow rays), the
-    ``occluder``'s any-hit query (K1), ``finish``; ``prep`` and ``finish``
-    are the library's K4 entry points (or its first form's, which
-    ``kernels.parity`` passes). ``bufs``: ``forward_buffers`` to write,
-    else new ones. Returns (the (L, N) occlusion, [color, kr, p,
-    refl_dir])."""
+def forward_launches(args, ro, rd, inst, prim, mask, occluder, bufs=None):
+    """One bounce's forward on the card: K4's prep (the shadow rays), the
+    ``occluder``'s any-hit query (K1), K4's finish. ``bufs``:
+    ``forward_buffers`` to write, else new ones. Returns (the (L, N)
+    occlusion, [color, kr, p, refl_dir])."""
+    lib = _build.library()
+    prep, finish = lib.yrt_shade_prep, lib.yrt_shade_finish
     n = ro.shape[0]
     dev = ro.device
     ptr = _build.ptr
@@ -402,10 +397,8 @@ class ShadeStepFn(torch.autograd.Function):
         args = _shade_args(scene, named, amb, has_kd_textures,
                            has_ks_textures, light_pos_ray, ro.shape[0],
                            records)
-        lib = _build.library()
-        occ, outs = forward_launches(lib.yrt_shade_prep,
-                                     lib.yrt_shade_finish, args, ro, rd,
-                                     inst, prim, mask, occluder)
+        occ, outs = forward_launches(args, ro, rd, inst, prim, mask,
+                                     occluder)
         _build.launches["shade"] += 1
         ctx.scene = scene
         ctx.records = records
@@ -515,7 +508,7 @@ def shade_args(scene, amb, records, has_kd_textures=True,
     are)."""
     leaves = {k: getattr(scene, k) for k in GRAD_LEAVES}
     return _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
-                       records=records)
+                       None, 0, records)
 
 
 def reverse_buffers(scene, n: int) -> dict:
@@ -631,9 +624,7 @@ def shade_bounce_cuda(scene, ro, rd, hits, amb, occluder, alive,
         records = shade_records.pack(scene)
     args = _shade_args(scene, leaves, amb, has_kd_textures, has_ks_textures,
                        light_pos, ro.shape[0], records, alive)
-    lib = _build.library()
-    _, outs = forward_launches(lib.yrt_shade_prep, lib.yrt_shade_finish,
-                               args, ro, rd, inst, prim, mask, occluder,
+    _, outs = forward_launches(args, ro, rd, inst, prim, mask, occluder,
                                bufs)
     _build.launches["shade"] += 1
     return outs
